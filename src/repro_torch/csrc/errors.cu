@@ -1,0 +1,6 @@
+// Names a CUDA error code for the Python wrappers' exceptions.
+#include <cuda_runtime.h>
+
+extern "C" const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
