@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Builds the port's CUDA kernels and runs Stark's Strassen multiply on one GPU.
+"""Builds the port's CUDA kernels and drives its two paths on one GPU.
 
 Usage: ``python3 chip_smoke.py [--seed S] [--size N] [--reps R]`` from the root
 of a checkout, on a machine with an NVIDIA Hopper GPU (sm_90a) and the CUDA
-toolkit. It uses ``repro_torch`` only, never JAX or ``repro``, and:
+toolkit. It uses ``repro_torch`` only, never JAX or ``repro``. The first path
+is Stark's Strassen multiply:
 
 1. builds every kernel in ``src/repro_torch/csrc`` (into ``build/``);
 2. holds each kernel against its plain PyTorch version, in fp32 and bf16,
@@ -18,6 +19,24 @@ toolkit. It uses ``repro_torch`` only, never JAX or ``repro``, and:
 4. times each kernel at the main path's shapes with CUDA events, beside its
    plain version, the matching PyTorch call and the card's bound.
 
+The second path serves phi4-mini-3.8B (random weights from ``--seed``, bf16,
+full width and depth) through the continuous-batching ``Engine``:
+
+a. holds the RMSNorm and flash-attention kernels against their plain
+   versions at the model's shapes;
+b. serves 8 requests of 64 to 1984 prompt tokens, checks that every one ends
+   by length with no page leaked, and that each forward launched the RMSNorm
+   kernel 65 times and each prefill the flash kernel 32 times;
+c. feeds the served tokens of two requests to the dense-cache route: each
+   must be its argmax or a near-tie of it, and in an fp32 engine (where the
+   two routes' rounding cannot flip an argmax) exactly its argmax;
+d. checks that prefill logits (flash kernel) agree with prefill + one decode
+   step (plain decode attention) within a normwise bound;
+e. prefills through kind strassen_fused and checks the fused kernel ran and
+   the logits stay within a normwise bound of the naive run;
+f. prints TTFT, TPOT, tokens/s, prefill and decode-step times, peak memory,
+   a breakdown of one prefill and each kernel's times against its bound.
+
 It exits non-zero, before printing a result, on any failure or when no CUDA
 device is present. The last lines are the card's name and power limit, a
 JSON line with one entry per kernel, and ``{"ok": true, "device": ...}``.
@@ -25,6 +44,7 @@ JSON line with one entry per kernel, and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -37,6 +57,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.backend import MatmulBackend, matmul  # noqa: E402
 from repro_torch.core.coefficients import get_scheme  # noqa: E402
 from repro_torch.core.strassen import (  # noqa: E402
@@ -46,8 +67,12 @@ from repro_torch.core.strassen import (  # noqa: E402
     split_quadrants,
 )
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.matmul.matmul import batched_matmul_cuda, matmul_cuda  # noqa: E402
 from repro_torch.kernels.matmul.ref import batched_matmul_ref, matmul_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda  # noqa: E402
 from repro_torch.kernels.strassen.ops import strassen_matmul_stages  # noqa: E402
 from repro_torch.kernels.strassen.ref import combine_ref, divide_ref, strassen1_matmul_ref  # noqa: E402
 from repro_torch.kernels.strassen.strassen import (  # noqa: E402
@@ -55,6 +80,8 @@ from repro_torch.kernels.strassen.strassen import (  # noqa: E402
     divide_cuda,
     strassen1_matmul_cuda,
 )
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 
 # Dense peaks of one H100 SXM at its full 700 W (NVIDIA data sheet): fp32 on
 # the CUDA cores (the kernels' fp32 path; TF32 would change the result), bf16
@@ -67,27 +94,67 @@ PEAK_BYTES = 3.35e12
 # match bit for bit. The products accumulate in another order than cuBLAS:
 # about sqrt(K) * 2^-24 relative in fp32, and at most a bf16 ulp or two of
 # the output (2^-8 relative) in bf16.
+# RMSNorm and flash attention take the JAX kernel tests' tolerances in fp32,
+# where the sums run in another order.
 TOL = {
     ("sum", torch.float32): 0.0, ("sum", torch.bfloat16): 0.0,
     ("mm", torch.float32): 2e-5, ("mm", torch.bfloat16): 8e-3,
+    ("norm", torch.float32): 1e-5, ("flash", torch.float32): 2e-5,
 }
+# In bf16, RMSNorm and flash attention compute in fp32 from the same inputs as
+# their plain versions and round once, so each element is held to its own
+# scale: |kernel - plain| <= tol * (|plain| + rms(plain)). One bf16 ulp is at
+# most 2^-7 of the value; the rms term covers elements near 0, where the fp32
+# sums' order shows. A dropped, doubled or mis-masked KV tile moves a late
+# row of flash attention by about its own size and fails this.
+ELEMENT_TOL = {("norm", torch.bfloat16): 2**-7, ("flash", torch.bfloat16): 2**-7}
 # Main path against fp32 torch.matmul, normwise relative error ||C - C_ref|| / ||C_ref||.
 MAIN_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
+# Serving path: logits of two routes through the bf16 model, normwise
+# ||a - b|| / ||b||. A bf16 forward differs from exact arithmetic by a few
+# bf16 roundings (2^-8 each) of the normalized output; two routes that round
+# at different places differ by about twice that. Strassen adds the bf16
+# rounding of its operand sums and 7-term combines in every projection.
+PREFILL_DECODE_LIMIT = 5e-2
+STRASSEN_LIMIT = 1e-1
+# Served bf16 tokens against the dense-cache route fed the same tokens: each
+# must be that route's argmax or lie at most NEAR_TIE x rms(logits) below its
+# top logit. The routes' logits differ by about 2e-2 of their rms (phase (d)),
+# so a pick flips only on a gap of a few times that; a wrong cache or position
+# picks tokens whose logits lie several rms below the top.
+NEAR_TIE = 0.25
+
 SCHEMES = ("strassen", "winograd", "naive8")
 COUNTED = (strassen1_matmul_cuda, batched_matmul_cuda, divide_cuda, combine_cuda)
+ALL_KERNELS = (*COUNTED, matmul_cuda, rmsnorm_cuda, flash_attention_cuda)
 REPLACES = {
     "strassen1_matmul_cuda": "src/repro/kernels/strassen/strassen.py:155",
     "batched_matmul_cuda": "src/repro/kernels/matmul/matmul.py:95",
     "divide_cuda": "src/repro/kernels/strassen/strassen.py:68",
     "combine_cuda": "src/repro/kernels/strassen/strassen.py:105",
+    "matmul_cuda": "src/repro/kernels/matmul/matmul.py:43",
+    "rmsnorm_cuda": "src/repro/kernels/rmsnorm/rmsnorm.py:29",
+    "flash_attention_cuda": "src/repro/kernels/flash_attention/flash_attention.py:105",
 }
 SOURCES = {
     "strassen1_matmul_cuda": "src/repro_torch/csrc/strassen1.cu",
     "batched_matmul_cuda": "src/repro_torch/csrc/matmul.cu",
     "divide_cuda": "src/repro_torch/csrc/signed_sum.cu",
     "combine_cuda": "src/repro_torch/csrc/signed_sum.cu",
+    "matmul_cuda": "src/repro_torch/csrc/matmul.cu",
+    "rmsnorm_cuda": "src/repro_torch/csrc/rmsnorm.cu",
+    "flash_attention_cuda": "src/repro_torch/csrc/flash_attention.cu",
 }
+
+# The served model and its traffic: prompt lengths and max_new_tokens of
+# 32 + (i % 3), as the launcher staggers them.
+SERVE_ARCH = "phi4_mini_3_8b"
+PROMPT_LENS = (64, 128, 300, 512, 1000, 1024, 1536, 1984)
+SERVE = dict(max_seq=2048, slots=4, page_size=16, sync_interval=4, temperature=0.0)
+
+# Where every tensor of the run lives.
+DEVICE = "cuda"
 
 FAILURES: list = []
 
@@ -103,7 +170,7 @@ def fail(msg: str) -> None:
 
 def randn(gen: np.random.Generator, shape, dtype: torch.dtype) -> torch.Tensor:
     x = gen.standard_normal(shape, dtype=np.float32)
-    return torch.from_numpy(x).cuda().to(dtype)
+    return torch.from_numpy(x).to(DEVICE).to(dtype)
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, kind: str) -> float:
@@ -114,28 +181,58 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, kind: str) -> floa
         return float("inf")
     diff = (got.float() - want.float()).abs()
     err = diff.max().item() if diff.numel() else 0.0
+    finite = bool(torch.isfinite(got.float()).all())
+    if (kind, want.dtype) in ELEMENT_TOL:
+        tol = ELEMENT_TOL[(kind, want.dtype)]
+        w = want.float()
+        limit = tol * (w.abs() + w.square().mean().sqrt())
+        over = (diff - limit).max().item() if diff.numel() else 0.0
+        ok = finite and over <= 0.0
+        worst = (diff / limit.clamp_min(1e-30)).max().item() if diff.numel() else 0.0
+        log(f"check {name}: max_abs_err={err:.3e}, worst err/limit={worst:.3f} with limit "
+            f"{tol:.3g} x (|plain| + rms(plain)) per element {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{name}: an element exceeds {tol:.3g} x (|plain| + rms(plain)) or not finite")
+        return err
     peak = want.float().abs().max().item() if want.numel() else 0.0
     limit = TOL[(kind, want.dtype)] * max(1.0, peak)
-    ok = bool(torch.isfinite(got.float()).all()) and err <= limit
+    ok = finite and err <= limit
     log(f"check {name}: max_abs_err={err:.3e} limit={limit:.3e} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{name}: max_abs_err {err:.3e} > {limit:.3e} or not finite")
     return err
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median milliseconds of one call, from CUDA events, after one warm-up."""
+# GPU cycles (about 1 ms) to hold the stream before a queued timing, so that
+# the host has enqueued the timed call before the card reaches it.
+QUEUE_CYCLES = 2_000_000
+
+
+def time_ms(fn, reps: int, queued: bool = False) -> float:
+    """Median milliseconds of one call, from CUDA events, after one warm-up.
+
+    With ``queued`` the stream is held busy first, so the events measure the
+    call's device time alone: a kernel of a few microseconds would otherwise
+    be timed as the host's launch gap.
+    """
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def reset_counts() -> None:
+    for fn in ALL_KERNELS:
+        fn.launches = 0
 
 
 def bound_ms(ops: float, nbytes: float, dtype: torch.dtype) -> tuple:
@@ -222,8 +319,7 @@ def main_path_runs(a, b, a16, b16) -> list:
 
 def phase_main_path(runs: list, refs: dict) -> dict:
     """Each configuration once at full size, checked; returns the launch counts."""
-    for fn in COUNTED:
-        fn.launches = 0
+    reset_counts()
     for name, call, x, w in runs:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -242,11 +338,11 @@ def phase_main_path(runs: list, refs: dict) -> dict:
         if not ok:
             fail(f"main path {name}: rel_err {err:.3e}, shape {tuple(out.shape)}, {out.dtype}")
         del out
-    counts = {fn.__name__: fn.launches for fn in COUNTED}
+    counts = {fn.__name__: fn.launches for fn in ALL_KERNELS}
     log(f"main path launches: {counts}")
-    for fname, count in counts.items():
-        if count <= 0:
-            fail(f"{fname} was not launched on the main path")
+    for fn in COUNTED:
+        if counts[fn.__name__] <= 0:
+            fail(f"{fn.__name__} was not launched on the main path")
     return counts
 
 
@@ -256,6 +352,25 @@ def phase_end_to_end(runs: list, reps: int) -> None:
         ms = time_ms(lambda: call(x, w), reps)
         n = x.shape[0]
         log(f"e2e {name}: {ms:.3f} ms, {2 * n**3 / ms / 1e9:.2f} TFLOP/s-equivalent (2N^3)")
+
+
+def time_kernel(name, kernel, plain, library, ops, moved, dtype, kind, reps) -> dict:
+    """Checks a kernel against its plain version, then times kernel, plain
+    version and library call (device time, CUDA events) beside the card's bound."""
+    err = compare(f"{name} at main-path shape", kernel(), plain(), kind)
+    ms, plain_ms = time_ms(kernel, reps, queued=True), time_ms(plain, reps, queued=True)
+    library_ms = time_ms(library, reps, queued=True) if library is not None else None
+    bms, by = bound_ms(ops, moved, dtype)
+    lib = "n/a" if library_ms is None else f"{library_ms:.3f} ms"
+    log(f"time {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
+        f"bound {bms:.3f} ms ({by}), kernel at {bms / ms:.1%} of bound")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
+                bound_by=by, max_abs_err=err)
+
+
+def json_row(fname: str, counts: dict, stats: dict) -> dict:
+    return {"name": fname, "route": "cuda", "source": SOURCES[fname],
+            "replaces": REPLACES[fname], "launches": counts[fname], **stats}
 
 
 def phase_timing(a, b, reps: int, counts: dict) -> list:
@@ -270,19 +385,10 @@ def phase_timing(a, b, reps: int, counts: dict) -> list:
     entries = []
 
     def entry(name, kernel, plain, library, ops, moved, dtype, kind):
-        err = compare(f"{name} at main-path shape", kernel(), plain(), kind)
-        ms, plain_ms = time_ms(kernel, reps), time_ms(plain, reps)
-        library_ms = time_ms(library, reps) if library is not None else None
-        bms, by = bound_ms(ops, moved, dtype)
-        lib = "n/a" if library_ms is None else f"{library_ms:.3f} ms"
-        log(f"time {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
-            f"bound {bms:.3f} ms ({by}), kernel at {bms / ms:.1%} of bound")
-        return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
-                    bound_by=by, max_abs_err=err)
+        return time_kernel(name, kernel, plain, library, ops, moved, dtype, kind, reps)
 
     def add(fname, stats):
-        entries.append({"name": fname, "route": "cuda", "source": SOURCES[fname],
-                        "replaces": REPLACES[fname], "launches": counts[fname], **stats})
+        entries.append(json_row(fname, counts, stats))
 
     # strassen1 at the depth-1 fused shape; the library call is torch.matmul
     # of the same operands before the quadrant split.
@@ -293,14 +399,14 @@ def phase_timing(a, b, reps: int, counts: dict) -> list:
         2 * 7 * h**3, 12 * plane, torch.float32, "mm"))
 
     # The staged pipeline's first divide level, and a combine level of the same size.
-    coef = torch.as_tensor(s.a_coef, dtype=torch.float32, device="cuda")
+    coef = torch.as_tensor(s.a_coef, dtype=torch.float32, device=DEVICE)
     add("divide_cuda", entry(
         f"divide fp32 {tuple(aq.shape)}", lambda: divide_cuda(aq, s.a_coef),
         lambda: divide_ref(aq, s.a_coef), lambda: torch.einsum("pq,mqij->mpij", coef, aq),
         sum_ops(s.a_coef, 1, h * h), 11 * plane, torch.float32, "sum"))
     p = divide_cuda(aq, s.a_coef)  # (1, 7, N/2, N/2)
     del aq, bq
-    ccoef = torch.as_tensor(s.c_coef, dtype=torch.float32, device="cuda")
+    ccoef = torch.as_tensor(s.c_coef, dtype=torch.float32, device=DEVICE)
     add("combine_cuda", entry(
         f"combine fp32 {tuple(p.shape)}", lambda: combine_cuda(p, s.c_coef),
         lambda: combine_ref(p, s.c_coef), lambda: torch.einsum("kp,mpij->mkij", ccoef, p),
@@ -324,6 +430,14 @@ def phase_timing(a, b, reps: int, counts: dict) -> list:
         f"batched_matmul fp32 {tuple(la.shape)}", lambda: batched_matmul_cuda(la, lb),
         lambda: batched_matmul_ref(la, lb), lambda: torch.bmm(la, lb),
         2 * 49 * (h // 2) ** 3, 3 * nbytes(la), torch.float32, "mm"))
+    del la, lb
+
+    # The single tiled matmul (matmul_pallas's counterpart, on no path that
+    # runs here) at the depth-1 leaf size, against torch.matmul.
+    am, bm = a[:h, :h].contiguous(), b[:h, :h].contiguous()
+    add("matmul_cuda", entry(
+        f"matmul fp32 {(h, h, h)}", lambda: matmul_cuda(am, bm), lambda: matmul_ref(am, bm),
+        lambda: torch.matmul(am, bm), 2 * h**3, 3 * nbytes(am), torch.float32, "mm"))
     return entries
 
 
@@ -343,6 +457,306 @@ def phase_breakdown(a, b, reps: int) -> None:
     ]
     for name, fn in steps:
         log(f"breakdown strassen_fused depth=2 fp32: {name}: {time_ms(fn, reps):.3f} ms")
+
+
+# ---------------------------------------------------------- serving path
+def flash_ops(b: int, hq: int, s: int, d: int) -> int:
+    """4 * D flops per live (query, key) pair and head (QK^T and PV); causal
+    attention of s queries over s keys has s * (s + 1) / 2 live pairs."""
+    return 4 * b * hq * d * (s * (s + 1) // 2)
+
+
+def phase_serving_kernels(gen: np.random.Generator, cfg) -> None:
+    """(a) RMSNorm and flash attention against their plain versions at the model's shapes."""
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for r in (1, 4, 1000, 4096):
+            x, w = randn(gen, (r, d), dtype), 1.0 + randn(gen, (d,), torch.float32)
+            compare(f"rmsnorm {tag} {(r, d)} w fp32", rmsnorm_cuda(x, w), rmsnorm_ref(x, w), "norm")
+        x, w = randn(gen, (1000, d), dtype), randn(gen, (d,), dtype)
+        compare(f"rmsnorm {tag} {(1000, d)} w {tag}", rmsnorm_cuda(x, w), rmsnorm_ref(x, w), "norm")
+        for sq in (1000, 2048):
+            q = randn(gen, (1, hq, sq, hd), dtype)
+            k, v = randn(gen, (1, hkv, sq, hd), dtype), randn(gen, (1, hkv, sq, hd), dtype)
+            compare(f"flash {tag} q{tuple(q.shape)} kv{tuple(k.shape)} causal",
+                    flash_attention_cuda(q, k, v), attention_ref(q, k, v), "flash")
+    q = randn(gen, (1, hq, 1000, hd), torch.bfloat16)
+    k, v = (randn(gen, (1, hkv, 1000, hd), torch.bfloat16) for _ in range(2))
+    compare("flash bf16 window=256", flash_attention_cuda(q, k, v, window=256),
+            attention_ref(q, k, v, window=256), "flash")
+    compare("flash bf16 non-causal", flash_attention_cuda(q, k, v, causal=False),
+            attention_ref(q, k, v, causal=False), "flash")
+    q, k, v = (randn(gen, (1, 16, 1000, 256), torch.bfloat16) for _ in range(3))
+    compare("flash bf16 MHA D=256 (gemma)", flash_attention_cuda(q, k, v), attention_ref(q, k, v),
+            "flash")
+
+
+def make_prompts(gen: np.random.Generator, vocab: int) -> list:
+    return [gen.integers(0, vocab, n) for n in PROMPT_LENS]
+
+
+def phase_serve(cfg, params, prompts: list) -> dict:
+    """(b) Serve the requests at full width; returns the launch counts and the engine's stats."""
+    engine = Engine(cfg, params, ServeConfig(**SERVE), device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    handles = [engine.submit(p, 32 + i % 3) for i, p in enumerate(prompts)]
+    n_events = sum(1 for _ in engine.stream(handles))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in ALL_KERNELS}
+    st = engine.serve_stats()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    forwards = st["prefills"] + st["decode_steps"]
+    log(f"serve {cfg.name}: {len(handles)} requests, {n_events} tokens in {wall:.3f} s "
+        f"= {n_events / wall:.1f} tokens/s (first requests include kernel set-up); "
+        f"prefills {st['prefills']}, decode steps {st['decode_steps']}, "
+        f"peak_mem={peak:.2f} GiB")
+    for h, p in zip(handles, prompts):
+        ttft, gaps = h.latency_stats()
+        tpot = float(np.mean(gaps)) * 1e3 if gaps else float("nan")
+        log(f"serve request {h.id}: prompt {len(p)}, {len(h.tokens())} tokens, "
+            f"{h.finish_reason}, ttft {ttft * 1e3:.1f} ms, mean tpot {tpot:.2f} ms")
+        if h.finish_reason != "length" or len(h.tokens()) != 32 + h.id % 3:
+            fail(f"serve request {h.id}: {h.finish_reason} after {len(h.tokens())} tokens")
+    if st["pages_in_use"] != 0:
+        fail(f"serve: {st['pages_in_use']} pages still in use after every request finished")
+    want = {"rmsnorm_cuda": (2 * cfg.n_layers + 1) * forwards,
+            "flash_attention_cuda": cfg.n_layers * st["prefills"]}
+    log(f"serve launches: {counts} (want rmsnorm {want['rmsnorm_cuda']} = "
+        f"{2 * cfg.n_layers + 1} x {forwards} forwards, flash {want['flash_attention_cuda']} = "
+        f"{cfg.n_layers} x {st['prefills']} prefills)")
+    for name, n in want.items():
+        if counts[name] != n or n <= 0:
+            fail(f"serve: {name} launched {counts[name]} times, want {n}")
+    return {"counts": counts, "handles": handles}
+
+
+@torch.inference_mode()
+def forced_rollout(cfg, params, prompt: np.ndarray, tokens: list) -> tuple:
+    """The dense-cache route (apply_prefill, then apply_decode) fed the prompt
+    and then ``tokens``. Returns its argmax at each step, and how far below its
+    top logit the token of ``tokens`` lies there, in units of the logits' rms."""
+    cache = M.init_cache(cfg, 1, SERVE["max_seq"], device=DEVICE)
+    batch = {"tokens": torch.as_tensor(prompt[None], device=DEVICE)}
+    logits, cache = M.apply_prefill(params, batch, cache, cfg)
+    argmaxes, gaps = [], []
+    for i, tok in enumerate(tokens):
+        if i:
+            prev = torch.tensor([[tokens[i - 1]]], device=DEVICE)
+            logits, cache = M.apply_decode(params, prev, cache, cfg)
+        row = logits[0].float()
+        argmaxes.append(int(torch.argmax(row)))
+        gaps.append(((row.max() - row[tok]) / row.square().mean().sqrt()).item())
+    return argmaxes, gaps
+
+
+def phase_engine_vs_model(cfg, params, prompts: list, served: list, seed: int) -> None:
+    """(c) The engine's greedy tokens against the dense-cache route fed the same tokens.
+
+    The bf16 engine of (b): every served token must be the dense route's
+    argmax or within NEAR_TIE of its top logit, since near-ties of the 200k
+    logits can flip on one bf16 rounding. A second engine in fp32 (the same
+    config and seed): every token must be the argmax, which makes its tokens
+    equal to a free greedy rollout on the dense cache.
+    """
+    picks = [0, 1]
+    for i in picks:
+        toks = served[i].tokens()
+        argmaxes, gaps = forced_rollout(cfg, params, prompts[i], toks)
+        equal = sum(a == t for a, t in zip(argmaxes, toks))
+        ok = max(gaps) <= NEAR_TIE
+        log(f"engine vs dense route bf16, request {i} (prompt {len(prompts[i])}): {equal} of "
+            f"{len(toks)} tokens are its argmax, largest gap {max(gaps):.3f} rms "
+            f"limit={NEAR_TIE} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"engine vs dense route bf16, request {i}: gaps {[round(g, 3) for g in gaps]}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = M.init_params(cfg32, torch.Generator(device=DEVICE).manual_seed(seed))
+    engine = Engine(cfg32, params32, ServeConfig(**SERVE), device=DEVICE)
+    handles = [engine.submit(prompts[i], 32 + i % 3) for i in picks]
+    engine.run()
+    for i, h in zip(picks, handles):
+        argmaxes, _ = forced_rollout(cfg32, params32, prompts[i], h.tokens())
+        ok = h.tokens() == argmaxes
+        log(f"engine vs dense rollout fp32, request {i} (prompt {len(prompts[i])}): "
+            f"{len(argmaxes)} tokens {'equal' if ok else 'DIFFER'}")
+        if not ok:
+            fail(f"engine vs dense rollout fp32, request {i}: {h.tokens()} != {argmaxes}")
+    del engine, params32
+    torch.cuda.empty_cache()
+
+
+def last_logits(params, cfg, tokens: torch.Tensor, split: bool) -> torch.Tensor:
+    """Last-position logits of a prefill, or of a prefill of all but the last
+    token followed by one decode step."""
+    cache = M.init_cache(cfg, 1, tokens.shape[1], device=DEVICE)
+    if not split:
+        return M.apply_prefill(params, {"tokens": tokens}, cache, cfg)[0].float()
+    _, cache = M.apply_prefill(params, {"tokens": tokens[:, :-1]}, cache, cfg)
+    return M.apply_decode(params, tokens[:, -1:], cache, cfg)[0].float()
+
+
+def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+
+def phase_prefill_vs_decode(cfg, params, gen: np.random.Generator) -> None:
+    """(d) Prefill logits (flash kernel) against prefill + one decode step."""
+    tokens = torch.as_tensor(gen.integers(0, cfg.vocab, (1, 1000)), device=DEVICE)
+    full, split = last_logits(params, cfg, tokens, False), last_logits(params, cfg, tokens, True)
+    err = rel_norm(split, full)
+    same = int(torch.argmax(full)) == int(torch.argmax(split))
+    ok = bool(torch.isfinite(full).all() and torch.isfinite(split).all()) and err <= PREFILL_DECODE_LIMIT
+    log(f"prefill vs prefill+decode, 1000 tokens bf16: rel_err={err:.3e} "
+        f"limit={PREFILL_DECODE_LIMIT:.0e}, same argmax {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"prefill vs prefill+decode: rel_err {err:.3e}")
+
+
+def phase_strassen_prefill(cfg, params, gen: np.random.Generator) -> None:
+    """(e) One 1024-token prefill with every projection through strassen_fused."""
+    tokens = torch.as_tensor(gen.integers(0, cfg.vocab, (1, 1024)), device=DEVICE)
+    naive = last_logits(params, cfg, tokens, False)
+    fused = dataclasses.replace(
+        cfg, matmul_backend=MatmulBackend(kind="strassen_fused", depth=1, min_dim=1024))
+    strassen1_matmul_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = last_logits(params, fused, tokens, False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = strassen1_matmul_cuda.launches
+    err = rel_norm(got, naive)
+    ok = launches > 0 and bool(torch.isfinite(got).all()) and err <= STRASSEN_LIMIT
+    log(f"prefill 1024 tokens, strassen_fused depth=1: strassen1 launches {launches}, "
+        f"rel_err vs naive={err:.3e} limit={STRASSEN_LIMIT:.0e}, {secs * 1e3:.1f} ms "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"strassen_fused prefill: {launches} strassen1 launches, rel_err {err:.3e}")
+
+
+def device_split(fn) -> dict:
+    """Device time (ms) of the kernels one call of ``fn`` runs, by class, from
+    torch.profiler's CUDA activity; empty when the profiler saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name = evt.name.lower()
+        if "flash_kernel" in name:
+            key = "flash kernel"
+        elif "rmsnorm_kernel" in name:
+            key = "rmsnorm kernel"
+        elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
+            key = "matmul (cuBLAS)"
+        else:
+            key = "other kernels"
+        split[key] = split.get(key, 0.0) + evt.device_time_total / 1e3
+    return split
+
+
+def log_split(what: str, wall_ms: float, split: dict) -> None:
+    if not split:
+        log(f"device split {what}: not measured (the profiler recorded no kernel)")
+        return
+    busy = sum(split.values())
+    parts = "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+    log(f"device split {what}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"(idle share {1 - busy / wall_ms:.1%}); {parts}")
+
+
+def phase_serving_numbers(cfg, params, prompts: list, reps: int) -> None:
+    """(f) Prefill and decode-step times, and where one prefill's time goes."""
+    for p in prompts:
+        tokens = torch.as_tensor(p[None], device=DEVICE)
+        ms = time_ms(lambda: last_logits(params, cfg, tokens, False), reps)
+        log(f"prefill {len(p)} tokens bf16: {ms:.3f} ms")
+
+    engine = Engine(cfg, params, ServeConfig(**SERVE), device=DEVICE)
+    hs = [engine.submit(prompts[4], 24) for _ in range(SERVE["slots"])]
+    while any(h.state.value != "decoding" for h in hs):
+        engine.step()
+    times = []
+    for _ in range(16):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    log(f"decode step, {SERVE['slots']} live slots at ~{len(prompts[4])} tokens: median "
+        f"{step_ms:.3f} ms (host clock around a synchronized step)")
+    log_split(f"decode step, {SERVE['slots']} live slots", step_ms, device_split(engine.step))
+    engine.run()
+
+    # One 1024-token prefill, and its parts timed alone with CUDA events.
+    s, d, f = 1024, cfg.d_model, cfg.d_ff
+    hq, hkv, hd, n = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    gen = np.random.default_rng(1)
+    tokens = torch.as_tensor(gen.integers(0, cfg.vocab, (1, s)), device=DEVICE)
+    total = time_ms(lambda: last_logits(params, cfg, tokens, False), reps)
+    q = randn(gen, (1, hq, s, hd), torch.bfloat16)
+    k, v = (randn(gen, (1, hkv, s, hd), torch.bfloat16) for _ in range(2))
+    x, w = randn(gen, (s, d), torch.bfloat16), torch.ones(d, device=DEVICE)
+    flash = n * time_ms(lambda: flash_attention_cuda(q, k, v), reps)
+    norm = (2 * n + 1) * time_ms(lambda: rmsnorm_cuda(x, w), reps)
+    proj = 0.0
+    for k_in, n_out, count in ((d, hq * hd, n), (d, hkv * hd, 2 * n), (hq * hd, d, n),
+                               (d, f, 2 * n), (f, d, n), (d, cfg.vocab, 1)):
+        xa, wb = randn(gen, (s, k_in), torch.bfloat16), randn(gen, (k_in, n_out), torch.bfloat16)
+        proj += count * time_ms(lambda: torch.matmul(xa, wb), reps)
+        del xa, wb
+    log(f"breakdown prefill {s} tokens bf16, parts timed alone: total {total:.3f} ms; "
+        f"flash kernel x{n} {flash:.3f} ms; rmsnorm kernel x{2 * n + 1} {norm:.3f} ms; "
+        f"projections and unembed (torch.matmul) {proj:.3f} ms; "
+        f"rest {total - flash - norm - proj:.3f} ms")
+    log_split(f"prefill {s} tokens bf16", total,
+              device_split(lambda: last_logits(params, cfg, tokens, False)))
+
+
+def phase_serving_timing(cfg, reps: int, counts: dict) -> list:
+    """Each serving kernel at the model's prefill shape, beside its bound, its
+    plain version and the PyTorch call that computes the same function.
+    RMSNorm's arithmetic is fp32 (its bound is its bytes either way); the
+    flash bound takes the bf16 tensor-core rate, the fastest the card could
+    do that work."""
+    gen = np.random.default_rng(2)
+    s, d, hq, hkv, hd = 1024, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x, w = randn(gen, (s, d), torch.bfloat16), 1.0 + randn(gen, (d,), torch.float32)
+    w16 = w.bfloat16()
+    rows = [json_row("rmsnorm_cuda", counts, time_kernel(
+        f"rmsnorm bf16 {(s, d)}", lambda: rmsnorm_cuda(x, w), lambda: rmsnorm_ref(x, w),
+        lambda: torch.nn.functional.rms_norm(x, (d,), w16, 1e-6),
+        3 * s * d, 2 * nbytes(x) + nbytes(w), torch.float32, "norm", reps))]
+    xd = randn(gen, (SERVE["slots"], d), torch.bfloat16)
+    time_kernel(f"rmsnorm bf16 {tuple(xd.shape)} (decode)", lambda: rmsnorm_cuda(xd, w),
+                lambda: rmsnorm_ref(xd, w), lambda: torch.nn.functional.rms_norm(xd, (d,), w16, 1e-6),
+                3 * xd.numel(), 2 * nbytes(xd) + nbytes(w), torch.float32, "norm", reps)
+    for sq in (s, 2048):
+        q = randn(gen, (1, hq, sq, hd), torch.bfloat16)
+        k, v = (randn(gen, (1, hkv, sq, hd), torch.bfloat16) for _ in range(2))
+        kr, vr = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
+        stats = time_kernel(
+            f"flash bf16 q{tuple(q.shape)} kv{tuple(k.shape)} causal",
+            lambda: flash_attention_cuda(q, k, v), lambda: attention_ref(q, k, v),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, kr, vr, is_causal=True),
+            flash_ops(1, hq, sq, hd), 2 * nbytes(q) + nbytes(k, v), torch.bfloat16,
+            "flash", reps)
+        if sq == s:
+            rows.append(json_row("flash_attention_cuda", counts, stats))
+    return rows
 
 
 def report_failures() -> int:
@@ -377,13 +791,16 @@ def main() -> int:
     phase_build()
     gen = np.random.default_rng(args.seed)
     phase_kernels(gen)
+    serve_gen = np.random.default_rng([args.seed, 2])  # the serving path's own stream
+    cfg = get_config(SERVE_ARCH)
+    phase_serving_kernels(serve_gen, cfg)
     if FAILURES:  # no point driving the main path through a wrong kernel
         return report_failures()
 
     n = args.size
     t = time.perf_counter()
-    a = torch.from_numpy(gen.standard_normal((n, n), dtype=np.float32)).cuda()
-    b = torch.from_numpy(gen.standard_normal((n, n), dtype=np.float32)).cuda()
+    a = torch.from_numpy(gen.standard_normal((n, n), dtype=np.float32)).to(DEVICE)
+    b = torch.from_numpy(gen.standard_normal((n, n), dtype=np.float32)).to(DEVICE)
     a16, b16 = a.bfloat16(), b.bfloat16()
     ref32 = torch.matmul(a, b)
     ref16 = torch.matmul(a16.float(), b16.float())
@@ -397,6 +814,23 @@ def main() -> int:
     del runs, a16, b16
     entries = phase_timing(a, b, args.reps, counts)
     phase_breakdown(a, b, args.reps)
+    del a, b
+    torch.cuda.empty_cache()
+    log(f"Strassen path done at {time.perf_counter() - t0:.1f} s")
+
+    t = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    log(f"{cfg.name}: {sum(p.numel() for p in params.parameters()) / 1e9:.3f} B parameters "
+        f"({cfg.dtype}, {cfg.n_layers} layers, d_model {cfg.d_model}) from seed {args.seed} "
+        f"in {time.perf_counter() - t:.1f} s")
+    prompts = make_prompts(serve_gen, cfg.vocab)
+    served = phase_serve(cfg, params, prompts)
+    phase_engine_vs_model(cfg, params, prompts, served["handles"], args.seed)
+    phase_prefill_vs_decode(cfg, params, serve_gen)
+    phase_strassen_prefill(cfg, params, serve_gen)
+    phase_serving_numbers(cfg, params, prompts, args.reps)
+    entries += phase_serving_timing(cfg, args.reps, served["counts"])
     log(f"total {time.perf_counter() - t0:.1f} s")
 
     if FAILURES:

@@ -8,9 +8,11 @@ level runs inside the fused CUDA kernel (``strassen_fused``). Below
 ``min_dim`` the call falls back to the plain matmul, like Stark's leaf
 threshold.
 
-Kinds ``strassen_oot`` and ``auto``, and the sharding hook ``w_logical``, are
-not ported yet: they raise :class:`NotImplementedError` naming the ROADMAP
-item that ports them, and never route elsewhere.
+Kinds ``strassen_oot`` and ``auto`` are not ported yet: they raise
+:class:`NotImplementedError` naming the ROADMAP item that ports them, and
+never route elsewhere. The sharding hook ``w_logical`` is accepted and
+ignored: the port has no sharding context yet (ROADMAP.md queue 1 item 8),
+and with none the JAX package's ``constrain`` is the identity too.
 """
 from __future__ import annotations
 
@@ -55,7 +57,6 @@ JIT_SAFE_KINDS: Tuple[str, ...] = tuple(k for k in VALID_KINDS if k not in EAGER
 _NOT_PORTED = {
     "auto": "ROADMAP.md queue 1 item 5 (core/cost_model.py and core/autotune.py)",
     "strassen_oot": "ROADMAP.md queue 1 item 6 (blocks/, the out-of-core runtime)",
-    "w_logical": "ROADMAP.md queue 1 item 8 (core/distributed.py, the mesh strategies)",
 }
 
 # Process-default matmul precision: a backend knob set once, not threaded
@@ -164,8 +165,9 @@ def matmul(
       x: (..., K) activations; leading dims are flattened into M.
       w: (K, N) weights.
       backend: routing config.
-      w_logical: sharding names of w's dims in the JAX package; not ported
-        (raises NotImplementedError when set).
+      w_logical: sharding names of w's dims, as the JAX package takes them.
+        Ignored: with no sharding context (the port has none until ROADMAP.md
+        queue 1 item 8) the JAX package ignores them too.
       site: optional call-site tag, recorded on the span.
 
     Returns:
@@ -184,20 +186,15 @@ def matmul(
         kind=backend.kind, site=site,
         traced=torch.compiler.is_compiling(),
     ):
-        return _matmul_routed(x, w, backend, w_logical, lead, m, k, n)
+        return _matmul_routed(x, w, backend, lead, m, k, n)
 
 
-def _matmul_routed(x, w, backend, w_logical, lead, m, k, n):
+def _matmul_routed(x, w, backend, lead, m, k, n):
     if backend.kind in _NOT_PORTED:
         raise NotImplementedError(
             f"kind {backend.kind!r} is not ported to repro_torch yet: "
             f"see {_NOT_PORTED[backend.kind]}"
         )
-    if w_logical is not None:
-        raise NotImplementedError(
-            f"w_logical is not ported to repro_torch yet: see {_NOT_PORTED['w_logical']}"
-        )
-
     precision = resolve_precision(backend)
     depth = backend.effective_depth(m, k, n)
     if depth == 0:

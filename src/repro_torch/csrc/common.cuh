@@ -37,4 +37,50 @@ __device__ __forceinline__ void ld4(float* dst, const float* src) {
   dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
 }
 
+// True when a pointer allows 16-byte vector loads and stores.
+inline bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+// VEC consecutive elements of storage type T, loaded as floats and stored
+// back rounded once: one element, a float4 of fp32, or eight bf16 (16 bytes).
+template <typename T, int VEC>
+struct Vec;
+
+template <typename T>
+struct Vec<T, 1> {
+  static __device__ __forceinline__ void load(float* dst, const T* src) { dst[0] = to_f32(*src); }
+  static __device__ __forceinline__ void store(T* dst, const float* src) { *dst = from_f32<T>(src[0]); }
+};
+
+template <>
+struct Vec<float, 4> {
+  static __device__ __forceinline__ void load(float* dst, const float* src) {
+    const float4 v = *reinterpret_cast<const float4*>(src);
+    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+  }
+  static __device__ __forceinline__ void store(float* dst, const float* src) {
+    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void load(float* dst, const __nv_bfloat16* src) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      dst[2 * i] = f.x;
+      dst[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* dst, const float* src) {
+    uint4 v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
+    *reinterpret_cast<uint4*>(dst) = v;
+  }
+};
+
 }  // namespace repro

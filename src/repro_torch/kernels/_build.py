@@ -38,6 +38,7 @@ _DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 # C signature of every entry point: argument types, all returning int.
 _SIGNATURES = {
     # a, b, c, dtype, mb, m, k, n, stream
@@ -46,6 +47,10 @@ _SIGNATURES = {
     "repro_signed_sum": [_P, _P, _I, _L, _I, _I, _L, _P, _P],
     # aq, bq, cq, dtype, r, mb, m2, k2, n2, coefs (host), stream
     "repro_strassen1": [_P, _P, _P, _I, _I, _L, _L, _L, _L, _P, _P],
+    # x, w, out, dtype, w dtype, rows, d, eps, stream
+    "repro_rmsnorm": [_P, _P, _P, _I, _I, _L, _L, _F, _P],
+    # q, k, v, out, dtype, b, hq, hkv, sq, sk, d, causal, window, scale, stream
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _I, _L, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

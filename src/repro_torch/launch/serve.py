@@ -1,0 +1,130 @@
+"""Serving launcher: the port's continuous-batching engine for a dense decoder.
+
+The port of ``repro.launch.serve``, with its flags plus ``--device``. It runs
+on the card unless asked for the CPU:
+
+  python -m repro_torch.launch.serve --arch phi4_mini_3_8b --full
+  python -m repro_torch.launch.serve --arch phi4_mini_3_8b --device cpu --smoke
+
+Parameters are random, drawn on the device from ``--seed`` in the config's
+dtype. ``--mesh`` (ROADMAP.md queue 1 item 8) and ``--trace-out``
+(``obs/export.py``, queue 1 item 7) are not ported and exit with a message.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core.backend import MatmulBackend
+from repro_torch.models import model as M
+from repro_torch.serving.engine import Engine, ServeConfig
+
+# The backend kinds that run on the device in this port.
+ON_DEVICE_KINDS = ("naive", "strassen", "winograd", "strassen_fused")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=list(ARCH_IDS), default="phi4_mini_3_8b")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--max-seq", type=int, default=256)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    # continuous-batching surface (ServeConfig)
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode bucket width (requests resident at once)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page in the paged pool")
+    ap.add_argument("--page-budget", type=int, default=0,
+                    help="usable KV pages; 0 = slots * ceil(max_seq/page_size)")
+    ap.add_argument("--admission", choices=["queue", "reject"], default="queue")
+    ap.add_argument("--sync-interval", type=int, default=4,
+                    help="decode steps between host<->device token syncs")
+    ap.add_argument("--batching", choices=["continuous", "static"], default="continuous",
+                    help="scheduler: continuous admits mid-decode; static "
+                    "gang-schedules full batches (baseline)")
+    ap.add_argument("--request-timeout", type=float, default=0.0,
+                    help="per-request watchdog seconds; 0 disables")
+    ap.add_argument("--mesh", action="store_true", help="not ported (ROADMAP.md queue 1 item 8)")
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--backend", choices=list(ON_DEVICE_KINDS), default=None,
+                    help="matmul routing of every projection")
+    ap.add_argument("--strassen-depth", type=int, default=1)
+    ap.add_argument("--strassen-min-dim", type=int, default=1024)
+    ap.add_argument("--trace-out", default=None,
+                    help="not ported (obs/export.py, ROADMAP.md queue 1 item 7)")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError("--mesh is not ported to repro_torch yet: see ROADMAP.md queue 1 item 8")
+    if args.trace_out:
+        raise NotImplementedError(
+            "--trace-out is not ported to repro_torch yet (obs/export.py): see ROADMAP.md queue 1 item 7"
+        )
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("repro_torch.launch.serve: no CUDA device; pass --device cpu to serve on the CPU",
+              file=sys.stderr)
+        return 2
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.backend:
+        cfg = dataclasses.replace(
+            cfg,
+            matmul_backend=MatmulBackend(
+                kind=args.backend, depth=max(args.strassen_depth, 1), min_dim=args.strassen_min_dim,
+            ),
+        )
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed))
+    engine = Engine(
+        cfg,
+        params,
+        ServeConfig(
+            max_seq=args.max_seq,
+            temperature=args.temperature,
+            slots=args.slots,
+            page_size=args.page_size,
+            page_budget=args.page_budget,
+            admission=args.admission,
+            sync_interval=args.sync_interval,
+            batching=args.batching,
+            request_timeout_s=args.request_timeout,
+        ),
+        device=device,
+    )
+    print(f"arch={cfg.name} on {device}: parameters made in {time.perf_counter() - t0:.2f}s")
+    # request API: submit the batch as independent requests (staggered
+    # lengths) and let the scheduler pack the decode bucket
+    prompts = np.random.default_rng(args.seed).integers(0, cfg.vocab, (args.batch, args.prompt_len))
+    t0 = time.perf_counter()
+    handles = [engine.submit(prompts[i], args.new_tokens + (i % 3)) for i in range(args.batch)]
+    n = len(list(engine.stream(handles)))
+    dt = time.perf_counter() - t0
+    for h in handles:
+        ttft, _ = h.latency_stats()
+        ttft_s = "n/a" if ttft is None else f"{ttft:.3f}s"
+        print(f"  req {h.id}: {h.state.value} ({h.finish_reason}) "
+              f"{len(h.tokens())} tokens, ttft={ttft_s}")
+    print(f"arch={cfg.name} served {len(handles)} requests / {n} tokens "
+          f"in {dt:.2f}s ({n / dt:.1f} tok/s incl. first-call set-up)")
+    print(f"serve_stats: {engine.serve_stats()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,201 @@
+"""Attention blocks: GQA/MQA/MHA, full/causal/local, prefill + decode paths.
+
+The port of ``repro.models.attention``. Two execution paths, one semantics:
+
+  * prefill/train — :func:`repro_torch.kernels.flash_attention.ops.flash_attention`
+    over the whole sequence: the hand-written CUDA flash kernel on the card
+    (where the JAX model calls its pure-JAX ``chunked_attention``, the XLA
+    equivalent of the Pallas flash kernel), its plain version on the CPU;
+  * decode — :func:`decode_attention`, one query token against a cache,
+    plain PyTorch as in the JAX package.
+
+Caches are updated in place (the JAX code returns new arrays): a cache
+passed to :func:`attention_block` is the one it returns, written.
+Cross-attention (encoder-decoder) waits for that family (ROADMAP.md queue 1
+item 9).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Linear, init_linear, linear
+from repro_torch.models.rope import apply_mrope, apply_rope
+
+__all__ = [
+    "Attention",
+    "init_attention",
+    "attention_block",
+    "decode_attention",
+    "init_kv_cache",
+]
+
+_NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    """Projections ``wq``, ``wk``, ``wv`` (d, n*hd) and ``wo`` (n*hd, d), stored flat."""
+
+    def __init__(self, wq: Linear, wk: Linear, wv: Linear, wo: Linear):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Attention:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return Attention(
+        init_linear(gen, d, (h * hd,), dtype, bias=cfg.qkv_bias),
+        init_linear(gen, d, (hkv * hd,), dtype, bias=cfg.qkv_bias),
+        init_linear(gen, d, (hkv * hd,), dtype, bias=cfg.qkv_bias),
+        init_linear(gen, h * hd, (d,), dtype, scale=(h * hd) ** -0.5),
+    )
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype, device) -> dict:
+    cache_dtype = getattr(torch, cfg.cache_dtype) if cfg.cache_dtype else dtype
+    shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cache_dtype, device=device),
+        "v": torch.zeros(shape, dtype=cache_dtype, device=device),
+    }
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One-token attention against a cache: q (B, Hq, 1, d), cache (B, Hkv, S, d).
+
+    Positions > pos (unwritten cache) and, with a window, <= pos - window
+    are masked. ``pos`` is a scalar (lockstep batch) or (B,) per-row
+    positions (continuous-batching slots). q is scaled and rounded to the
+    cache's dtype, the products accumulate in fp32 (the JAX code's
+    ``preferred_element_type``), and the probabilities are rounded to the
+    cache's dtype before the product with v.
+    """
+    b, hq, _, d = q.shape
+    _, hkv, s, _ = k_cache.shape
+    g = hq // hkv
+    scale = scale if scale is not None else d**-0.5
+    pos = torch.as_tensor(pos, device=q.device)
+    pos = pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1)  # (B or 1, 1)
+    qg = (q.reshape(b, hkv, g, d).float() * scale).to(k_cache.dtype)
+    scores = torch.matmul(qg.float(), k_cache.float().transpose(-1, -2))  # (B, Hkv, g, S)
+    cols = torch.arange(s, device=q.device)[None, :]
+    live = cols <= pos  # (B or 1, S)
+    if window is not None:
+        live = live & (cols > pos - window)
+    scores = torch.where(live[:, None, None, :], scores, _NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.matmul(p.to(v_cache.dtype).float(), v_cache.float())  # (B, Hkv, g, d)
+    return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def _project_qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    backend = cfg.matmul_backend
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = linear(params.wq, x, backend, w_logical=("fsdp", "heads"), site="attn.wq").reshape(b, s, h, hd)
+    k = linear(params.wk, x, backend, w_logical=("fsdp", "heads"), site="attn.wk").reshape(b, s, hkv, hd)
+    v = linear(params.wv, x, backend, w_logical=("fsdp", "heads"), site="attn.wv").reshape(b, s, hkv, hd)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)  # (B, H, S, hd)
+    if cfg.mrope:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _cache_write(cache: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor, vec: bool) -> torch.Tensor:
+    """Write one token's K/V at ``pos``, in place: lockstep (scalar pos) or
+    per-row (vector pos, each batch row at its own sequence position)."""
+    if not vec:
+        cache.index_copy_(2, pos.reshape(1).long(), kv.to(cache.dtype))
+    else:
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, :, pos.long(), :] = kv[:, :, 0, :].to(cache.dtype)
+    return cache
+
+
+def _prefix_write(cache: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Write a whole K/V prefix at scalar ``pos``, in place."""
+    idx = pos.reshape(1).long() + torch.arange(kv.shape[2], device=cache.device)
+    return cache.index_copy_(2, idx, kv.to(cache.dtype))
+
+
+def attention_block(
+    params: Attention,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    cache: Optional[dict] = None,
+    cache_pos: Optional[torch.Tensor] = None,
+    ring: bool = False,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Full attention sub-block (pre-norm residual handled by caller).
+
+    Train/prefill: flash attention over the whole sequence (the cache, if
+    given, gets the K/V prefix at ``cache_pos``). Decode: cache given and
+    S == 1 -> cache update + :func:`decode_attention`. ring: sliding-window
+    ring-buffer cache of size == window (token t lives in slot t % W).
+    """
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, positions)
+
+    new_cache = None
+    if cache is not None:
+        # cache storage dtype may be quantized (cfg.cache_dtype)
+        k = k.to(cache["k"].dtype)
+        v = v.to(cache["v"].dtype)
+    if cache is not None and s == 1:
+        vec = cache_pos.ndim == 1  # per-row write positions (slot batch)
+        if ring:
+            w_size = cache["k"].shape[2]
+            slot = cache_pos % w_size
+            kc = _cache_write(cache["k"], k, slot, vec)
+            vc = _cache_write(cache["v"], v, slot, vec)
+            # every resident token is in-window by construction; mask only
+            # the not-yet-written slots before the first wrap.
+            pos_eff = torch.clamp(cache_pos, max=w_size - 1)
+            out = decode_attention(q, kc, vc, pos_eff, window=None)
+        else:
+            kc = _cache_write(cache["k"], k, cache_pos, vec)
+            vc = _cache_write(cache["v"], v, cache_pos, vec)
+            out = decode_attention(q, kc, vc, cache_pos, window=window)
+        new_cache = {"k": kc, "v": vc}
+    else:
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        if cache is not None and ring:
+            w_size = cache["k"].shape[2]
+            if s >= w_size:
+                # keep only the last W tokens; token t -> slot t % W.
+                shift = (s - w_size) % w_size
+                kc = torch.roll(k[:, :, -w_size:], shift, dims=2)
+                vc = torch.roll(v[:, :, -w_size:], shift, dims=2)
+            else:
+                kc = _prefix_write(cache["k"], k, cache_pos)
+                vc = _prefix_write(cache["v"], v, cache_pos)
+            new_cache = {"k": kc, "v": vc}
+        elif cache is not None:
+            new_cache = {
+                "k": _prefix_write(cache["k"], k, cache_pos),
+                "v": _prefix_write(cache["v"], v, cache_pos),
+            }
+
+    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    out = linear(params.wo, out, cfg.matmul_backend, w_logical=("heads", "fsdp"), site="attn.wo")
+    return out, new_cache

@@ -1,0 +1,199 @@
+"""Decoder-LM assembly: pattern-cycled blocks and serving caches.
+
+The port of ``repro.models.transformer`` for the layer kinds ``attn`` and
+``local_attn``. The JAX package stacks layers into scan groups for its
+compiler and rematerializes them in training; on one card, run eagerly,
+neither applies, so the layers are an ``nn.ModuleList`` in layer order
+(``convert.params_from_jax`` unstacks the JAX groups onto it). The kinds
+``mlstm``, ``slstm`` and ``rglru`` and MoE FFNs raise
+:class:`NotImplementedError` naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models.attention import Attention, attention_block, init_attention, init_kv_cache
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Embed, Norm, embed, layernorm, rmsnorm, unembed
+from repro_torch.models.mlp import MLP, init_mlp, mlp_block
+
+__all__ = ["Layer", "Transformer", "init_params", "init_cache", "forward", "check_ported"]
+
+# Where each block kind or FFN this slice does not run gets ported.
+_NOT_PORTED = {
+    "mlstm": "ROADMAP.md queue 1 item 9 (xLSTM blocks, with queue 2 item 8: slstm_seq_pallas)",
+    "slstm": "ROADMAP.md queue 1 item 9 (xLSTM blocks, with queue 2 item 8: slstm_seq_pallas)",
+    "rglru": "ROADMAP.md queue 1 item 9 (RG-LRU blocks of recurrentgemma)",
+    "moe": "ROADMAP.md queue 1 item 9 (MoE FFNs of olmoe and qwen2-moe)",
+}
+_KINDS = ("attn", "local_attn")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError unless every layer of ``cfg`` is ported."""
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: MoE is not ported to repro_torch yet: see {_NOT_PORTED['moe']}")
+    for kind in dict.fromkeys(cfg.layer_kinds()):
+        if kind in _NOT_PORTED:
+            raise NotImplementedError(
+                f"{cfg.name}: block kind {kind!r} is not ported to repro_torch yet: see {_NOT_PORTED[kind]}"
+            )
+        if kind not in _KINDS:
+            raise ValueError(f"unknown block kind {kind!r}")
+
+
+class Layer(nn.Module):
+    """One block: ``ln1`` + ``mixer``, then ``ln2`` + ``ffn`` when the config has an FFN."""
+
+    def __init__(self, ln1: Norm, mixer: Attention, ln2: Optional[Norm], ffn: Optional[MLP]):
+        super().__init__()
+        self.ln1, self.mixer, self.ln2, self.ffn = ln1, mixer, ln2, ffn
+
+
+class Transformer(nn.Module):
+    """``embed``, ``layers`` (in layer order) and ``final_norm``; ``cfg`` rides along."""
+
+    def __init__(self, cfg: ModelConfig, embed: Embed, layers, final_norm: Norm):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = embed
+        self.layers = nn.ModuleList(layers)
+        self.final_norm = final_norm
+
+    def forward(self, tokens, *, positions=None, cache=None, causal=True):
+        return forward(self, tokens, self.cfg, positions=positions, cache=cache, causal=causal)
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _norm(cfg: ModelConfig, params: Norm, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layernorm(params, x, cfg.norm_eps)
+    return rmsnorm(params, x, cfg.norm_eps)
+
+
+def _init_norm(cfg: ModelConfig, dtype: torch.dtype, device) -> Norm:
+    return Norm(cfg.norm, cfg.d_model, dtype, device)
+
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Layer:
+    ln1 = _init_norm(cfg, dtype, gen.device)
+    mixer = init_attention(gen, cfg, dtype)
+    if cfg.d_ff > 0:
+        return Layer(ln1, mixer, _init_norm(cfg, dtype, gen.device), init_mlp(gen, cfg, dtype))
+    return Layer(ln1, mixer, None, None)
+
+
+def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype, device) -> dict:
+    if kind == "local_attn" and cfg.local_window:
+        # ring buffer: O(window) regardless of context length
+        return init_kv_cache(cfg, batch, min(max_seq, cfg.local_window), dtype, device)
+    return init_kv_cache(cfg, batch, max_seq, dtype, device)
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Transformer:
+    """The decoder LM, with every parameter drawn from ``gen`` on its device
+    in ``cfg.dtype`` (normal draws in fp32, scaled, then cast, as the JAX
+    package does; the draws themselves differ from ``jax.random``'s)."""
+    check_ported(cfg)
+    dtype, device = _dtype(cfg.dtype), gen.device
+    emb = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=device, dtype=torch.float32)
+    emb = (emb * cfg.d_model**-0.5).to(dtype)
+    unemb = None
+    if not cfg.tie_embeddings:
+        unemb = torch.randn((cfg.d_model, cfg.vocab), generator=gen, device=device, dtype=torch.float32)
+        unemb = (unemb * cfg.d_model**-0.5).to(dtype)
+    layers = [_init_layer(gen, cfg, dtype) for _ in range(cfg.n_layers)]
+    return Transformer(cfg, Embed(emb, unemb), layers, _init_norm(cfg, dtype, device))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *, device="cuda") -> dict:
+    """Serving cache: ``pos`` and one {k, v} per layer, in layer order."""
+    dtype = dtype or _dtype(cfg.dtype)
+    return {
+        "pos": torch.zeros((), dtype=torch.long, device=device),
+        "layers": [
+            _init_layer_cache(cfg, cfg.block_kind(i), batch, max_seq, dtype, device)
+            for i in range(cfg.n_layers)
+        ],
+    }
+
+
+def _apply_layer(lparams: Layer, x, cfg: ModelConfig, kind: str, *, positions, cache_entry,
+                 cache_pos, causal: bool):
+    """One block: pre-norm mixer + residual (+ pre-norm FFN + residual)."""
+    h = _norm(cfg, lparams.ln1, x)
+    window = cfg.local_window if kind == "local_attn" and cfg.local_window else None
+    ring = kind == "local_attn" and bool(cfg.local_window)
+    mix, new_cache = attention_block(
+        lparams.mixer, h, cfg,
+        positions=positions, causal=causal, window=window,
+        cache=cache_entry, cache_pos=cache_pos, ring=ring,
+    )
+    x = x + mix
+    if lparams.ffn is not None:
+        x = x + mlp_block(lparams.ffn, _norm(cfg, lparams.ln2, x), cfg)
+    return x, new_cache
+
+
+def forward(
+    params: Transformer,
+    tokens_or_embeds: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    cache: Optional[dict] = None,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+    """Run the decoder stack.
+
+    Args:
+      tokens_or_embeds: (B, S) int tokens, or (B, S, D) precomputed embeds.
+      positions: (B, S) or (B, S, 3) for mrope; defaults to arange (train)
+        or the cache's ``pos`` offset (decode/prefill).
+      cache: serving cache -> decode/prefill mode, written in place; None ->
+        train mode.
+
+    Returns:
+      (logits (B, S, V), new_cache or None, aux_loss scalar)
+    """
+    check_ported(cfg)
+    if tokens_or_embeds.ndim == 2:
+        x = embed(params.embed, tokens_or_embeds)
+    else:
+        x = tokens_or_embeds.to(_dtype(cfg.dtype))
+    b, s = x.shape[0], x.shape[1]
+
+    # cache["pos"] is a scalar for lockstep batches, or (B,) for the
+    # continuous-batching engine's slot-indexed decode.
+    cache_pos = cache["pos"] if cache is not None else None
+    if positions is None:
+        if cache_pos is None:
+            off = 0
+        elif cache_pos.ndim == 1:
+            off = cache_pos[:, None]  # (B, 1) broadcasts over seq
+        else:
+            off = cache_pos
+        positions = (torch.arange(s, device=x.device)[None, :] + off).expand(b, s)
+        if cfg.mrope:
+            positions = positions[..., None].expand(b, s, 3)
+
+    new_cache = {"pos": cache_pos + s, "layers": []} if cache is not None else None
+    for i, lparams in enumerate(params.layers):
+        x, nc = _apply_layer(
+            lparams, x, cfg, cfg.block_kind(i),
+            positions=positions,
+            cache_entry=cache["layers"][i] if cache is not None else None,
+            cache_pos=cache_pos, causal=causal,
+        )
+        if cache is not None:
+            new_cache["layers"].append(nc)
+
+    x = _norm(cfg, params.final_norm, x)
+    logits = unembed(params.embed, x, tied=cfg.tie_embeddings, softcap=cfg.logit_softcap)
+    return logits, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -98,10 +98,19 @@ def test_unported_kinds_raise_not_implemented(kind, item):
         tb.matmul(torch.zeros(4, 4), torch.zeros(4, 4), tb.MatmulBackend(kind=kind))
 
 
-def test_w_logical_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-        tb.matmul(torch.zeros(4, 4), torch.zeros(4, 4), tb.MatmulBackend(kind="strassen"),
-                  w_logical=("fsdp", "d_ff"))
+@pytest.mark.parametrize("kind", RUNNABLE)
+def test_w_logical_raises_not_implemented(kind):
+    """``w_logical`` once raised here; with no sharding context it is the
+    identity in both packages, so the products agree with it set."""
+    x, w = _np((2, 32, 48)), _np((48, 32))
+    be = dict(kind=kind, depth=1, min_dim=16)
+    got = tb.matmul(torch.from_numpy(x), torch.from_numpy(w), tb.MatmulBackend(**be),
+                    w_logical=("fsdp", "d_ff"))
+    want = jb.matmul(jnp.asarray(x), jnp.asarray(w), jb.MatmulBackend(**be),
+                     w_logical=("fsdp", "d_ff"))
+    plain = tb.matmul(torch.from_numpy(x), torch.from_numpy(w), tb.MatmulBackend(**be))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-4)
+    assert torch.equal(got, plain)
 
 
 def test_default_precision_matches_reference():

@@ -59,3 +59,36 @@ def test_backend_from_fields_rejects_unknown_kind_and_field():
         convert.backend_from_fields({"kind": "fast"})
     with pytest.raises(TypeError):
         convert.backend_from_fields({"kind": "naive", "blocks": 4})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", [
+    dict(),  # one layer per scan group: every layer in "groups"
+    dict(n_layers=3, block_pattern=("attn", "attn")),  # a group of two, then a "tail" layer
+    dict(n_layers=5, block_pattern=("attn",) * 4),  # phi4's period of four, plus a tail
+])
+def test_params_from_jax_is_bit_exact(layout, dtype):
+    import jax
+
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.models import model as JM
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as TM
+
+    jcfg = jax_smoke("phi4_mini_3_8b", dtype=dtype, **layout)
+    tcfg = get_smoke_config("phi4_mini_3_8b", dtype=dtype, **layout)
+    jp = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0)))
+    sd = convert.params_from_jax(jp, tcfg, "cpu")
+    model = TM.init_params(tcfg, torch.Generator().manual_seed(0))
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    period, n_groups = len(jcfg.block_pattern), jcfg.n_layers // len(jcfg.block_pattern)
+    for i in range(tcfg.n_layers):
+        g, j = divmod(i, period)
+        want = (jp["groups"][f"pos{j}"]["mixer"]["wq"]["w"][g] if g < n_groups
+                else jp["tail"][i - n_groups * period]["mixer"]["wq"]["w"])
+        got = convert.tensor_to_numpy(model.layers[i].mixer.wq.w)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got.view(np.uint8), np.ascontiguousarray(want).view(np.uint8))
+    np.testing.assert_array_equal(convert.tensor_to_numpy(sd["embed.embedding"]).view(np.uint8),
+                                  jp["embed"]["embedding"].view(np.uint8))

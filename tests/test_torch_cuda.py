@@ -5,18 +5,30 @@ reason elsewhere; they import no JAX, so they run where the port runs.
 Tolerances, as in chip_smoke.py: max|kernel - plain| <= tol * max(1,
 max|plain|); divide/combine are bit-exact (the same fp32 sums in the same
 order, one rounding); the products accumulate in another order than cuBLAS,
-hence 2e-5 in fp32 and 8e-3 (about two bf16 ulps) in bf16.
+hence 2e-5 in fp32 and 8e-3 (about two bf16 ulps) in bf16. RMSNorm and flash
+attention use the JAX tests' tolerances in fp32 (1e-5 and 2e-5). In bf16
+they compute in fp32 and round once, as their plain versions do, so each
+element is held to 2^-7 x (|plain| + rms(plain)): one bf16 ulp of itself,
+with a floor for elements near 0. A smoke-config engine run on the card
+launches both kernels.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.coefficients import get_scheme
+from repro_torch.kernels.flash_attention import flash_attention as tfa
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.matmul import ops as tmm
 from repro_torch.kernels.matmul import ref as tmm_ref
 from repro_torch.kernels.strassen import ref as tref
+from repro_torch.kernels.rmsnorm import rmsnorm as trn
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.strassen import strassen as tst
+from repro_torch.models import model as M
+from repro_torch.serving.engine import Engine, ServeConfig
 
 SCHEMES = ["strassen", "winograd", "naive8"]
 RNG = np.random.default_rng(17)
@@ -73,3 +85,73 @@ def test_cuda_matmul_kernels_match_plain(cuda, dtype, tol):
             assert (got.float() - want.float()).abs().max().item() <= tol * scale
     with pytest.raises(ValueError, match="contiguous"):
         tmm.batched_matmul(a.transpose(1, 2), b.transpose(1, 2))
+
+
+def _within(got, want, tol):
+    """fp32: max|got - want| <= tol * max(1, max|want|). bf16: every element
+    within tol * (|want| + rms(want)), since kernel and plain version compute
+    in fp32 and round once (one bf16 ulp is at most 2^-7 of the value)."""
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        return False
+    if got.dtype == torch.bfloat16:
+        return bool(((g - w).abs() <= tol * (w.abs() + w.square().mean().sqrt())).all())
+    return (g - w).abs().max().item() <= tol * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2**-7)])
+def test_cuda_rmsnorm_matches_plain(cuda, dtype, tol):
+    for r, d in [(1, 3072), (7, 3072), (64, 1000), (33, 128), (5, 250)]:
+        x = _on(cuda, (r, d), dtype)
+        for w in (_on(cuda, (d,), dtype), _on(cuda, (d,), torch.float32)):
+            n = trn.rmsnorm_cuda.launches
+            got = trn.rmsnorm_cuda(x, w, eps=1e-6)
+            assert trn.rmsnorm_cuda.launches == n + 1
+            assert got.dtype == dtype and _within(got, rmsnorm_ref(x, w, 1e-6), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2**-7)])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, tol):
+    cases = [
+        ((2, 4, 2, 128, 32), dict(causal=True)),
+        ((1, 8, 1, 64, 16), dict(causal=False)),
+        ((1, 4, 4, 100, 64), dict(causal=True)),
+        ((1, 6, 2, 77, 128), dict(causal=True, window=16)),
+        ((1, 2, 2, 70, 256), dict(causal=True)),
+        ((1, 2, 1, 33, 128), dict(causal=True, window=1)),
+    ]
+    for (b, hq, hkv, s, d), kw in cases:
+        q = _on(cuda, (b, hq, s, d), dtype)
+        k, v = _on(cuda, (b, hkv, s, d), dtype), _on(cuda, (b, hkv, s, d), dtype)
+        n = tfa.flash_attention_cuda.launches
+        got = tfa.flash_attention_cuda(q, k, v, **kw)
+        assert tfa.flash_attention_cuda.launches == n + 1
+        assert got.dtype == dtype and _within(got, attention_ref(q, k, v, **kw), tol), (s, d, kw)
+    # more queries than keys under a window: rows with no live key are 0
+    q, k = _on(cuda, (1, 2, 64, 16), dtype), _on(cuda, (1, 2, 16, 16), dtype)
+    got = tfa.flash_attention_cuda(q, k, k, causal=True, window=8)
+    assert _within(got, attention_ref(q, k, k, causal=True, window=8), tol)
+    assert torch.count_nonzero(got[:, :, 23:]) == 0
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention_cuda(*(_on(cuda, (1, 1, 8, 48), dtype),) * 3)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_serves_through_both_kernels(cuda):
+    cfg = get_smoke_config("phi4_mini_3_8b")
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    eng = Engine(cfg, params, ServeConfig(max_seq=64, slots=2, page_size=8), device=cuda)
+    trn.rmsnorm_cuda.launches = tfa.flash_attention_cuda.launches = 0
+    hs = [eng.submit(np.arange(5 + 3 * i) % cfg.vocab, 6) for i in range(3)]
+    eng.run()
+    st = eng.serve_stats()
+    assert [h.finish_reason for h in hs] == ["length"] * 3 and st["pages_in_use"] == 0
+    forwards = st["prefills"] + st["decode_steps"]
+    assert tfa.flash_attention_cuda.launches == cfg.n_layers * st["prefills"]
+    assert trn.rmsnorm_cuda.launches == (2 * cfg.n_layers + 1) * forwards
+    cpu = Engine(cfg, params.cpu(), ServeConfig(max_seq=64, slots=2, page_size=8), device="cpu")
+    want = [cpu.submit(np.arange(5 + 3 * i) % cfg.vocab, 6) for i in range(3)]
+    cpu.run()
+    assert [h.tokens() for h in hs] == [h.tokens() for h in want]

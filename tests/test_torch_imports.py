@@ -29,7 +29,17 @@ def test_port_files_exist():
         "__init__.py", "convert.py", "core/backend.py", "core/coefficients.py",
         "core/strassen.py", "kernels/_build.py", "kernels/common.py",
         "kernels/matmul/matmul.py", "kernels/strassen/strassen.py", "obs/tracer.py",
+        "kernels/rmsnorm/rmsnorm.py", "kernels/rmsnorm/ref.py", "kernels/rmsnorm/ops.py",
+        "kernels/flash_attention/flash_attention.py", "kernels/flash_attention/ref.py",
+        "kernels/flash_attention/ops.py", "models/config.py", "models/rope.py",
+        "models/layers.py", "models/attention.py", "models/mlp.py", "models/transformer.py",
+        "models/model.py", "models/frontends.py", "configs/__init__.py",
+        "configs/phi4_mini_3_8b.py", "serving/request.py", "serving/kv_pool.py",
+        "serving/engine.py", "blocks/recovery.py", "launch/serve.py",
     } <= names
+    csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
+    assert {"rmsnorm.cu", "flash_attention.cu", "matmul.cu", "signed_sum.cu",
+            "strassen1.cu"} <= csrc
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -53,6 +63,11 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch, repro_torch.convert, repro_torch.core.backend\n"
         "import repro_torch.kernels.strassen.ops, repro_torch.kernels.matmul.ops\n"
         "import repro_torch.obs\n"
+        "import repro_torch.kernels.rmsnorm.ops, repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.configs, repro_torch.models.model, repro_torch.models.frontends\n"
+        "import repro_torch.serving.engine, repro_torch.launch.serve\n"
+        "from repro_torch.configs import ARCH_IDS, get_config\n"
+        "[get_config(a) for a in ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
