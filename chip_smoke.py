@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Builds the port's CUDA kernels and drives its two paths on one GPU.
+"""Builds the port's CUDA kernels and drives its three paths on one GPU.
 
 Usage: ``python3 chip_smoke.py [--seed S] [--size N] [--reps R]`` from the root
 of a checkout, on a machine with an NVIDIA Hopper GPU (sm_90a) and the CUDA
@@ -37,6 +37,29 @@ e. prefills through kind strassen_fused and checks the fused kernel ran and
 f. prints TTFT, TPOT, tokens/s, prefill and decode-step times, peak memory,
    a breakdown of one prefill and each kernel's times against its bound.
 
+The third path serves xlstm-1.3b (random weights from ``--seed``, bf16, full
+width and depth: 42 mLSTM and 6 sLSTM layers) through the same ``Engine``:
+
+g. holds the RMSNorm kernel (at d_model 2048) and the sLSTM sequence kernel
+   against their plain versions at the model's shapes (for sLSTM a 1000-step
+   prefill from zero state, a 4-slot decode step from a carried state, a
+   ragged dh of 48) and checks that two halves with the carried state equal
+   one pass;
+h. serves 8 requests of 32 to 1024 prompt tokens, checks that every one ends
+   by length with no page in use, and that each forward launched the sLSTM
+   kernel 6 times and the RMSNorm kernel 49 times, and flash never;
+i. as (c), two requests' served tokens against the dense-cache route, in
+   bf16 and in an fp32 engine;
+j. as (d), prefill logits against prefill + one decode step, whose sLSTM
+   layers run the kernel at S = 1 on the carried state;
+k. the chunkwise mLSTM (``mlstm_chunk=64``) against the shipped sequential
+   route: a 256-token prefill in fp32 on the same weights, and a 1024-token
+   prefill in bf16 against the fp32 chunkwise logits;
+l. prints TTFT, TPOT, tokens/s, prefill ms at 128, 512 and 1024 tokens,
+   decode-step ms, peak memory, the device split of one prefill and one
+   decode step, and the RMSNorm and sLSTM kernels' times against their
+   bounds.
+
 It exits non-zero, before printing a result, on any failure or when no CUDA
 device is present. The last lines are the card's name and power limit, a
 JSON line with one entry per kernel, and ``{"ok": true, "device": ...}``.
@@ -44,6 +67,7 @@ JSON line with one entry per kernel, and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import statistics
@@ -73,6 +97,8 @@ from repro_torch.kernels.matmul.matmul import batched_matmul_cuda, matmul_cuda  
 from repro_torch.kernels.matmul.ref import batched_matmul_ref, matmul_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda  # noqa: E402
+from repro_torch.kernels.slstm.ref import slstm_seq_ref  # noqa: E402
+from repro_torch.kernels.slstm.slstm import slstm_seq_cuda  # noqa: E402
 from repro_torch.kernels.strassen.ops import strassen_matmul_stages  # noqa: E402
 from repro_torch.kernels.strassen.ref import combine_ref, divide_ref, strassen1_matmul_ref  # noqa: E402
 from repro_torch.kernels.strassen.strassen import (  # noqa: E402
@@ -94,12 +120,13 @@ PEAK_BYTES = 3.35e12
 # match bit for bit. The products accumulate in another order than cuBLAS:
 # about sqrt(K) * 2^-24 relative in fp32, and at most a bf16 ulp or two of
 # the output (2^-8 relative) in bf16.
-# RMSNorm and flash attention take the JAX kernel tests' tolerances in fp32,
-# where the sums run in another order.
+# RMSNorm, flash attention and the sLSTM sequence take the JAX kernel tests'
+# tolerances in fp32, where the sums run in another order.
 TOL = {
     ("sum", torch.float32): 0.0, ("sum", torch.bfloat16): 0.0,
     ("mm", torch.float32): 2e-5, ("mm", torch.bfloat16): 8e-3,
     ("norm", torch.float32): 1e-5, ("flash", torch.float32): 2e-5,
+    ("slstm", torch.float32): 2e-5,
 }
 # In bf16, RMSNorm and flash attention compute in fp32 from the same inputs as
 # their plain versions and round once, so each element is held to its own
@@ -118,6 +145,22 @@ MAIN_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # rounding of its operand sums and 7-term combines in every projection.
 PREFILL_DECODE_LIMIT = 5e-2
 STRASSEN_LIMIT = 1e-1
+# The chunkwise mLSTM against the sequential scan, normwise on the logits of a
+# prefill. In fp32 (the bf16 weights upcast) the two routes differ only in the
+# order of the recurrence's fp32 sums (about 1e-6 relative per layer); 48
+# layers may amplify that some tens of times, so 1e-3 leaves a wide margin,
+# and a wrong decay, stabilizer or chunk boundary is off by order 1. 256
+# tokens are 4 chunks of 64, so every chunk boundary case is crossed.
+# In bf16 each route rounds every projection and mLSTM output to bf16, and the
+# two routes' roundings differ wherever their fp32 sums do, so their mutual
+# distance is the bf16 model's own rounding noise, which grows with depth: the
+# JAX package's bf16 model lies as far from its fp32 logits as the port's does
+# (tests/test_torch_xlstm.py, 0.24 at 48 layers of the smoke width). So each
+# bf16 route is held to the fp32 logits of the checked chunkwise route: the
+# chunkwise bf16 route must lie no more than BF16_SPREAD times as far from
+# them as the shipped sequential bf16 route does.
+CHUNKWISE_FP32_LIMIT = 1e-3
+BF16_SPREAD = 2.0
 # Served bf16 tokens against the dense-cache route fed the same tokens: each
 # must be that route's argmax or lie at most NEAR_TIE x rms(logits) below its
 # top logit. The routes' logits differ by about 2e-2 of their rms (phase (d)),
@@ -127,7 +170,7 @@ NEAR_TIE = 0.25
 
 SCHEMES = ("strassen", "winograd", "naive8")
 COUNTED = (strassen1_matmul_cuda, batched_matmul_cuda, divide_cuda, combine_cuda)
-ALL_KERNELS = (*COUNTED, matmul_cuda, rmsnorm_cuda, flash_attention_cuda)
+ALL_KERNELS = (*COUNTED, matmul_cuda, rmsnorm_cuda, flash_attention_cuda, slstm_seq_cuda)
 REPLACES = {
     "strassen1_matmul_cuda": "src/repro/kernels/strassen/strassen.py:155",
     "batched_matmul_cuda": "src/repro/kernels/matmul/matmul.py:95",
@@ -136,6 +179,7 @@ REPLACES = {
     "matmul_cuda": "src/repro/kernels/matmul/matmul.py:43",
     "rmsnorm_cuda": "src/repro/kernels/rmsnorm/rmsnorm.py:29",
     "flash_attention_cuda": "src/repro/kernels/flash_attention/flash_attention.py:105",
+    "slstm_seq_cuda": "src/repro/kernels/slstm/slstm.py:81",
 }
 SOURCES = {
     "strassen1_matmul_cuda": "src/repro_torch/csrc/strassen1.cu",
@@ -145,6 +189,7 @@ SOURCES = {
     "matmul_cuda": "src/repro_torch/csrc/matmul.cu",
     "rmsnorm_cuda": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_attention_cuda": "src/repro_torch/csrc/flash_attention.cu",
+    "slstm_seq_cuda": "src/repro_torch/csrc/slstm.cu",
 }
 
 # The served model and its traffic: prompt lengths and max_new_tokens of
@@ -152,6 +197,9 @@ SOURCES = {
 SERVE_ARCH = "phi4_mini_3_8b"
 PROMPT_LENS = (64, 128, 300, 512, 1000, 1024, 1536, 1984)
 SERVE = dict(max_seq=2048, slots=4, page_size=16, sync_interval=4, temperature=0.0)
+# The recurrent model and its traffic (the same ServeConfig).
+XLSTM_ARCH = "xlstm_1_3b"
+XLSTM_PROMPT_LENS = (32, 64, 128, 256, 384, 512, 768, 1024)
 
 # Where every tensor of the run lives.
 DEVICE = "cuda"
@@ -496,8 +544,19 @@ def make_prompts(gen: np.random.Generator, vocab: int) -> list:
     return [gen.integers(0, vocab, n) for n in PROMPT_LENS]
 
 
+def per_forward(cfg) -> dict:
+    """Launches of each serving kernel per forward (RMSNorm, sLSTM) and per
+    prefill (flash) of ``cfg``: one RMSNorm per norm, one flash launch per
+    attention layer, one sLSTM launch per sLSTM layer."""
+    kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
+    return {"rmsnorm_cuda": cfg.n_layers * (2 if cfg.d_ff > 0 else 1) + 1,
+            "flash_attention_cuda": sum(k in ("attn", "local_attn") for k in kinds),
+            "slstm_seq_cuda": kinds.count("slstm")}
+
+
 def phase_serve(cfg, params, prompts: list) -> dict:
-    """(b) Serve the requests at full width; returns the launch counts and the engine's stats."""
+    """(b), (h) Serve the requests at full width; returns the launch counts,
+    the handles, the wall time and the peak memory."""
     engine = Engine(cfg, params, ServeConfig(**SERVE), device=DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -524,15 +583,22 @@ def phase_serve(cfg, params, prompts: list) -> dict:
             fail(f"serve request {h.id}: {h.finish_reason} after {len(h.tokens())} tokens")
     if st["pages_in_use"] != 0:
         fail(f"serve: {st['pages_in_use']} pages still in use after every request finished")
-    want = {"rmsnorm_cuda": (2 * cfg.n_layers + 1) * forwards,
-            "flash_attention_cuda": cfg.n_layers * st["prefills"]}
-    log(f"serve launches: {counts} (want rmsnorm {want['rmsnorm_cuda']} = "
-        f"{2 * cfg.n_layers + 1} x {forwards} forwards, flash {want['flash_attention_cuda']} = "
-        f"{cfg.n_layers} x {st['prefills']} prefills)")
+    each = per_forward(cfg)
+    want = {"rmsnorm_cuda": each["rmsnorm_cuda"] * forwards,
+            "flash_attention_cuda": each["flash_attention_cuda"] * st["prefills"],
+            "slstm_seq_cuda": each["slstm_seq_cuda"] * forwards}
+    log(f"serve launches: {counts} (want rmsnorm {each['rmsnorm_cuda']} and sLSTM "
+        f"{each['slstm_seq_cuda']} x {forwards} forwards, flash {each['flash_attention_cuda']} "
+        f"x {st['prefills']} prefills)")
     for name, n in want.items():
-        if counts[name] != n or n <= 0:
+        if counts[name] != n:
             fail(f"serve: {name} launched {counts[name]} times, want {n}")
-    return {"counts": counts, "handles": handles}
+    # every serving kernel of this model's path ran in this run
+    for name in ("rmsnorm_cuda", *(k for k in each if k != "rmsnorm_cuda" and each[k])):
+        if counts[name] <= 0:
+            fail(f"serve: {name} was not launched on the {cfg.name} path")
+    return {"counts": counts, "handles": handles, "wall": wall, "peak": peak,
+            "tokens": n_events}
 
 
 @torch.inference_mode()
@@ -555,13 +621,13 @@ def forced_rollout(cfg, params, prompt: np.ndarray, tokens: list) -> tuple:
 
 
 def phase_engine_vs_model(cfg, params, prompts: list, served: list, seed: int) -> None:
-    """(c) The engine's greedy tokens against the dense-cache route fed the same tokens.
+    """(c), (i) The engine's greedy tokens against the dense-cache route fed the same tokens.
 
-    The bf16 engine of (b): every served token must be the dense route's
-    argmax or within NEAR_TIE of its top logit, since near-ties of the 200k
-    logits can flip on one bf16 rounding. A second engine in fp32 (the same
-    config and seed): every token must be the argmax, which makes its tokens
-    equal to a free greedy rollout on the dense cache.
+    The bf16 engine of (b) or (h): every served token must be the dense
+    route's argmax or within NEAR_TIE of its top logit, since near-ties among
+    the vocabulary's logits can flip on one bf16 rounding. A second engine in
+    fp32 (the same config and seed): every token must be the argmax, which
+    makes its tokens equal to a free greedy rollout on the dense cache.
     """
     picks = [0, 1]
     for i in picks:
@@ -569,11 +635,11 @@ def phase_engine_vs_model(cfg, params, prompts: list, served: list, seed: int) -
         argmaxes, gaps = forced_rollout(cfg, params, prompts[i], toks)
         equal = sum(a == t for a, t in zip(argmaxes, toks))
         ok = max(gaps) <= NEAR_TIE
-        log(f"engine vs dense route bf16, request {i} (prompt {len(prompts[i])}): {equal} of "
-            f"{len(toks)} tokens are its argmax, largest gap {max(gaps):.3f} rms "
+        log(f"{cfg.name} engine vs dense route bf16, request {i} (prompt {len(prompts[i])}): "
+            f"{equal} of {len(toks)} tokens are its argmax, largest gap {max(gaps):.3f} rms "
             f"limit={NEAR_TIE} {'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"engine vs dense route bf16, request {i}: gaps {[round(g, 3) for g in gaps]}")
+            fail(f"{cfg.name} engine vs dense route bf16, request {i}: gaps {[round(g, 3) for g in gaps]}")
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = M.init_params(cfg32, torch.Generator(device=DEVICE).manual_seed(seed))
     engine = Engine(cfg32, params32, ServeConfig(**SERVE), device=DEVICE)
@@ -582,10 +648,10 @@ def phase_engine_vs_model(cfg, params, prompts: list, served: list, seed: int) -
     for i, h in zip(picks, handles):
         argmaxes, _ = forced_rollout(cfg32, params32, prompts[i], h.tokens())
         ok = h.tokens() == argmaxes
-        log(f"engine vs dense rollout fp32, request {i} (prompt {len(prompts[i])}): "
+        log(f"{cfg.name} engine vs dense rollout fp32, request {i} (prompt {len(prompts[i])}): "
             f"{len(argmaxes)} tokens {'equal' if ok else 'DIFFER'}")
         if not ok:
-            fail(f"engine vs dense rollout fp32, request {i}: {h.tokens()} != {argmaxes}")
+            fail(f"{cfg.name} engine vs dense rollout fp32, request {i}: {h.tokens()} != {argmaxes}")
     del engine, params32
     torch.cuda.empty_cache()
 
@@ -604,17 +670,19 @@ def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
     return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
 
 
-def phase_prefill_vs_decode(cfg, params, gen: np.random.Generator) -> None:
-    """(d) Prefill logits (flash kernel) against prefill + one decode step."""
-    tokens = torch.as_tensor(gen.integers(0, cfg.vocab, (1, 1000)), device=DEVICE)
+def phase_prefill_vs_decode(cfg, params, gen: np.random.Generator, n: int = 1000) -> None:
+    """(d), (j) Prefill logits against prefill + one decode step: for phi4 the
+    flash kernel against plain decode attention, for xLSTM a 1-step sLSTM
+    kernel launch and mLSTM step on the carried state."""
+    tokens = torch.as_tensor(gen.integers(0, cfg.vocab, (1, n)), device=DEVICE)
     full, split = last_logits(params, cfg, tokens, False), last_logits(params, cfg, tokens, True)
     err = rel_norm(split, full)
     same = int(torch.argmax(full)) == int(torch.argmax(split))
     ok = bool(torch.isfinite(full).all() and torch.isfinite(split).all()) and err <= PREFILL_DECODE_LIMIT
-    log(f"prefill vs prefill+decode, 1000 tokens bf16: rel_err={err:.3e} "
+    log(f"{cfg.name} prefill vs prefill+decode, {n} tokens bf16: rel_err={err:.3e} "
         f"limit={PREFILL_DECODE_LIMIT:.0e}, same argmax {same} {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail(f"prefill vs prefill+decode: rel_err {err:.3e}")
+        fail(f"{cfg.name} prefill vs prefill+decode: rel_err {err:.3e}")
 
 
 def phase_strassen_prefill(cfg, params, gen: np.random.Generator) -> None:
@@ -659,6 +727,8 @@ def device_split(fn) -> dict:
             key = "flash kernel"
         elif "rmsnorm_kernel" in name:
             key = "rmsnorm kernel"
+        elif "slstm_step_kernel" in name:
+            key = "sLSTM kernel"
         elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
             key = "matmul (cuBLAS)"
         else:
@@ -759,6 +829,173 @@ def phase_serving_timing(cfg, reps: int, counts: dict) -> list:
     return rows
 
 
+# ------------------------------------------------------------- xLSTM path
+def slstm_inputs(gen: np.random.Generator, b: int, s: int, h: int, dh: int, carried: bool):
+    """wx (B, S, 4, H, dh) and r as the model draws them, and a zero state (a
+    request's first prefill) or a carried one (a state after earlier steps)."""
+    wx = randn(gen, (b, s, 4, h, dh), torch.float32)
+    r = randn(gen, (4, h, dh, dh), torch.float32) * dh**-0.5
+    if carried:
+        state = {"c": randn(gen, (b, h, dh), torch.float32),
+                 "n": randn(gen, (b, h, dh), torch.float32).abs() + 1.0,
+                 "m": randn(gen, (b, h, dh), torch.float32),
+                 "h": torch.tanh(randn(gen, (b, h, dh), torch.float32))}
+    else:
+        zeros = lambda: torch.zeros((b, h, dh), device=DEVICE)
+        state = {"c": zeros(), "n": zeros(), "m": torch.full((b, h, dh), -1e30, device=DEVICE),
+                 "h": zeros()}
+    return wx, r, state
+
+
+def phase_xlstm_kernels(gen: np.random.Generator, cfg) -> None:
+    """(g) The RMSNorm and sLSTM kernels against their plain versions at the
+    model's shapes: RMSNorm on a decode step's and a prefill's rows."""
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for r in (SERVE["slots"], 1024):
+            x, w = randn(gen, (r, cfg.d_model), dtype), 1.0 + randn(gen, (cfg.d_model,), torch.float32)
+            compare(f"rmsnorm {tag} {(r, cfg.d_model)} w fp32", rmsnorm_cuda(x, w),
+                    rmsnorm_ref(x, w), "norm")
+    h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+    for b, s, d, carried in ((1, 1000, dh, False), (SERVE["slots"], 1, dh, True), (2, 64, 48, True)):
+        wx, r, state = slstm_inputs(gen, b, s, h, d, carried)
+        got_st, got = slstm_seq_cuda(wx, r, state)
+        want_st, want = slstm_seq_ref(wx, r, state)
+        tag = f"slstm fp32 {(b, s, 4, h, d)} from {'a carried' if carried else 'zero'} state"
+        compare(f"{tag}: hs", got, want, "slstm")
+        for k in ("c", "n", "m", "h"):
+            compare(f"{tag}: {k}", got_st[k], want_st[k], "slstm")
+    wx, r, state = slstm_inputs(gen, 1, 1000, h, dh, False)
+    full_st, full = slstm_seq_cuda(wx, r, state)
+    mid, first = slstm_seq_cuda(wx[:, :500].contiguous(), r, state)
+    end, second = slstm_seq_cuda(wx[:, 500:].contiguous(), r, mid)
+    compare("slstm two halves with the carried state vs one pass: hs", torch.cat([first, second], 1),
+            full, "slstm")
+    for k in ("c", "n", "m", "h"):
+        compare(f"slstm two halves vs one pass: {k}", end[k], full_st[k], "slstm")
+
+
+def phase_chunkwise_prefill(cfg, params, gen: np.random.Generator) -> float:
+    """(k) The chunkwise mLSTM (chunk 64) against the shipped sequential scan:
+    a 256-token prefill in fp32 on the same weights, and a 1024-token prefill
+    in bf16 against the fp32 chunkwise logits. Returns the ms of the shipped
+    1024-token bf16 prefill."""
+    chunked = dataclasses.replace(cfg, mlstm_chunk=64)
+    params32 = copy.deepcopy(params).float()
+    cfg32, chunked32 = (dataclasses.replace(c, dtype="float32") for c in (cfg, chunked))
+    short = torch.as_tensor(gen.integers(0, cfg.vocab, (1, 256)), device=DEVICE)
+    err32 = rel_norm(last_logits(params32, chunked32, short, False),
+                     last_logits(params32, cfg32, short, False))
+    tokens = torch.as_tensor(gen.integers(0, cfg.vocab, (1, 1024)), device=DEVICE)
+    ref = last_logits(params32, chunked32, tokens, False)
+    del params32
+    torch.cuda.empty_cache()
+    seq_ms, seq = timed(lambda: last_logits(params, cfg, tokens, False))
+    chunk_ms, got = timed(lambda: last_logits(params, chunked, tokens, False))
+    err_seq, err_chunk = rel_norm(seq, ref), rel_norm(got, ref)
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(seq).all())
+    ok32 = err32 <= CHUNKWISE_FP32_LIMIT
+    ok16 = finite and err_chunk <= BF16_SPREAD * err_seq
+    log(f"prefill 256 tokens, chunkwise mLSTM (chunk 64) vs sequential, fp32: rel_err={err32:.3e} "
+        f"limit={CHUNKWISE_FP32_LIMIT:.0e} {'ok' if ok32 else 'FAIL'}")
+    log(f"prefill 1024 tokens bf16 against the fp32 chunkwise logits: chunkwise rel_err="
+        f"{err_chunk:.3e}, sequential {err_seq:.3e}, limit {BF16_SPREAD} x sequential; chunkwise "
+        f"vs sequential bf16 {rel_norm(got, seq):.3e}, same argmax "
+        f"{int(torch.argmax(got)) == int(torch.argmax(seq))}; {chunk_ms:.1f} ms against "
+        f"{seq_ms:.1f} ms {'ok' if ok16 else 'FAIL'}")
+    if not ok32:
+        fail(f"chunkwise mLSTM prefill fp32: rel_err {err32:.3e}")
+    if not ok16:
+        fail(f"chunkwise mLSTM prefill bf16: rel_err {err_chunk:.3e} against {err_seq:.3e}")
+    return seq_ms
+
+
+def timed(fn) -> tuple:
+    """(milliseconds, result) of one call on the host clock, synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_xlstm_numbers(cfg, params, prompts: list, ms_1024: float) -> None:
+    """(l) Prefill ms per length, the decode-step time and the device split of
+    one prefill and one decode step. A prefill runs the mLSTM recurrence as
+    S Python steps, so its time is linear in S: two lengths are timed once
+    each here (the serve run warmed up), and 1024 tokens in (k)."""
+    for p in prompts:
+        if len(p) in (128, 512):
+            tokens = torch.as_tensor(p[None], device=DEVICE)
+            ms = timed(lambda: last_logits(params, cfg, tokens, False))[0]
+            log(f"prefill {len(p)} tokens bf16: {ms:.3f} ms")
+    log(f"prefill 1024 tokens bf16: {ms_1024:.3f} ms (timed in (k))")
+
+    # The recurrent state is O(1) in the position, so short prompts give the
+    # decode step of any length.
+    engine = Engine(cfg, params, ServeConfig(**SERVE), device=DEVICE)
+    hs = [engine.submit(prompts[0], 24) for _ in range(SERVE["slots"])]
+    while any(h.state.value != "decoding" for h in hs):
+        engine.step()
+    times = [timed(engine.step)[0] for _ in range(16)]
+    step_ms = statistics.median(times)
+    log(f"decode step, {SERVE['slots']} live slots: median {step_ms:.3f} ms (host clock around a "
+        f"synchronized step)")
+    log_split(f"decode step, {SERVE['slots']} live slots", step_ms, device_split(engine.step))
+    engine.run()
+
+    tokens = torch.as_tensor(prompts[1][None], device=DEVICE)
+    wall, _ = timed(lambda: last_logits(params, cfg, tokens, False))
+    log_split(f"prefill {tokens.shape[1]} tokens bf16", wall,
+              device_split(lambda: last_logits(params, cfg, tokens, False)))
+
+
+def phase_slstm_timing(cfg, reps: int, counts: dict) -> list:
+    """RMSNorm at the model's prefill width (printed; its JSON row is phi4's),
+    and the sLSTM kernel at a 1024-token prefill from zero state and a 4-slot
+    decode step, beside its bound and its plain version. No single PyTorch
+    call computes the recurrence, so there is no library time. The bound
+    counts the mat-vecs' fp32 operations (2 * B * S * 4 * H * dh^2) and the
+    bytes of wx, r, the state in and out and hs."""
+    gen = np.random.default_rng(3)
+    d = cfg.d_model
+    x, w = randn(gen, (1024, d), torch.bfloat16), 1.0 + randn(gen, (d,), torch.float32)
+    w16 = w.bfloat16()
+    time_kernel(f"rmsnorm bf16 {tuple(x.shape)}", lambda: rmsnorm_cuda(x, w), lambda: rmsnorm_ref(x, w),
+                lambda: torch.nn.functional.rms_norm(x, (d,), w16, 1e-6),
+                3 * x.numel(), 2 * nbytes(x) + nbytes(w), torch.float32, "norm", reps)
+    h, dh = cfg.n_heads, d // cfg.n_heads
+    rows = []
+    for b, s, carried in ((1, 1024, False), (SERVE["slots"], 1, True)):
+        wx, r, state = slstm_inputs(gen, b, s, h, dh, carried)
+        moved = nbytes(wx, r) + 2 * nbytes(*state.values()) + b * s * h * dh * 4
+        stats = time_kernel(
+            f"slstm fp32 {(b, s, 4, h, dh)}", lambda: slstm_seq_cuda(wx, r, state)[1],
+            lambda: slstm_seq_ref(wx, r, state)[1], None, 2 * b * s * 4 * h * dh * dh, moved,
+            torch.float32, "slstm", reps)
+        if s > 1:
+            rows.append(json_row("slstm_seq_cuda", counts, stats))
+    return rows
+
+
+def run_xlstm(seed: int, reps: int, gen: np.random.Generator) -> list:
+    """(h)-(l) Serve xlstm-1.3b at full width and depth; returns its JSON entries."""
+    cfg = get_config(XLSTM_ARCH)
+    t = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed))
+    torch.cuda.synchronize()
+    log(f"{cfg.name}: {sum(p.numel() for p in params.parameters()) / 1e9:.3f} B parameters "
+        f"({cfg.dtype}, {cfg.n_layers} layers: {per_forward(cfg)['slstm_seq_cuda']} sLSTM, "
+        f"d_model {cfg.d_model}) from seed {seed} in {time.perf_counter() - t:.1f} s")
+    prompts = [gen.integers(0, cfg.vocab, n) for n in XLSTM_PROMPT_LENS]
+    served = phase_serve(cfg, params, prompts)
+    phase_engine_vs_model(cfg, params, prompts, served["handles"], seed)
+    phase_prefill_vs_decode(cfg, params, gen, 512)
+    ms_1024 = phase_chunkwise_prefill(cfg, params, gen)
+    phase_xlstm_numbers(cfg, params, prompts, ms_1024)
+    return phase_slstm_timing(cfg, reps, served["counts"])
+
+
 def report_failures() -> int:
     print(f"chip_smoke: {len(FAILURES)} failure(s):", file=sys.stderr)
     for f in FAILURES:
@@ -794,6 +1031,8 @@ def main() -> int:
     serve_gen = np.random.default_rng([args.seed, 2])  # the serving path's own stream
     cfg = get_config(SERVE_ARCH)
     phase_serving_kernels(serve_gen, cfg)
+    xlstm_gen = np.random.default_rng([args.seed, 3])  # the xLSTM path's own stream
+    phase_xlstm_kernels(xlstm_gen, get_config(XLSTM_ARCH))
     if FAILURES:  # no point driving the main path through a wrong kernel
         return report_failures()
 
@@ -831,6 +1070,11 @@ def main() -> int:
     phase_strassen_prefill(cfg, params, serve_gen)
     phase_serving_numbers(cfg, params, prompts, args.reps)
     entries += phase_serving_timing(cfg, args.reps, served["counts"])
+    del params, served
+    torch.cuda.empty_cache()
+    log(f"{cfg.name} path done at {time.perf_counter() - t0:.1f} s")
+
+    entries += run_xlstm(args.seed, args.reps, xlstm_gen)
     log(f"total {time.perf_counter() - t0:.1f} s")
 
     if FAILURES:

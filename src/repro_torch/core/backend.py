@@ -171,10 +171,14 @@ def matmul(
       site: optional call-site tag, recorded on the span.
 
     Returns:
-      (..., N) on x's device, in the dtype the plain matmul gives.
+      (..., N) on x's device, in the promoted dtype of x and w.
     """
     if w.ndim != 2 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"bad shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    # Mixed inputs (the sLSTM's fp32 activations against bf16 weights) are
+    # promoted first, as jnp.matmul promotes them; torch.matmul refuses them.
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    x, w = x.to(dtype), w.to(dtype)
     *lead, k = x.shape
     n = w.shape[1]
     m = 1

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _L, _L, _F, _P],
     # q, k, v, out, dtype, b, hq, hkv, sq, sk, d, causal, window, scale, stream
     "repro_flash_attention": [_P, _P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _I, _L, _F, _P],
+    # wx, r, h0, c, n, m, hs, b, s, h, dh, stream
+    "repro_slstm_seq": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

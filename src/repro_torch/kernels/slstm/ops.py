@@ -1,0 +1,28 @@
+"""Public sLSTM sequence op, the counterpart of ``repro.kernels.slstm.ops``.
+
+The JAX op takes an interpret flag; here the tensors' device picks kernel or
+plain version. The op casts its operands to fp32 and makes them contiguous
+for the kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels.slstm.slstm import slstm_seq_cuda
+
+__all__ = ["slstm_seq"]
+
+
+def slstm_seq(
+    wx: torch.Tensor, r: torch.Tensor, state: Dict[str, torch.Tensor]
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """wx (B, S, 4, H, dh); r (4, H, dh, dh); state {c, n, m, h} (B, H, dh).
+
+    Returns (final state, hs (B, S, H, dh)), all fp32.
+    """
+    def f32(t: torch.Tensor) -> torch.Tensor:
+        return t.float().contiguous()
+
+    return slstm_seq_cuda(f32(wx), f32(r), {k: f32(state[k]) for k in ("c", "n", "m", "h")})

@@ -1,10 +1,14 @@
-"""Serving launcher: the port's continuous-batching engine for a dense decoder.
+"""Serving launcher: the port's continuous-batching engine for a decoder LM.
 
 The port of ``repro.launch.serve``, with its flags plus ``--device``. It runs
 on the card unless asked for the CPU:
 
   python -m repro_torch.launch.serve --arch phi4_mini_3_8b --full
-  python -m repro_torch.launch.serve --arch phi4_mini_3_8b --device cpu --smoke
+  python -m repro_torch.launch.serve --arch xlstm_1_3b --full
+  python -m repro_torch.launch.serve --arch xlstm_1_3b --device cpu --smoke
+
+The dense decoders and xlstm-1.3b are served; the other families raise
+NotImplementedError naming their ROADMAP item.
 
 Parameters are random, drawn on the device from ``--seed`` in the config's
 dtype. ``--mesh`` (ROADMAP.md queue 1 item 8) and ``--trace-out``

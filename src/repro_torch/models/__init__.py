@@ -1,4 +1,4 @@
-"""Models of the port: the dense decoder-only families of ``repro.models``.
+"""Models of the port: the dense and xLSTM decoder-only families of ``repro.models``.
 
 Layers and the model are ``nn.Module``s whose parameter names follow the
 JAX parameter tree (``convert.params_from_jax`` maps one onto the other);

@@ -1,12 +1,12 @@
 """Decoder-LM assembly: pattern-cycled blocks and serving caches.
 
-The port of ``repro.models.transformer`` for the layer kinds ``attn`` and
-``local_attn``. The JAX package stacks layers into scan groups for its
-compiler and rematerializes them in training; on one card, run eagerly,
-neither applies, so the layers are an ``nn.ModuleList`` in layer order
-(``convert.params_from_jax`` unstacks the JAX groups onto it). The kinds
-``mlstm``, ``slstm`` and ``rglru`` and MoE FFNs raise
-:class:`NotImplementedError` naming the ROADMAP item that ports them.
+The port of ``repro.models.transformer`` for the layer kinds ``attn``,
+``local_attn``, ``mlstm`` and ``slstm``. The JAX package stacks layers into
+scan groups for its compiler and rematerializes them in training; on one
+card, run eagerly, neither applies, so the layers are an ``nn.ModuleList``
+in layer order (``convert.params_from_jax`` unstacks the JAX groups onto
+it). The kind ``rglru`` and MoE FFNs raise :class:`NotImplementedError`
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -15,21 +15,27 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.models.attention import Attention, attention_block, init_attention, init_kv_cache
+from repro_torch.models.attention import attention_block, init_attention, init_kv_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Embed, Norm, embed, layernorm, rmsnorm, unembed
 from repro_torch.models.mlp import MLP, init_mlp, mlp_block
+from repro_torch.models.xlstm import (
+    init_mlstm,
+    init_mlstm_state,
+    init_slstm,
+    init_slstm_state,
+    mlstm_block,
+    slstm_block,
+)
 
 __all__ = ["Layer", "Transformer", "init_params", "init_cache", "forward", "check_ported"]
 
 # Where each block kind or FFN this slice does not run gets ported.
 _NOT_PORTED = {
-    "mlstm": "ROADMAP.md queue 1 item 9 (xLSTM blocks, with queue 2 item 8: slstm_seq_pallas)",
-    "slstm": "ROADMAP.md queue 1 item 9 (xLSTM blocks, with queue 2 item 8: slstm_seq_pallas)",
     "rglru": "ROADMAP.md queue 1 item 9 (RG-LRU blocks of recurrentgemma)",
     "moe": "ROADMAP.md queue 1 item 9 (MoE FFNs of olmoe and qwen2-moe)",
 }
-_KINDS = ("attn", "local_attn")
+_KINDS = ("attn", "local_attn", "mlstm", "slstm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -46,9 +52,10 @@ def check_ported(cfg: ModelConfig) -> None:
 
 
 class Layer(nn.Module):
-    """One block: ``ln1`` + ``mixer``, then ``ln2`` + ``ffn`` when the config has an FFN."""
+    """One block: ``ln1`` + ``mixer`` (attention, mLSTM or sLSTM), then ``ln2``
+    + ``ffn`` when the config has an FFN (xLSTM's d_ff = 0 has none)."""
 
-    def __init__(self, ln1: Norm, mixer: Attention, ln2: Optional[Norm], ffn: Optional[MLP]):
+    def __init__(self, ln1: Norm, mixer: nn.Module, ln2: Optional[Norm], ffn: Optional[MLP]):
         super().__init__()
         self.ln1, self.mixer, self.ln2, self.ffn = ln1, mixer, ln2, ffn
 
@@ -81,15 +88,25 @@ def _init_norm(cfg: ModelConfig, dtype: torch.dtype, device) -> Norm:
     return Norm(cfg.norm, cfg.d_model, dtype, device)
 
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Layer:
+_INIT_MIXER = {"attn": init_attention, "local_attn": init_attention,
+               "mlstm": init_mlstm, "slstm": init_slstm}
+
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype: torch.dtype) -> Layer:
     ln1 = _init_norm(cfg, dtype, gen.device)
-    mixer = init_attention(gen, cfg, dtype)
+    mixer = _INIT_MIXER[kind](gen, cfg, dtype)
     if cfg.d_ff > 0:
         return Layer(ln1, mixer, _init_norm(cfg, dtype, gen.device), init_mlp(gen, cfg, dtype))
     return Layer(ln1, mixer, None, None)
 
 
 def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype, device) -> dict:
+    """One layer's serving cache: {k, v} in ``dtype`` for attention, the
+    recurrent state (always fp32, O(1) in ``max_seq``) for mLSTM and sLSTM."""
+    if kind == "mlstm":
+        return init_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return init_slstm_state(cfg, batch, device)
     if kind == "local_attn" and cfg.local_window:
         # ring buffer: O(window) regardless of context length
         return init_kv_cache(cfg, batch, min(max_seq, cfg.local_window), dtype, device)
@@ -108,12 +125,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Transformer:
     if not cfg.tie_embeddings:
         unemb = torch.randn((cfg.d_model, cfg.vocab), generator=gen, device=device, dtype=torch.float32)
         unemb = (unemb * cfg.d_model**-0.5).to(dtype)
-    layers = [_init_layer(gen, cfg, dtype) for _ in range(cfg.n_layers)]
+    layers = [_init_layer(gen, cfg, cfg.block_kind(i), dtype) for i in range(cfg.n_layers)]
     return Transformer(cfg, Embed(emb, unemb), layers, _init_norm(cfg, dtype, device))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *, device="cuda") -> dict:
-    """Serving cache: ``pos`` and one {k, v} per layer, in layer order."""
+    """Serving cache: ``pos`` and one entry per layer, in layer order."""
     dtype = dtype or _dtype(cfg.dtype)
     return {
         "pos": torch.zeros((), dtype=torch.long, device=device),
@@ -128,13 +145,18 @@ def _apply_layer(lparams: Layer, x, cfg: ModelConfig, kind: str, *, positions, c
                  cache_pos, causal: bool):
     """One block: pre-norm mixer + residual (+ pre-norm FFN + residual)."""
     h = _norm(cfg, lparams.ln1, x)
-    window = cfg.local_window if kind == "local_attn" and cfg.local_window else None
-    ring = kind == "local_attn" and bool(cfg.local_window)
-    mix, new_cache = attention_block(
-        lparams.mixer, h, cfg,
-        positions=positions, causal=causal, window=window,
-        cache=cache_entry, cache_pos=cache_pos, ring=ring,
-    )
+    if kind == "mlstm":
+        mix, new_cache = mlstm_block(lparams.mixer, h, cfg, state=cache_entry)
+    elif kind == "slstm":
+        mix, new_cache = slstm_block(lparams.mixer, h, cfg, state=cache_entry)
+    else:
+        window = cfg.local_window if kind == "local_attn" and cfg.local_window else None
+        ring = kind == "local_attn" and bool(cfg.local_window)
+        mix, new_cache = attention_block(
+            lparams.mixer, h, cfg,
+            positions=positions, causal=causal, window=window,
+            cache=cache_entry, cache_pos=cache_pos, ring=ring,
+        )
     x = x + mix
     if lparams.ffn is not None:
         x = x + mlp_block(lparams.ffn, _norm(cfg, lparams.ln2, x), cfg)

@@ -13,18 +13,21 @@ The port of ``repro.serving.engine``::
   requests *mid-decode*, so the decode step always runs a full
   ``slots``-wide bucket with per-slot position/eos state.
 * KV memory is a paged pool (``kv_pool.py``): full-attention layers share a
-  page-budgeted arena through per-slot page tables. Ring state stays
-  slot-indexed.
+  page-budgeted arena through per-slot page tables. Ring and recurrent
+  (mLSTM, sLSTM) state stays slot-indexed; a model with no full-attention
+  layer (xLSTM) needs no page, and its prefill runs at the exact prompt
+  length, so no padded token enters the recurrence.
 * End-of-sequence is checked **on the device** inside the step; the host
   fetches tokens and finish state every ``sync_interval`` steps.
 * ``generate()`` remains as a thin compatibility shim on top of the loop
   (token-exact with ``_generate_static``, the legacy static-batch path).
 
-Each prefill runs the flash-attention kernel in every layer and each
-forward the RMSNorm kernel in every norm (on the card); decode attention is
-plain PyTorch, as in the JAX package. PyTorch runs eagerly, so the JAX
-engine's jitted bodies are plain methods here, and the pools and per-slot
-state are updated in place.
+On the card each forward runs the RMSNorm kernel in every norm, each
+prefill the flash-attention kernel in every attention layer, and each
+forward the sLSTM kernel in every sLSTM layer; decode attention and the
+mLSTM recurrence are plain PyTorch, as in the JAX package. PyTorch runs
+eagerly, so the JAX engine's jitted bodies are plain methods here, and the
+pools and per-slot state are updated in place.
 
 Sampling: each request owns a ``torch.Generator`` on the engine's device,
 seeded from its seed (or, without one, from the engine seed 0 and its

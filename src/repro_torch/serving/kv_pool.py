@@ -13,8 +13,10 @@ The port of ``repro.serving.kv_pool``. Two layers:
   - full-attention KV (``attn``, or ``local_attn`` with window 0) is
     **paged**: one pool tensor of shape ``(P, Hkv, page_size, hd)`` per
     layer, shared by all slots, addressed through a per-slot page table;
-  - ring-buffer local attention is **slot-indexed**: O(window) per slot,
-    so it stays dense at ``batch == n_slots``.
+  - ring-buffer local attention and recurrent state (``mlstm``, ``slstm``)
+    are **slot-indexed**: O(window) and O(1) per slot, so they stay dense at
+    ``batch == n_slots``. Recurrent state is fp32 whatever the cache dtype.
+    A layout with no paged layer (xLSTM) runs with a pool of 0 pages.
 
   The decode step gathers each slot's pages into a contiguous bucketed
   view, runs the ordinary model decode on it, then scatters the one
@@ -190,14 +192,18 @@ class CacheLayout:
     ) -> Dict[str, Any]:
         """Materialize the dense decode view (the model's cache layout): each
         slot's first ``bucket_pages`` pages, contiguous along the seq axis.
-        Slot-indexed entries are copied, so the decode writes into the view only."""
+        Ring buffers are copied, since decode attention writes its cache in
+        place; recurrent state is handed over as is, since the xLSTM blocks
+        return new state and never write the state they are given."""
         table_b = page_table[:, :bucket_pages]
         layers = []
         for node, sub in zip(self.nodes, kv_state):
             if node.paged:
                 layers.append({name: self._gather_leaf(pool, table_b) for name, pool in sub.items()})
-            else:
+            elif node.kind == "local_attn":
                 layers.append({name: t.clone() for name, t in sub.items()})
+            else:
+                layers.append(dict(sub))
         return {"pos": pos, "layers": layers}
 
     @staticmethod
@@ -218,8 +224,10 @@ class CacheLayout:
         live: torch.Tensor,  # (n_slots,) bool
     ) -> List[Dict[str, torch.Tensor]]:
         """Commit one decode step, in place: write each live slot's new KV
-        column into its page (dead slots write the scratch page) and keep
-        the slot-indexed state of dead slots unchanged."""
+        column into its page (dead slots write the scratch page), and copy
+        the slot-indexed state of live slots only: a dead slot's ring buffer
+        and recurrent state stay as they were, so a finished request's
+        state never advances."""
         ps = self.page_size
         pos = pos.long()
         page_idx = torch.gather(page_table, 1, (pos // ps)[:, None])[:, 0].long()

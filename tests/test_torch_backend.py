@@ -2,7 +2,8 @@
 
 ``matmul`` of the four kinds the port runs is held against the JAX backend on
 the same numpy inputs (fp32 to 2e-4, the JAX matmul kernels' tolerance; bf16
-to 1e-2 normwise), with a small ``min_dim`` so Strassen levels really run.
+to 1e-2 normwise; fp32 against bf16 promoted to fp32, as jnp promotes), with
+a small ``min_dim`` so Strassen levels really run.
 """
 import dataclasses
 import itertools
@@ -51,6 +52,30 @@ def test_matmul_bf16_matches_reference(kind):
     want = np.asarray(want, np.float32)
     err = np.linalg.norm(got.float().numpy() - want) / np.linalg.norm(want)
     assert err < 1e-2
+
+
+@pytest.mark.parametrize("kind", ["naive", "strassen"])
+def test_matmul_promotes_mixed_fp32_bf16_as_reference(kind):
+    """fp32 x against bf16 w (the sLSTM's input projection): jnp promotes to an
+    fp32 product; torch.matmul refuses mixed inputs, so the port promotes first.
+
+    Every kind then equals the fp32 product of the promoted operands (2e-4).
+    The JAX strassen kind divides w in bf16 before its fp32 leaf, rounding
+    the operand sums to bf16, so there the two backends agree to the bf16
+    tolerance of ``test_matmul_bf16_matches_reference`` (1e-2 normwise).
+    """
+    x, w = _np((2, 32, 64)), _np((64, 32))
+    w16 = torch.from_numpy(w).bfloat16()
+    backend = dict(kind=kind, depth=2, min_dim=16)
+    got = tb.matmul(torch.from_numpy(x), w16, tb.MatmulBackend(**backend))
+    want = jb.matmul(jnp.asarray(x), jnp.asarray(w, jnp.bfloat16), jb.MatmulBackend(**backend))
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(got.numpy(), torch.from_numpy(x) @ w16.float(), atol=2e-4, rtol=2e-4)
+    want = np.asarray(want)
+    if kind == "naive":
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=2e-4)
+    else:
+        assert np.linalg.norm(got.numpy() - want) / np.linalg.norm(want) < 1e-2
 
 
 def test_effective_depth_matches_reference():

@@ -92,3 +92,39 @@ def test_params_from_jax_is_bit_exact(layout, dtype):
         np.testing.assert_array_equal(got.view(np.uint8), np.ascontiguousarray(want).view(np.uint8))
     np.testing.assert_array_equal(convert.tensor_to_numpy(sd["embed.embedding"]).view(np.uint8),
                                   jp["embed"]["embedding"].view(np.uint8))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_params_from_jax_is_bit_exact_for_xlstm(dtype):
+    """xlstm's tree: sLSTM's bare ``r`` (4, H, dh, dh) fp32, its stacked ``w``
+    (D, 4, H, dh) with bias, and mLSTM's fp32 gate projections with bias."""
+    import jax
+
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.models import model as JM
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as TM
+
+    jcfg = jax_smoke("xlstm_1_3b", dtype=dtype)
+    tcfg = get_smoke_config("xlstm_1_3b", dtype=dtype)
+    jp = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0)))
+    jp["groups"]["pos3"]["mixer"]["w"]["b"] = np.ones_like(jp["groups"]["pos3"]["mixer"]["w"]["b"])
+    sd = convert.params_from_jax(jp, tcfg, "cpu")
+    model = TM.init_params(tcfg, torch.Generator().manual_seed(0))
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+
+    def same(got, want):
+        got = convert.tensor_to_numpy(got)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.view(np.uint8), np.ascontiguousarray(want).view(np.uint8))
+
+    slstm, mlstm = jp["groups"]["pos3"]["mixer"], jp["groups"]["pos0"]["mixer"]
+    assert slstm["r"].dtype == np.float32 and mlstm["wi"]["w"].dtype == np.float32
+    same(model.layers[3].mixer.r, slstm["r"][0])
+    same(model.layers[3].mixer.w.w, slstm["w"]["w"][0])
+    same(model.layers[3].mixer.w.b, slstm["w"]["b"][0])
+    for name in ("wi", "wf"):
+        same(getattr(model.layers[0].mixer, name).w, mlstm[name]["w"][0])
+        same(getattr(model.layers[0].mixer, name).b, mlstm[name]["b"][0])
+    same(model.layers[0].mixer.wq.w, mlstm["wq"]["w"][0])

@@ -9,8 +9,9 @@ hence 2e-5 in fp32 and 8e-3 (about two bf16 ulps) in bf16. RMSNorm and flash
 attention use the JAX tests' tolerances in fp32 (1e-5 and 2e-5). In bf16
 they compute in fp32 and round once, as their plain versions do, so each
 element is held to 2^-7 x (|plain| + rms(plain)): one bf16 ulp of itself,
-with a floor for elements near 0. A smoke-config engine run on the card
-launches both kernels.
+with a floor for elements near 0. The sLSTM kernel takes the JAX kernel
+test's 2e-5 in fp32. Smoke-config engine runs on the card launch the serving
+kernels.
 """
 import numpy as np
 import pytest
@@ -26,6 +27,8 @@ from repro_torch.kernels.matmul import ref as tmm_ref
 from repro_torch.kernels.strassen import ref as tref
 from repro_torch.kernels.rmsnorm import rmsnorm as trn
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.slstm import slstm as tsl
+from repro_torch.kernels.slstm.ref import slstm_seq_ref
 from repro_torch.kernels.strassen import strassen as tst
 from repro_torch.models import model as M
 from repro_torch.serving.engine import Engine, ServeConfig
@@ -151,6 +154,76 @@ def test_cuda_engine_serves_through_both_kernels(cuda):
     forwards = st["prefills"] + st["decode_steps"]
     assert tfa.flash_attention_cuda.launches == cfg.n_layers * st["prefills"]
     assert trn.rmsnorm_cuda.launches == (2 * cfg.n_layers + 1) * forwards
+    cpu = Engine(cfg, params.cpu(), ServeConfig(max_seq=64, slots=2, page_size=8), device="cpu")
+    want = [cpu.submit(np.arange(5 + 3 * i) % cfg.vocab, 6) for i in range(3)]
+    cpu.run()
+    assert [h.tokens() for h in hs] == [h.tokens() for h in want]
+
+
+def _slstm_state(device, b, h, dh, carried):
+    if not carried:
+        z = lambda: torch.zeros((b, h, dh), device=device)
+        return {"c": z(), "n": z(), "m": torch.full((b, h, dh), -1e30, device=device), "h": z()}
+    st = {k: _on(device, (b, h, dh), torch.float32) for k in ("c", "m", "h")}
+    st["n"] = _on(device, (b, h, dh), torch.float32).abs() + 1.0
+    st["h"] = torch.tanh(st["h"])
+    return st
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_matches_plain(cuda):
+    # the JAX kernel test's shapes (dh 4 and 8 fill part of a block's 16
+    # columns), dh 48, batches past a block's 4 rows, and xlstm's decode shape
+    cases = [(1, 8, 1, 4, False), (2, 16, 2, 8, False), (2, 32, 4, 16, True),
+             (1, 40, 2, 48, False), (6, 3, 4, 64, True), (4, 1, 4, 512, True)]
+    for b, s, h, dh, carried in cases:
+        wx = _on(cuda, (b, s, 4, h, dh), torch.float32)
+        r = _on(cuda, (4, h, dh, dh), torch.float32) * dh**-0.5
+        state = _slstm_state(cuda, b, h, dh, carried)
+        before = {k: v.clone() for k, v in state.items()}
+        n = tsl.slstm_seq_cuda.launches
+        st, hs = tsl.slstm_seq_cuda(wx, r, state)
+        assert tsl.slstm_seq_cuda.launches == n + 1
+        st_ref, hs_ref = slstm_seq_ref(wx, r, state)
+        for got, want in [(hs, hs_ref)] + [(st[k], st_ref[k]) for k in ("c", "n", "m", "h")]:
+            assert got.shape == want.shape and _within(got, want, 2e-5), (b, s, h, dh)
+        assert all(torch.equal(state[k], before[k]) for k in state)  # inputs are not written
+    wx = _on(cuda, (2, 16, 4, 2, 8), torch.float32)
+    r, state = _on(cuda, (4, 2, 8, 8), torch.float32), _slstm_state(cuda, 2, 2, 8, False)
+    st_full, hs_full = tsl.slstm_seq_cuda(wx, r, state)
+    st_mid, hs_a = tsl.slstm_seq_cuda(wx[:, :8].contiguous(), r, state)
+    st_end, hs_b = tsl.slstm_seq_cuda(wx[:, 8:].contiguous(), r, st_mid)
+    assert _within(torch.cat([hs_a, hs_b], 1), hs_full, 2e-5)
+    assert all(_within(st_end[k], st_full[k], 2e-5) for k in st_full)
+    with pytest.raises(TypeError, match="float32"):
+        tsl.slstm_seq_cuda(wx.bfloat16(), r, state)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_serves_xlstm_through_the_slstm_kernel(cuda):
+    cfg = get_smoke_config("xlstm_1_3b")
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    eng = Engine(cfg, params, ServeConfig(max_seq=64, slots=2, page_size=8), device=cuda)
+    trn.rmsnorm_cuda.launches = tsl.slstm_seq_cuda.launches = 0
+    hs = [eng.submit(np.arange(5 + 3 * i) % cfg.vocab, 6) for i in range(3)]
+    eng.run()
+    st = eng.serve_stats()
+    assert [h.finish_reason for h in hs] == ["length"] * 3 and st["page_budget"] == 0
+    forwards = st["prefills"] + st["decode_steps"]
+    n_slstm = sum(cfg.block_kind(i) == "slstm" for i in range(cfg.n_layers))
+    assert tsl.slstm_seq_cuda.launches == n_slstm * forwards
+    assert trn.rmsnorm_cuda.launches == (cfg.n_layers + 1) * forwards
+    # The engine hands a slot pool's recurrent state to the decode step
+    # without a copy, so a step on the card must write none of it in place.
+    cache = M.init_cache(cfg, 2, 16, device=cuda)
+    toks = torch.arange(10, device=cuda).reshape(2, 5) % cfg.vocab
+    _, cache = M.apply_prefill(params, {"tokens": toks}, cache, cfg)
+    held = [dict(layer) for layer in cache["layers"]]
+    before = [{k: v.clone() for k, v in layer.items()} for layer in held]
+    n = tsl.slstm_seq_cuda.launches
+    M.apply_decode(params, torch.tensor([[3], [5]], device=cuda), cache, cfg)
+    assert tsl.slstm_seq_cuda.launches == n + n_slstm
+    assert all(torch.equal(layer[k], old[k]) for layer, old in zip(held, before) for k in layer)
     cpu = Engine(cfg, params.cpu(), ServeConfig(max_seq=64, slots=2, page_size=8), device="cpu")
     want = [cpu.submit(np.arange(5 + 3 * i) % cfg.vocab, 6) for i in range(3)]
     cpu.run()

@@ -36,10 +36,12 @@ def test_port_files_exist():
         "models/model.py", "models/frontends.py", "configs/__init__.py",
         "configs/phi4_mini_3_8b.py", "serving/request.py", "serving/kv_pool.py",
         "serving/engine.py", "blocks/recovery.py", "launch/serve.py",
+        "kernels/slstm/slstm.py", "kernels/slstm/ref.py", "kernels/slstm/ops.py",
+        "models/xlstm.py", "configs/xlstm_1_3b.py",
     } <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"rmsnorm.cu", "flash_attention.cu", "matmul.cu", "signed_sum.cu",
-            "strassen1.cu"} <= csrc
+            "strassen1.cu", "slstm.cu"} <= csrc
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -64,6 +66,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.strassen.ops, repro_torch.kernels.matmul.ops\n"
         "import repro_torch.obs\n"
         "import repro_torch.kernels.rmsnorm.ops, repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.slstm.ops, repro_torch.models.xlstm\n"
         "import repro_torch.configs, repro_torch.models.model, repro_torch.models.frontends\n"
         "import repro_torch.serving.engine, repro_torch.launch.serve\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"

@@ -4,7 +4,7 @@ Mirrors the decoder-only parts of ``tests/test_serving.py``,
 ``tests/test_serve_pool.py`` and the serving fault tests of
 ``tests/test_recovery.py`` on ``repro_torch.serving``, and holds the port's
 ``Engine`` against the JAX ``Engine``: from the same converted parameters
-(the phi4 and qwen2-vl smoke configs, fp32) both give the same greedy
+(the phi4, qwen2-vl and xlstm smoke configs, fp32) both give the same greedy
 tokens, and their prefill logits agree within 1e-4 relative.
 """
 import dataclasses
@@ -44,10 +44,11 @@ def _engine(cfg, params, **kw):
 
 
 # ------------------------------------------------------------ against JAX
-@pytest.fixture(scope="module", params=["phi4_mini_3_8b", "qwen2_vl_72b"])
+@pytest.fixture(scope="module", params=["phi4_mini_3_8b", "qwen2_vl_72b", "xlstm_1_3b"])
 def jax_pair(request):
     """Both engines on the same parameters; qwen2-vl's text path runs M-RoPE
-    with the engine's stub position streams."""
+    with the engine's stub position streams, and xlstm has no paged layer:
+    its mLSTM and sLSTM state is slot-indexed."""
     jcfg = jax_smoke(request.param)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
     tcfg = get_smoke_config(request.param)
@@ -442,3 +443,50 @@ def test_scatter_freezes_dead_slot_ring_state():
         for name in now:
             assert torch.equal(now[name][1], old[name][1])
             assert torch.equal(now[name][0], old[name][0] + 1.0)
+
+
+def test_scatter_freezes_dead_slot_recurrent_state():
+    """xlstm's mLSTM and sLSTM state is slot-indexed and fp32; a real decode
+    step advances the live slots' state and leaves a dead slot's as it was."""
+    lay = CacheLayout(cfg=get_smoke_config("xlstm_1_3b"), n_slots=3, page_size=8, max_seq=32,
+                      device="cpu")
+    assert not lay.has_paged and {n.kind for n in lay.nodes} == {"mlstm", "slstm"}
+    params = M.init_params(lay.cfg, torch.Generator().manual_seed(2))
+    kv = lay.init_kv_state(0)
+    gen = torch.Generator().manual_seed(3)
+    for entry in kv:
+        for name, t in entry.items():
+            assert t.dtype == torch.float32 and t.shape[0] == 3
+            t.copy_(torch.rand(t.shape, generator=gen) if name != "m" else torch.randn(t.shape, generator=gen))
+    before = [{n: t.clone() for n, t in e.items()} for e in kv]
+    table = torch.zeros((3, lay.table_width), dtype=torch.long)
+    pos = torch.tensor([4, 9, 2])
+    dense = lay.gather(kv, table, pos, bucket_pages=1)
+    _, new = M.apply_decode(params, torch.tensor([[3], [5], [7]]), dense, lay.cfg)
+    for old, now in zip(before, kv):  # the decode itself wrote no state in place
+        for name in now:
+            assert torch.equal(now[name], old[name])
+    lay.scatter_token(kv, new, table, pos, torch.tensor([True, False, True]))
+    for old, now, step in zip(before, kv, new["layers"]):
+        for name in now:
+            assert torch.equal(now[name][1], old[name][1])
+            assert torch.equal(now[name][[0, 2]], step[name][[0, 2]])
+            assert not torch.equal(now[name][0], old[name][0])
+
+
+def test_xlstm_survivor_tokens_exact_across_admission_and_finish():
+    """A request admitted into, and one finishing beside, a resident xlstm
+    request leave its greedy tokens as they are when it runs alone."""
+    cfg = get_smoke_config("xlstm_1_3b")
+    params = M.init_params(cfg, torch.Generator().manual_seed(4))
+    p0, p1 = np.arange(5) % cfg.vocab, (np.arange(9) * 3) % cfg.vocab
+    alone = _engine(cfg, params).submit(p0, 12).result()
+    eng = _engine(cfg, params, sync_interval=1)
+    h0 = eng.submit(p0, 12)
+    for _ in range(3):
+        eng.step()
+    h1 = eng.submit(p1, 3)
+    eng.run()
+    assert h0.tokens() == alone and len(h1.tokens()) == 3
+    st = eng.serve_stats()
+    assert st["page_budget"] == 0 and st["pages_in_use"] == 0

@@ -1,0 +1,359 @@
+"""Port parity: the xLSTM slice of repro_torch against repro, on the CPU.
+
+The same seeded numpy inputs go through both packages in fp32:
+
+* the sLSTM sequence: the port's plain version (``slstm_seq_ref``) and its
+  op on a CPU tensor (``slstm_seq``) against the JAX Pallas kernel, run in
+  interpret mode as ``tests/test_kernels_slstm.py`` runs it, and against the
+  JAX scan oracle, at that test's shapes and tolerance (2e-5), plus the
+  carried-state case;
+* the mLSTM sequential scan (``_mlstm_step``) and the chunkwise form
+  (chunks 4 and 8) against their JAX counterparts, at 1e-5;
+* ``mlstm_block`` and ``slstm_block`` with and without a carried state, and
+  the xlstm smoke model's logits through ``transformer.forward``, prefill
+  and decode, at 1e-4 relative to the largest output (the JAX package's
+  model tests hold fp32 paths at 1e-4).
+
+In bf16, the blocks are held to the JAX blocks within a quarter of the
+spread that one rounding placed elsewhere causes, and the whole model's
+distance from its own fp32 logits to the JAX model's.
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.configs import get_smoke_config as jax_smoke
+from repro.kernels.slstm.ops import slstm_seq as jax_slstm_seq
+from repro.kernels.slstm.ref import slstm_seq_ref as jax_slstm_seq_ref
+from repro.models import model as JM
+from repro.models import transformer as JT
+from repro.models import xlstm as JX
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.convert import params_from_jax, tensor_from_numpy
+from repro_torch.kernels.slstm import slstm as tsl
+from repro_torch.kernels.slstm.ops import slstm_seq
+from repro_torch.kernels.slstm.ref import slstm_seq_ref
+from repro_torch.models import model as TM
+from repro_torch.models import transformer as TT
+from repro_torch.models import xlstm as TX
+
+RNG = np.random.default_rng(31)
+SHIPPED_PATTERN = get_config("xlstm_1_3b").block_pattern  # 7 mLSTM + 1 sLSTM
+SLSTM_SHAPES = [(1, 8, 1, 4), (2, 16, 2, 8), (2, 32, 4, 16)]
+STATE = ("c", "n", "m", "h")
+
+
+def _np(shape, scale=1.0):
+    return (RNG.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _t(a):
+    return tensor_from_numpy(np.array(a), "cpu")
+
+
+def _close(got, want, rel=1e-4):
+    want = np.asarray(want, np.float32)
+    scale = max(1.0, float(np.abs(want).max()))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.detach().float().numpy(), want, atol=rel * scale, rtol=0)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = _t(v)
+    return out
+
+
+def _slstm_inputs(b, s, h, dh, carried=False):
+    """tests/test_kernels_slstm.py's inputs; ``carried`` draws a mid-sequence state."""
+    wx, r = _np((b, s, 4, h, dh)), _np((4, h, dh, dh), 0.3)
+    if carried:
+        state = {"c": _np((b, h, dh)), "n": np.abs(_np((b, h, dh))) + 1.0,
+                 "m": _np((b, h, dh)), "h": np.tanh(_np((b, h, dh)))}
+    else:
+        state = {k: np.zeros((b, h, dh), np.float32) for k in ("c", "n", "h")}
+        state["m"] = np.full((b, h, dh), -1e30, np.float32)
+    return wx, r, state
+
+
+def _assert_slstm(got, want, atol=2e-5):
+    (st_g, hs_g), (st_w, hs_w) = got, want
+    np.testing.assert_allclose(hs_g.numpy(), np.asarray(hs_w), atol=atol, rtol=atol)
+    for k in STATE:
+        np.testing.assert_allclose(st_g[k].numpy(), np.asarray(st_w[k]), atol=atol, rtol=atol,
+                                   err_msg=k)
+
+
+# ------------------------------------------------------------------ sLSTM
+@pytest.mark.parametrize("b,s,h,dh", SLSTM_SHAPES)
+@pytest.mark.parametrize("carried", [False, True])
+def test_slstm_seq_ref_matches_jax_kernel_and_oracle(b, s, h, dh, carried):
+    wx, r, state = _slstm_inputs(b, s, h, dh, carried)
+    jstate = {k: jnp.asarray(v) for k, v in state.items()}
+    got = slstm_seq_ref(_t(wx), _t(r), {k: _t(v) for k, v in state.items()})
+    _assert_slstm(got, jax_slstm_seq(jnp.asarray(wx), jnp.asarray(r), jstate))
+    _assert_slstm(got, jax_slstm_seq_ref(jnp.asarray(wx), jnp.asarray(r), jstate))
+
+
+@pytest.mark.parametrize("b,s,h,dh", SLSTM_SHAPES)
+def test_slstm_seq_op_on_cpu_matches_jax_kernel(b, s, h, dh):
+    wx, r, state = _slstm_inputs(b, s, h, dh)
+    tstate = {k: _t(v) for k, v in state.items()}
+    n = tsl.slstm_seq_cuda.launches
+    got = slstm_seq(_t(wx), _t(r), tstate)
+    assert tsl.slstm_seq_cuda.launches == n  # a CPU tensor takes the plain version
+    _assert_slstm(got, jax_slstm_seq(jnp.asarray(wx), jnp.asarray(r),
+                                     {k: jnp.asarray(v) for k, v in state.items()}))
+    for k in STATE:  # the op returns new state and leaves its input alone
+        np.testing.assert_array_equal(tstate[k].numpy(), state[k])
+
+
+def test_slstm_seq_state_carry():
+    """Two halves with the carried state equal one pass, as the JAX kernel's test holds."""
+    wx, r, state = _slstm_inputs(2, 16, 2, 8)
+    wx, r, st = _t(wx), _t(r), {k: _t(v) for k, v in state.items()}
+    st_full, hs_full = slstm_seq(wx, r, st)
+    st_mid, hs_a = slstm_seq(wx[:, :8], r, st)
+    st_end, hs_b = slstm_seq(wx[:, 8:], r, st_mid)
+    np.testing.assert_allclose(torch.cat([hs_a, hs_b], 1).numpy(), hs_full.numpy(), atol=2e-5)
+    for k in STATE:
+        np.testing.assert_allclose(st_end[k].numpy(), st_full[k].numpy(), atol=2e-5, err_msg=k)
+    _, hs_j = jax_slstm_seq(jnp.asarray(wx.numpy()[:, 8:]), jnp.asarray(r.numpy()),
+                            {k: jnp.asarray(v.numpy()) for k, v in st_mid.items()})
+    np.testing.assert_allclose(hs_b.numpy(), np.asarray(hs_j), atol=2e-5, rtol=2e-5)
+
+
+def test_slstm_seq_cuda_rejects_bad_inputs():
+    wx, r, state = _slstm_inputs(1, 4, 2, 8)
+    st = {k: _t(v) for k, v in state.items()}
+    with pytest.raises(ValueError, match="wx must be"):
+        tsl.slstm_seq_cuda(_t(wx)[:, :, :3], _t(r), st)
+    with pytest.raises(ValueError, match="r must be"):
+        tsl.slstm_seq_cuda(_t(wx), _t(r)[:, :1], st)
+    with pytest.raises(ValueError, match="state 'm'"):
+        tsl.slstm_seq_cuda(_t(wx), _t(r), {**st, "m": st["m"][:, :1]})
+    with pytest.raises(TypeError, match="float32"):
+        tsl.slstm_seq_cuda(_t(wx).double(), _t(r), st)
+
+
+# ------------------------------------------------------------------ mLSTM
+def _mlstm_streams(b, s, h, dk, dv):
+    """q, k (B, S, H, dk), v (B, S, H, dv), i, f (B, S, H) and a carried state."""
+    q, k, v = _np((b, s, h, dk), dk**-0.5), _np((b, s, h, dk), dk**-0.5), _np((b, s, h, dv))
+    i_pre, f_pre = _np((b, s, h)), _np((b, s, h)) + 2.0
+    state = {"C": _np((b, h, dk, dv)), "n": _np((b, h, dk)), "m": _np((b, h))}
+    return (q, k, v, i_pre, f_pre), state
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv", [(1, 6, 1, 4, 8), (2, 9, 4, 8, 16)])
+def test_mlstm_step_scan_matches_reference(b, s, h, dk, dv):
+    streams, state = _mlstm_streams(b, s, h, dk, dv)
+    xs = tuple(jnp.moveaxis(jnp.asarray(t), 1, 0) for t in streams)
+    jst, jhs = jax.lax.scan(JX._mlstm_step, {k: jnp.asarray(v) for k, v in state.items()}, xs)
+    st, hs = {k: _t(v) for k, v in state.items()}, []
+    for t in range(s):
+        st, h_t = TX._mlstm_step(st, tuple(_t(x)[:, t] for x in streams))
+        hs.append(h_t)
+    np.testing.assert_allclose(torch.stack(hs, 1).numpy(), np.moveaxis(np.asarray(jhs), 0, 1),
+                               atol=1e-5, rtol=1e-5)
+    for k in ("C", "n", "m"):
+        np.testing.assert_allclose(st[k].numpy(), np.asarray(jst[k]), atol=1e-5, rtol=1e-5,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("chunk", [4, 8])
+def test_mlstm_chunkwise_matches_reference(chunk):
+    (q, k, v, i_pre, f_pre), state = _mlstm_streams(2, 16, 2, 8, 16)
+    hf = lambda t: np.ascontiguousarray(np.moveaxis(t, 2, 1))  # (B, S, H, *) -> (B, H, S, *)
+    args = [hf(t) for t in (q, k, v, i_pre, f_pre)]
+    jst, jh = JX.mlstm_chunkwise(*map(jnp.asarray, args),
+                                 {n: jnp.asarray(a) for n, a in state.items()}, chunk)
+    st, h = TX.mlstm_chunkwise(*map(_t, args), {n: _t(a) for n, a in state.items()}, chunk)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=1e-5, rtol=1e-5)
+    for n in ("C", "n", "m"):
+        np.testing.assert_allclose(st[n].numpy(), np.asarray(jst[n]), atol=1e-5, rtol=1e-5,
+                                   err_msg=n)
+
+
+# ----------------------------------------------------------------- blocks
+def _block_pair(kind, cfg_overrides=None):
+    jcfg = jax_smoke("xlstm_1_3b", **(cfg_overrides or {}))
+    tcfg = get_smoke_config("xlstm_1_3b", **(cfg_overrides or {}))
+    init_j = JX.init_mlstm if kind == "mlstm" else JX.init_slstm
+    init_t = TX.init_mlstm if kind == "mlstm" else TX.init_slstm
+    jp = init_j(jax.random.PRNGKey(3), jcfg, jnp.dtype(jcfg.dtype))
+    tp = init_t(torch.Generator().manual_seed(0), tcfg, getattr(torch, tcfg.dtype))
+    tp.load_state_dict(_flat(jax.tree.map(np.asarray, jp)), strict=True)
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_xlstm_block_matches_reference(kind, with_state):
+    jcfg, tcfg, jp, tp = _block_pair(kind)
+    x = _np((2, 7, jcfg.d_model))
+    jblock, tblock = (JX.mlstm_block, TX.mlstm_block) if kind == "mlstm" else (JX.slstm_block, TX.slstm_block)
+    jinit = JX.init_mlstm_state if kind == "mlstm" else JX.init_slstm_state
+    jstate = tstate = None
+    if with_state:  # a carried state: the block's own state after a first chunk of tokens
+        _, jstate = jblock(jp, jnp.asarray(_np((2, 5, jcfg.d_model))), jcfg, state=jinit(jcfg, 2))
+        tstate = {k: _t(v) for k, v in jstate.items()}
+    want, jnew = jblock(jp, jnp.asarray(x), jcfg, state=jstate)
+    got, tnew = tblock(tp, _t(x), tcfg, state=tstate)
+    _close(got, want)
+    assert (tnew is None) == (not with_state)
+    for k in jnew or {}:
+        assert tnew[k].dtype == torch.float32
+        _close(tnew[k], jnew[k])
+
+
+# In bf16 both packages round the same projections to bf16 and run the same
+# fp32 recurrences, so a block's outputs agree but for the rare element whose
+# fp32 sums, taken in another order, round to the neighbouring bf16 value.
+# One rounding placed elsewhere (a projection kept in fp32, a gate or an
+# output rounded to bf16 where the reference keeps fp32) moves about half the
+# elements by one bf16 ulp, 2^-8 relative: about 3e-3 normwise on these
+# shapes. 2^-10 lies a quarter of that below.
+BF16_BLOCK_LIMIT = 2.0**-10
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("kind,chunk", [("mlstm", 0), ("mlstm", 4), ("slstm", 0)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_xlstm_block_bf16_rounds_where_the_reference_does(kind, chunk, with_state):
+    """The bf16 sLSTM also projects x in fp32 through its bf16 ``w``, which the
+    JAX package promotes to an fp32 product: the port's backend promotes too."""
+    jcfg, tcfg, jp, tp = _block_pair(kind, dict(dtype="bfloat16", mlstm_chunk=chunk))
+    if kind == "slstm":
+        assert tp.w.w.dtype == torch.bfloat16 and tp.r.dtype == torch.float32
+    jblock, tblock = (JX.mlstm_block, TX.mlstm_block) if kind == "mlstm" else (JX.slstm_block, TX.slstm_block)
+    jinit = JX.init_mlstm_state if kind == "mlstm" else JX.init_slstm_state
+    jstate = tstate = None
+    if with_state:
+        first = jnp.asarray(_np((2, 8, jcfg.d_model)), jnp.bfloat16)
+        _, jstate = jblock(jp, first, jcfg, state=jinit(jcfg, 2))
+        tstate = {k: _t(v) for k, v in jstate.items()}
+    x = jnp.asarray(_np((2, 16, jcfg.d_model)), jnp.bfloat16)
+    want, jnew = jblock(jp, x, jcfg, state=jstate)
+    got, tnew = tblock(tp, _t(x.astype(jnp.float32)).bfloat16(), tcfg, state=tstate)
+    assert got.dtype == torch.bfloat16
+    assert _rel(got.float().numpy(), want) <= BF16_BLOCK_LIMIT
+    for k in jnew or {}:
+        assert tnew[k].dtype == torch.float32
+        _close(tnew[k], jnew[k])
+
+
+# ------------------------------------------------------------ whole model
+def _models(**overrides):
+    jcfg = jax_smoke("xlstm_1_3b", **overrides)
+    tcfg = get_smoke_config("xlstm_1_3b", **overrides)
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = TM.init_params(tcfg, torch.Generator().manual_seed(1))
+    tp.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu"), strict=True)
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.mark.parametrize("chunk", [0, 4])
+def test_forward_logits_match_reference(chunk):
+    jcfg, tcfg, jp, tp = _models(mlstm_chunk=chunk)
+    toks = RNG.integers(0, jcfg.vocab, (2, 12))
+    want, _, _ = JT.forward(jp, jnp.asarray(toks), jcfg)
+    got, cache, _ = TT.forward(tp, torch.from_numpy(toks), tcfg)
+    assert cache is None
+    _close(got, want)
+
+
+def test_prefill_and_decode_logits_match_reference():
+    jcfg, tcfg, jp, tp = _models()
+    toks = RNG.integers(0, jcfg.vocab, (2, 9))
+    jlog, jcache = JM.apply_prefill(jp, {"tokens": jnp.asarray(toks)}, JM.init_cache(jcfg, 2, 16), jcfg)
+    tcache = TM.init_cache(tcfg, 2, 16, device="cpu")
+    assert all(v.dtype == torch.float32 for layer in tcache["layers"] for v in layer.values())
+    tlog, tcache = TM.apply_prefill(tp, {"tokens": torch.from_numpy(toks)}, tcache, tcfg)
+    _close(tlog, jlog)
+    for _ in range(3):
+        nxt = np.array(jnp.argmax(jlog, -1))[:, None]
+        jlog, jcache = JM.apply_decode(jp, jnp.asarray(nxt), jcache, jcfg)
+        tlog, tcache = TM.apply_decode(tp, torch.from_numpy(nxt), tcache, tcfg)
+        _close(tlog, jlog)
+    assert int(tcache["pos"]) == 12
+
+
+def test_bf16_model_keeps_fp32_recurrent_state():
+    cfg = dataclasses.replace(get_smoke_config("xlstm_1_3b"), dtype="bfloat16")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    cache = TM.init_cache(cfg, 1, 16, device="cpu")
+    logits, cache = TM.apply_prefill(params, {"tokens": torch.arange(5)[None]}, cache, cfg)
+    assert logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits.float()).all())
+    kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
+    assert sorted(set(kinds)) == ["mlstm", "slstm"]
+    for kind, layer in zip(kinds, cache["layers"]):
+        assert set(layer) == ({"C", "n", "m"} if kind == "mlstm" else set(STATE))
+        assert all(v.dtype == torch.float32 for v in layer.values())
+
+
+def _prefill_decode_logits(jax_side, params, cfg, toks, steps):
+    """Prefill logits, then one decode step per token of ``steps``, stacked (fp32)."""
+    b = toks.shape[0]
+    if jax_side:
+        logits, cache = JM.apply_prefill(params, {"tokens": jnp.asarray(toks)},
+                                         JM.init_cache(cfg, b, 32), cfg)
+    else:
+        logits, cache = TM.apply_prefill(params, {"tokens": torch.from_numpy(toks)},
+                                         TM.init_cache(cfg, b, 32, device="cpu"), cfg)
+    out = [logits]
+    for tok in steps:
+        if jax_side:
+            logits, cache = JM.apply_decode(params, jnp.asarray(tok), cache, cfg)
+        else:
+            logits, cache = TM.apply_decode(params, torch.from_numpy(tok), cache, cfg)
+        out.append(logits)
+    return np.stack([np.asarray(o, np.float32) if jax_side else o.float().numpy() for o in out])
+
+
+@pytest.mark.parametrize("depth", [4, 48])
+def test_bf16_model_spread_matches_reference(depth):
+    """The bf16 model lies as far from its fp32 logits (the same weights,
+    upcast) as the JAX model does, and its logits lie within that spread of
+    the JAX model's. At 4 layers the smoke pattern, at 48 the shipped
+    pattern (7 mLSTM + 1 sLSTM) at the smoke width: the spread grows with
+    depth in both packages. The blocks' roundings are pinned above; here
+    the fp32 sums' order flips some bf16 roundings, and depth amplifies the
+    flips in both packages alike."""
+    over = {} if depth == 4 else dict(n_layers=48, block_pattern=SHIPPED_PATTERN)
+    jcfg16 = jax_smoke("xlstm_1_3b", dtype="bfloat16", **over)
+    jp16 = JM.init_params(jcfg16, jax.random.PRNGKey(5))
+    jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp16)
+    logits = {}
+    for dtype, jp in (("bfloat16", jp16), ("float32", jp32)):
+        jcfg = jax_smoke("xlstm_1_3b", dtype=dtype, **over)
+        tcfg = get_smoke_config("xlstm_1_3b", dtype=dtype, **over)
+        tp = TM.init_params(tcfg, torch.Generator().manual_seed(1))
+        tp.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu"), strict=True)
+        toks = RNG.integers(0, jcfg.vocab, (2, 16)) if not logits else toks
+        steps = [RNG.integers(0, jcfg.vocab, (2, 1)) for _ in range(3)] if not logits else steps
+        logits[dtype] = (_prefill_decode_logits(True, jp, jcfg, toks, steps),
+                         _prefill_decode_logits(False, tp, tcfg, toks, steps))
+    (j16, t16), (j32, t32) = logits["bfloat16"], logits["float32"]
+    assert np.isfinite(t16).all()
+    assert _rel(t32, j32) <= 1e-4
+    spread = _rel(j16, j32)  # the JAX bf16 model's own distance from fp32
+    own, mutual = _rel(t16, t32), _rel(t16, j16)
+    print(f"depth {depth}: bf16 to fp32 logits, JAX {spread:.4e}, port {own:.4e}; "
+          f"port to JAX in bf16 {mutual:.4e}")  # shown by pytest -rP
+    assert own <= 1.5 * spread
+    assert mutual <= 2.0 * spread
