@@ -6,7 +6,9 @@ of a checkout, on a machine with an NVIDIA Hopper GPU (sm_90a) and the CUDA
 toolkit. It uses ``repro_torch`` only, never JAX or ``repro``. The first path
 is Stark's Strassen multiply:
 
-1. builds every kernel in ``src/repro_torch/csrc`` (into ``build/``);
+1. builds every kernel in ``src/repro_torch/csrc`` (into ``build/``), logs
+   their registers and spills, and checks in the SASS that the bf16
+   strassen1 and flash kernels run on the tensor cores (HGMMA, HMMA);
 2. holds each kernel against its plain PyTorch version, in fp32 and bf16,
    for the three schemes, on aligned and ragged shapes;
 3. drives the main path, ``repro_torch.core.backend.matmul`` on two N x N
@@ -17,13 +19,15 @@ is Stark's Strassen multiply:
    against an fp32 ``torch.matmul`` of the same operands by normwise
    relative error, and every kernel of the path must have been launched;
 4. times each kernel at the main path's shapes with CUDA events, beside its
-   plain version, the matching PyTorch call and the card's bound.
+   plain version, the matching PyTorch call and the card's bound, and splits
+   strassen_fused's device time by kernel class.
 
 The second path serves phi4-mini-3.8B (random weights from ``--seed``, bf16,
 full width and depth) through the continuous-batching ``Engine``:
 
 a. holds the RMSNorm and flash-attention kernels against their plain
-   versions at the model's shapes;
+   versions at the model's shapes, and flash on a grid of head dims, query
+   lengths, GQA groups and masks;
 b. serves 8 requests of 64 to 1984 prompt tokens, checks that every one ends
    by length with no page leaked, and that each forward launched the RMSNorm
    kernel 65 times and each prefill the flash kernel 32 times;
@@ -91,7 +95,7 @@ from repro_torch.core.strassen import (  # noqa: E402
     split_quadrants,
 )
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS, flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.matmul.matmul import batched_matmul_cuda, matmul_cuda  # noqa: E402
 from repro_torch.kernels.matmul.ref import batched_matmul_ref, matmul_ref  # noqa: E402
@@ -306,9 +310,50 @@ def phase_build() -> None:
     log(f"kernel build: {_build.build_seconds():.1f} s ({how}) -> {path}")
     build_log = path.parent / "build.log"
     if build_log.exists():
+        name = ""
         for line in build_log.read_text().splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
-                log(f"  ptxas {line.strip()}")
+            if "Compiling entry function" in line:
+                name = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {short_name(name)}: {line.strip()}")
+    check_tensor_cores(path)
+
+
+def short_name(mangled: str) -> str:
+    """The kernel's own name and template arguments out of a mangled symbol."""
+    for kernel in (*TENSOR_CORE_KERNELS, "flash_kernel", "rmsnorm", "slstm", "signed_sum", "matmul"):
+        if kernel in mangled:
+            return mangled[mangled.index(kernel):][:48]
+    return mangled[:48]
+
+
+# The bf16 kernels that must run on the tensor cores, and the SASS opcode
+# each must hold: warpgroup MMA for strassen1, warp-level MMA for flash.
+TENSOR_CORE_KERNELS = {"strassen1_wgmma_kernel": "HGMMA", "flash_mma_kernel": "HMMA"}
+
+
+def check_tensor_cores(lib: Path) -> None:
+    """cuobjdump's SASS of the built library: every instance of each
+    tensor-core kernel holds its MMA opcode."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts: dict = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = {}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA", "FFMA"):
+                if op in line:
+                    counts[name][op] = counts[name].get(op, 0) + 1
+    for kernel, op in TENSOR_CORE_KERNELS.items():
+        found = {n: c for n, c in counts.items() if kernel in n}
+        for n, c in found.items():
+            log(f"  sass {short_name(n)}: {op} x{c.get(op, 0)}, FFMA x{c.get('FFMA', 0)}")
+        if not found or any(c.get(op, 0) == 0 for c in found.values()):
+            fail(f"{kernel}: no {op} in the SASS of {lib.name}")
 
 
 def phase_kernels(gen: np.random.Generator) -> None:
@@ -337,8 +382,10 @@ def phase_kernels(gen: np.random.Generator) -> None:
                 x = randn(gen, (m, s.n_mults, h, w), dtype)
                 compare(f"combine {tag} {name} {(m, s.n_mults, h, w)}",
                         combine_cuda(x, s.c_coef), combine_ref(x, s.c_coef), "sum")
+            # aligned, ragged in every dimension, K2 below one K step, mb > 1
             for mb, m2, k2, n2 in [(1, 64, 64, 64), (7, 32, 64, 32), (2, 128, 128, 128),
-                                   (3, 33, 65, 17), (1, 8, 192, 8)]:
+                                   (3, 33, 65, 17), (1, 8, 192, 8), (2, 130, 72, 200),
+                                   (2, 64, 8, 64), (2, 200, 520, 136)]:
                 aq, bq = randn(gen, (mb, 4, m2, k2), dtype), randn(gen, (mb, 4, k2, n2), dtype)
                 compare(f"strassen1 {tag} {name} {(mb, m2, k2, n2)}",
                         strassen1_matmul_cuda(aq, bq, scheme=s),
@@ -505,6 +552,12 @@ def phase_breakdown(a, b, reps: int) -> None:
     ]
     for name, fn in steps:
         log(f"breakdown strassen_fused depth=2 fp32: {name}: {time_ms(fn, reps):.3f} ms")
+    del ta, aq, cq, prod
+    for x in (a, a.bfloat16()):
+        tag = "fp32" if x.dtype == torch.float32 else "bf16"
+        run = lambda: matmul(x, x, MatmulBackend(kind="strassen_fused", depth=2))  # noqa: E731
+        wall, _ = timed(run)
+        log_split(f"strassen_fused depth=2 {tag}", wall, device_split(run))
 
 
 # ---------------------------------------------------------- serving path
@@ -538,6 +591,29 @@ def phase_serving_kernels(gen: np.random.Generator, cfg) -> None:
     q, k, v = (randn(gen, (1, 16, 1000, 256), torch.bfloat16) for _ in range(3))
     compare("flash bf16 MHA D=256 (gemma)", flash_attention_cuda(q, k, v), attention_ref(q, k, v),
             "flash")
+    phase_flash_grid(gen, hq, hkv, hd)
+
+
+def phase_flash_grid(gen: np.random.Generator, hq: int, hkv: int, hd: int) -> None:
+    """Flash attention where the tiles can break, in both dtypes: every head
+    dim, query lengths against the 64-row query and 64-key tiles, GQA groups
+    1, 3 and 8, no mask, a window of 256 and one below a key tile, and more
+    keys than queries."""
+    cases = [((1, 4, 2, 300, 300, d), {}) for d in HEAD_DIMS]
+    cases += [((1, hq, hkv, s, s, hd), {}) for s in (1, 63, 65)]
+    cases += [((2, 8, 8, 200, 200, 64), {}), ((2, 6, 2, 200, 200, 64), {}),
+              ((2, 8, 1, 200, 200, 64), {})]
+    cases += [((1, 6, 2, 1000, 1000, hd), dict(causal=False)),
+              ((1, 6, 2, 1000, 1000, hd), dict(window=256)),
+              ((1, 6, 2, 1000, 1000, hd), dict(window=17)),
+              ((1, 4, 2, 100, 700, hd), dict(causal=False))]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for (b, h, g, sq, sk, d), kw in cases:
+            q = randn(gen, (b, h, sq, d), dtype)
+            k, v = randn(gen, (b, g, sk, d), dtype), randn(gen, (b, g, sk, d), dtype)
+            compare(f"flash {tag} q{tuple(q.shape)} kv{tuple(k.shape)} {kw or 'causal'}",
+                    flash_attention_cuda(q, k, v, **kw), attention_ref(q, k, v, **kw), "flash")
 
 
 def make_prompts(gen: np.random.Generator, vocab: int) -> list:
@@ -723,8 +799,10 @@ def device_split(fn) -> dict:
         if evt.device_type != DeviceType.CUDA:
             continue
         name = evt.name.lower()
-        if "flash_kernel" in name:
+        if "flash_kernel" in name or "flash_mma_kernel" in name:
             key = "flash kernel"
+        elif "strassen1_" in name:
+            key = "strassen1 kernel"
         elif "rmsnorm_kernel" in name:
             key = "rmsnorm kernel"
         elif "slstm_step_kernel" in name:

@@ -37,6 +37,21 @@ __device__ __forceinline__ void ld4(float* dst, const float* src) {
   dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
 }
 
+// Asynchronous 16-byte copy from device to shared memory (cp.async, sm_80+).
+// With fill set, the 16 bytes are zeros and nothing is read from src.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill = false) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int bytes = fill ? 0 : 16;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// Waits until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // True when a pointer allows 16-byte vector loads and stores.
 inline bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 

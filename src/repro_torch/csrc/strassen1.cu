@@ -4,177 +4,712 @@
 // Replaces strassen1_matmul_pallas (src/repro/kernels/strassen/strassen.py:155,
 // body _strassen1_kernel at :128). As there, the r operand sums, the r
 // products and the combine never touch device memory: A and B quadrant
-// tiles are read once, and only the 4 C quadrant tiles are written.
+// tiles are read, and only the 4 C quadrant tiles are written.
 //
 // What bounds it: r * 2*M2*N2*K2 flops per leaf against 4*(M2*K2 + K2*N2 +
-// M2*N2) elements moved; at the main path's shapes (M2 = K2 = N2 >= 4096)
-// that is thousands of flops per byte, so fp32 FMA throughput (67 TFLOP/s on
-// the CUDA cores; TF32 would change the result) is the bound. Register
-// pressure is the design constraint: r fp32 accumulator micro-tiles live in
-// registers for the whole K loop.
+// M2*N2) elements of device memory; at the main path's shapes (M2 = K2 = N2
+// >= 4096) that is thousands of flops per byte, so the bound is the bf16
+// tensor-core rate (989 TFLOP/s) for bf16 and the fp32 CUDA-core rate (67
+// TFLOP/s; TF32 would change the result) for fp32. Inside the card the
+// limits are the L2 and the CUDA cores: a block re-reads the quadrant tiles
+// of every nonzero operand coefficient of every product (12 + 12 tile reads
+// for Strassen's 7 products against 4 + 4 quadrants, 25 flops a byte for a
+// 128 x 64 bf16 tile), and forms the operand sums on the CUDA cores.
 //
-// Design: one block per (leaf, 64x64 output tile), with the K loop inside
-// the block (the TPU kernel's sequential K grid axis). Each K step of 8
-// reads the 4 A-quadrant and 4 B-quadrant tiles from device memory, forms
-// the r operand-sum tiles as it stores them to shared memory, and each of
-// the 256 threads adds r 4x4 outer products into r*16 fp32 accumulators
-// (128 registers for r = 8). r is a template parameter so the p loops
-// unroll; the coefficient values come in at launch from the Python Scheme.
-// After the last K step the accumulators are combined into the 4 C
-// quadrants in registers and rounded once to the storage type.
+// Design: one block per (leaf, 128 x 64 output tile) of all four C
+// quadrants, with the K loop inside the block. The block walks the r
+// products one at a time (p = 0 .. r-1), and for each product its K steps:
+//   1. one thread has the TMA copy the nonzero A- and B-quadrant tiles of
+//      a_coef[p] and b_coef[p] for step s + ns - 1 into a ring of ns raw
+//      stages (as many as shared memory holds, 2 to 8), each completing on
+//      its own mbarrier; ragged edges arrive zero-filled;
+//   2. the block forms the operand-sum tiles of step s + 1 from the ring:
+//      fp32 adds over q in ascending order, zeros skipped, no contraction,
+//      rounded once to the storage type (as the Pallas kernel multiplies
+//      sums in the input dtype), into a double-buffered sum tile;
+//   3. meanwhile the product M_p accumulates step s in fp32;
+//   4. after M_p's last K step, c_coef[k][p] * M_p goes into the C
+//      accumulator of each quadrant k where it is nonzero: the first nonzero
+//      term is assigned and later ones added, in ascending p, with __fmul_rn
+//      and __fadd_rn (signed_sum's order, so the combine rounds as before);
+//   5. C is rounded once to the storage type and written.
+// Only one product accumulator and the four C accumulators are live.
 //
-// Numerics: operand sums run over q in ascending order, skip zero
-// coefficients, are never contracted into an FMA, and are rounded to the
-// storage type before the product (a no-op for fp32, one rounding for bf16,
-// as the Pallas kernel multiplies bf16 sums). Products accumulate in fp32
-// with fp32 FMA, never TF32.
+//   bf16: two warpgroups, each owning 64 x 64 of the tile, multiply with
+//   wgmma.mma_async m64n64k16 (fp32 accumulate) reading both operands from
+//   shared memory: the A operand K-major and the B operand N-major (the
+//   transpose bit), both in the 128-byte swizzle in which the TMA lands the
+//   raw tiles, so that forming a sum is elementwise over the same offsets.
+//   An operand with one nonzero coefficient of +-1 is the raw tile itself:
+//   wgmma reads it in place and its sign moves into the combine coefficient
+//   (negation is exact, so M_p and the combine round as before). A sum of
+//   two +-1 terms is one bf16x2 FMA, x0 * c0 + c1 * x1, rounded once: equal
+//   bit for bit to the fp32 sum rounded to bf16 (two bf16 values' exact sum
+//   is an fp32 value unless their exponents lie more than 16 apart, and then
+//   both roundings give the larger term). The product's 32 and the C quadrants'
+//   4 x 32 fp32 registers share wgmma's fragment layout, so the combine is
+//   register to register. The wgmma of step s runs on the tensor cores
+//   while the same threads form step s + 1's sums. K step 64.
+//
+//   fp32: 256 threads on the CUDA cores (FMA, never TF32), each an 8 x 4
+//   micro-tile of M_p (32 registers; rows in two groups of 4, 64 apart, so
+//   each k reads two float4 of the k-major A sum and one of the B sum) and
+//   the same 8 x 4 of the four C accumulators (128 registers). K step 32.
+//
+// Shapes whose rows are not a multiple of 16 bytes (K2 or N2 ragged), which
+// the TMA cannot address, load tiles element by element into the same ring
+// and layout.
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the runtime)
+
+#include <algorithm>
+#include <cmath>
+
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 8, THREADS = 256, MAXR = 8;
-constexpr int PAD = 4;  // keeps the transposed A-sum stores free of bank conflicts
+constexpr int MAXR = 8;
+constexpr int MAX_STAGES = 8;
 
 struct Strassen1Coefs {
-  float a[MAXR][4];
-  float b[MAXR][4];
   float c[4][MAXR];
+  // The nonzero operand terms of each product, in ascending q.
+  int na[MAXR], nb[MAXR];
+  int aq[MAXR][4], bq[MAXR][4];
+  float av[MAXR][4], bv[MAXR][4];
+  int first[4];  // the first p with c[k][p] != 0 (-1 if none)
+  // bf16: an operand of one +-1 term is read raw; sign[p] is the product of
+  // the raw operands' signs, folded into the combine coefficients.
+  int raw_a[MAXR], raw_b[MAXR];
+  float sign[MAXR];
 };
 
-// Signed sum over n terms in ascending order, zeros skipped, no contraction.
-template <int N>
-__device__ __forceinline__ float signed_sum(const float* cf, const float* x) {
-  float acc = 0.f;
-  bool any = false;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (cf[i] != 0.f) {
-      const float term = __fmul_rn(cf[i], x[i]);
-      acc = any ? __fadd_rn(acc, term) : term;
-      any = true;
-    }
-  }
-  return acc;
+template <typename T>
+struct Cfg;
+template <>
+struct Cfg<__nv_bfloat16> {
+  static constexpr int BM = 128, BN = 64, BK = 64, THREADS = 256;
+};
+template <>
+struct Cfg<float> {
+  static constexpr int BM = 128, BN = 64, BK = 32, THREADS = 256;
+  static constexpr int PAD = 4;  // rows of the k-major A sum stay float4-aligned
+};
+
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T, int R>
-__global__ void __launch_bounds__(THREADS, 1)
-strassen1_kernel(const T* __restrict__ AQ, const T* __restrict__ BQ, T* __restrict__ CQ,
-                 int64_t M2, int64_t K2, int64_t N2, const Strassen1Coefs coef) {
-  __shared__ __align__(16) float SA[R][BK][BM + PAD];  // operand sums of A, k-major
-  __shared__ __align__(16) float SB[R][BK][BN];        // operand sums of B
-  const int64_t leaf = blockIdx.z;
-  const int64_t a_quad = M2 * K2, b_quad = K2 * N2, c_quad = M2 * N2;
-  AQ += leaf * 4 * a_quad;
-  BQ += leaf * 4 * b_quad;
-  CQ += leaf * 4 * c_quad;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * BM;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;  // micro-tile rows ty*4+{0..3}, cols tx*4+{0..3}
+// ------------------------------------------------------------- wgmma (bf16)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t smem_addr) {
+  // 128-byte swizzle; 1024 bytes between 8-row groups (SBO), and the same as
+  // LBO (unused: every operand here is one swizzle atom wide).
+  uint64_t d = static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>(1024 >> 4) << 16;
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;
+  d |= static_cast<uint64_t>(1) << 62;
+  return d;
+}
 
-  float acc[R][4][4];
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Pins accumulator registers around the asynchronous MMA.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #pragma unroll
-  for (int p = 0; p < R; ++p)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[p][i][j] = 0.f;
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  // The next K step's quadrant elements are loaded into registers while the
-  // current step computes, so device-memory latency overlaps the FMA loop.
-  float qa[BM * BK / THREADS][4], qb[BK * BN / THREADS][4];
-  auto load = [&](int64_t k0) {
-#pragma unroll
-    for (int s = 0; s < BM * BK / THREADS; ++s) {
-      const int e = tid + s * THREADS;
-      const int64_t gr = row0 + e / BK, gc = k0 + e % BK;
-      const bool ok = gr < M2 && gc < K2;
-#pragma unroll
-      for (int qi = 0; qi < 4; ++qi) qa[s][qi] = ok ? to_f32(AQ[qi * a_quad + gr * K2 + gc]) : 0.f;
+// D(64x64, fp32) (+)= A(64x16, K-major) * B(16x64, N-major), both bf16 in shared memory.
+__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// --------------------------------------------------------- TMA, mbarriers
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {  // one arrival: the thread issuing the copies
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+// Waits for the phase of the given parity to complete. A wait that never
+// ends (a lost copy or arrival) traps, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (int i = 0; i < (1 << 24); ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred P1;\nmbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+  __trap();
+}
+// Box (c0, c1, c2) of a 3-D tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// ------------------------------------------------------------ shared parts
+struct Shape {
+  int64_t M2, K2, N2, a_quad, b_quad, c_quad;
+  int tiles_m, tiles_n, tiles;  // output tiles of one leaf
+  int nk;                       // K steps per product
+  bool tma;                     // rows are whole 16-byte chunks: TMA; else element loads
+};
+
+struct Tile {
+  int64_t row0, col0;
+  int leaf;
+};
+
+// Offset of element (r, c) in a raw or sum tile with rows of W elements:
+// the 128-byte swizzle (16-byte chunk k of row r at k ^ (r % 8)) for bf16,
+// plain row-major for fp32.
+template <typename T, int W>
+__device__ __forceinline__ int tile_offset(int r, int c) {
+  if constexpr (sizeof(T) == 2) {
+    return r * W + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+  } else {
+    return r * W + c;
+  }
+}
+
+// Starts the copies of step (p, k0)'s raw quadrant tiles into one ring stage:
+// na A tiles [BM][BK] then nb B tiles [BK][BN], zero-filled past the edges.
+// With the TMA, thread 0 issues them and they complete on bar; else every
+// thread copies elements, visible after the next __syncthreads.
+template <typename T, int BM, int BN, int BK, int THREADS>
+__device__ __forceinline__ void load_step(T* stage, const T* __restrict__ A, const T* __restrict__ B,
+                                          const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                          uint64_t* bar, const Shape& sh, const Tile& t,
+                                          const Strassen1Coefs& cf, int p, int64_t k0) {
+  const int na = cf.na[p], nb = cf.nb[p];
+  if (sh.tma) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar, static_cast<uint32_t>((na * BM * BK + nb * BK * BN) * sizeof(T)));
+      for (int j = 0; j < na; ++j)
+        tma_load(stage + j * BM * BK, map_a, bar, static_cast<int>(k0), static_cast<int>(t.row0),
+                 t.leaf * 4 + cf.aq[p][j]);
+      for (int j = 0; j < nb; ++j)
+        tma_load(stage + na * BM * BK + j * BK * BN, map_b, bar, static_cast<int>(t.col0),
+                 static_cast<int>(k0), t.leaf * 4 + cf.bq[p][j]);
     }
+    return;
+  }
+  for (int j = 0; j < na; ++j) {
+    const T* src = A + (t.leaf * 4 + cf.aq[p][j]) * sh.a_quad;
+    T* dst = stage + j * BM * BK;
+    for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
+      const int r = e / BK, c = e % BK;
+      const int64_t gr = t.row0 + r, gc = k0 + c;
+      dst[tile_offset<T, BK>(r, c)] = (gr < sh.M2 && gc < sh.K2) ? src[gr * sh.K2 + gc] : from_f32<T>(0.f);
+    }
+  }
+  for (int j = 0; j < nb; ++j) {
+    const T* src = B + (t.leaf * 4 + cf.bq[p][j]) * sh.b_quad;
+    T* dst = stage + na * BM * BK + j * BK * BN;
+    for (int e = threadIdx.x; e < BK * BN; e += THREADS) {
+      const int r = e / BN, c = e % BN;
+      const int64_t gr = k0 + r, gc = t.col0 + c;
+      dst[tile_offset<T, BN>(r, c)] = (gr < sh.K2 && gc < sh.N2) ? src[gr * sh.N2 + gc] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// Signed sum of n raw VEC-element chunks (stride apart) in ascending order:
+// the first term assigned, later ones added, no contraction.
+template <typename T, int VEC>
+__device__ __forceinline__ void chunk_sum(float* acc, const T* src, int stride, const float* cv, int n) {
 #pragma unroll
-    for (int s = 0; s < BK * BN / THREADS; ++s) {
-      const int e = tid + s * THREADS;
-      const int64_t gr = k0 + e / BN, gc = col0 + e % BN;
-      const bool ok = gr < K2 && gc < N2;
+  for (int j = 0; j < 4; ++j) {
+    if (j >= n) break;
+    float x[VEC];
+    Vec<T, VEC>::load(x, src + j * stride);
 #pragma unroll
-      for (int qi = 0; qi < 4; ++qi) qb[s][qi] = ok ? to_f32(BQ[qi * b_quad + gr * N2 + gc]) : 0.f;
+    for (int i = 0; i < VEC; ++i) {
+      const float term = __fmul_rn(cv[j], x[i]);
+      acc[i] = j == 0 ? term : __fadd_rn(acc[i], term);
+    }
+  }
+}
+
+// The operand sum of n bf16 tiles (stride apart) over `chunks` 16-byte
+// chunks at the same offsets, written to dst: one bf16x2 FMA a pair when it
+// is two +-1 terms, else the fp32 sum rounded once.
+template <int THREADS>
+__device__ __forceinline__ void form_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src, int stride,
+                                          int chunks, const float* cv, int n) {
+  const bool pair = n == 2 && fabsf(cv[0]) == 1.f && fabsf(cv[1]) == 1.f;
+  if (pair) {
+    const __nv_bfloat162 c0 = __float2bfloat162_rn(cv[0]);
+    const uint32_t flip = cv[1] < 0.f ? 0x80008000u : 0u;  // exact negation of the second term
+    for (int e = threadIdx.x; e < chunks; e += THREADS) {
+      const uint4 x0 = *reinterpret_cast<const uint4*>(src + e * 8);
+      uint4 x1 = *reinterpret_cast<const uint4*>(src + stride + e * 8);
+      x1.x ^= flip; x1.y ^= flip; x1.z ^= flip; x1.w ^= flip;
+      uint4 out;
+      const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x0);
+      const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&x1);
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[i] = __hfma2(a[i], c0, b[i]);
+      *reinterpret_cast<uint4*>(dst + e * 8) = out;
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < chunks; e += THREADS) {
+    float v[8];
+    chunk_sum<__nv_bfloat16, 8>(v, src + e * 8, stride, cv, n);
+    Vec<__nv_bfloat16, 8>::store(dst + e * 8, v);
+  }
+}
+
+template <int BM, int BN, int BK>
+__device__ __forceinline__ Shape make_shape(int64_t M2, int64_t K2, int64_t N2, bool tma) {
+  Shape sh;
+  sh.M2 = M2; sh.K2 = K2; sh.N2 = N2;
+  sh.a_quad = M2 * K2; sh.b_quad = K2 * N2; sh.c_quad = M2 * N2;
+  sh.tiles_m = static_cast<int>((M2 + BM - 1) / BM);
+  sh.tiles_n = static_cast<int>((N2 + BN - 1) / BN);
+  sh.tiles = sh.tiles_m * sh.tiles_n;
+  sh.nk = static_cast<int>((K2 + BK - 1) / BK);
+  sh.tma = tma;
+  return sh;
+}
+
+// Block u's tile: leaf u / tiles, tiles row-major within a leaf. (A grouped
+// raster order for L2 reuse measured no different on the card.)
+template <int BM, int BN>
+__device__ __forceinline__ Tile tile_at(const Shape& sh, int u) {
+  const int bid = u % sh.tiles;
+  Tile t;
+  t.row0 = static_cast<int64_t>(bid / sh.tiles_n) * BM;
+  t.col0 = static_cast<int64_t>(bid % sh.tiles_n) * BN;
+  t.leaf = u / sh.tiles;
+  return t;
+}
+
+// One K step of one product, with its ring stage and that stage's mbarrier
+// phase, advanced by counting (no division in the loop).
+struct Step {
+  int p = 0, ks = 0, slot = 0, phase = 0;
+  __device__ __forceinline__ void next(int nk, int ns) {
+    if (++ks == nk) { ks = 0; ++p; }
+    if (++slot == ns) { slot = 0; phase ^= 1; }
+  }
+};
+
+// ------------------------------------------------------------ bf16 kernel
+template <int R>
+__global__ void __launch_bounds__(256, 1)
+strassen1_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                       const __nv_bfloat16* __restrict__ AQ, const __nv_bfloat16* __restrict__ BQ,
+                       __nv_bfloat16* __restrict__ CQ, int64_t M2, int64_t K2, int64_t N2,
+                       int stage_elems, int ns, bool tma, const Strassen1Coefs coef) {
+  using T = __nv_bfloat16;
+  using C = Cfg<T>;
+  constexpr int BM = C::BM, BN = C::BN, BK = C::BK, THREADS = C::THREADS;
+  constexpr int SUM_A = BM * BK, SUM_B = BK * BN;  // elements of one tile
+  __shared__ Strassen1Coefs cf;
+  __shared__ __align__(8) uint64_t full[MAX_STAGES];  // a stage's tiles have landed
+  extern __shared__ uint8_t smem_raw[];
+  // Swizzled tiles must start on 1024 bytes.
+  T* smem = reinterpret_cast<T*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  T* sums = smem;                          // 2 x (A sum, B sum)
+  T* ring = smem + 2 * (SUM_A + SUM_B);    // ns raw stages
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    cf = coef;
+    for (int i = 0; i < ns; ++i) mbar_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const Shape sh = make_shape<BM, BN, BK>(M2, K2, N2, tma);
+  const Tile t = tile_at<BM, BN>(sh, blockIdx.x);
+  __syncthreads();
+
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  float acc[32];
+  float cacc[4][32];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) cacc[k][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  // Step s's raw tiles go to ring stage s % ns, ns - 1 steps ahead of its sums.
+  const int S = R * sh.nk;
+  Step ld;
+  int loaded = 0;
+  auto issue = [&]() {
+    if (loaded == S) return;
+    load_step<T, BM, BN, BK, THREADS>(ring + ld.slot * stage_elems, AQ, BQ, &map_a, &map_b, &full[ld.slot],
+                                      sh, t, cf, ld.p, static_cast<int64_t>(ld.ks) * BK);
+    ld.next(sh.nk, ns);
+    ++loaded;
+  };
+  auto arrived = [&](const Step& st) {
+    if (sh.tma) mbar_wait(&full[st.slot], st.phase);
+  };
+  // Forms a step's operand sums (those not read raw) into sum buffer buf.
+  auto form = [&](const Step& st, int buf) {
+    const int p = st.p;
+    const T* raw = ring + st.slot * stage_elems;
+    T* sa = sums + buf * (SUM_A + SUM_B);
+    if (!cf.raw_a[p]) form_bf16<THREADS>(sa, raw, SUM_A, SUM_A / 8, cf.av[p], cf.na[p]);
+    if (!cf.raw_b[p]) form_bf16<THREADS>(sa + SUM_A, raw + cf.na[p] * SUM_A, SUM_B, SUM_B / 8, cf.bv[p], cf.nb[p]);
+  };
+
+  for (int i = 0; i < ns - 1; ++i) issue();
+  Step cur, nxt;
+  nxt.next(sh.nk, ns);
+  arrived(cur);
+  __syncthreads();
+  form(cur, 0);
+  fence_proxy_async();
+  __syncthreads();
+
+  for (int s = 0; s < S; ++s) {
+    const int p = cur.p, buf = s & 1;
+    issue();  // into the stage that step s - 1 has left
+    {
+      const T* raw = ring + cur.slot * stage_elems;
+      const T* sum = sums + buf * (SUM_A + SUM_B);
+      const T* sa = (cf.raw_a[p] ? raw : sum) + wg * 64 * BK;
+      const T* sb = cf.raw_b[p] ? raw + cf.na[p] * SUM_A : sum + SUM_A;
+      const uint32_t a_addr = smem_u32(sa), b_addr = smem_u32(sb);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A advances 16 elements (32 bytes) along its rows; B 16 rows (2048 bytes).
+        wgmma_64x64x16(acc, sw128_desc(a_addr + kk * 32), sw128_desc(b_addr + kk * 2048),
+                       (cur.ks > 0 || kk > 0) ? 1 : 0);
+      }
+      wgmma_commit();
+    }
+    if (s + 1 < S) {
+      arrived(nxt);
+      if (!sh.tma) __syncthreads();
+      form(nxt, buf ^ 1);
+    }
+    wgmma_wait0();
+    fence_regs(acc);
+    fence_proxy_async();
+    __syncthreads();
+    if (cur.ks == sh.nk - 1) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float cv = cf.c[k][p] * cf.sign[p];
+        if (cv == 0.f) continue;
+        const bool assign = p == cf.first[k];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float term = __fmul_rn(cv, acc[i]);
+          cacc[k][i] = assign ? term : __fadd_rn(cacc[k][i], term);
+        }
+      }
+    }
+    cur = nxt;
+    nxt.next(sh.nk, ns);
+  }
+
+  // Round C once and store it. wgmma's accumulator layout: register
+  // 4i + 2h + j of lane l in warp w is row 16w + l/4 + 8h, column
+  // 8i + 2(l%4) + j of the warpgroup's 64 x 64.
+  T* cq = CQ + static_cast<int64_t>(t.leaf) * 4 * sh.c_quad;
+  const bool pairs = N2 % 2 == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = t.row0 + wg * 64 + warp * 16 + lane / 4 + 8 * h;
+    if (r >= M2) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int64_t c = t.col0 + 8 * i + 2 * (lane % 4);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        T* dst = cq + k * sh.c_quad + r * N2 + c;
+        const float v0 = cacc[k][4 * i + 2 * h], v1 = cacc[k][4 * i + 2 * h + 1];
+        if (pairs && c + 1 < N2) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (c < N2) dst[0] = from_f32<T>(v0);
+          if (c + 1 < N2) dst[1] = from_f32<T>(v1);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ fp32 kernel
+template <int R>
+__global__ void __launch_bounds__(256, 1)
+strassen1_fma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                     const float* __restrict__ AQ, const float* __restrict__ BQ, float* __restrict__ CQ,
+                     int64_t M2, int64_t K2, int64_t N2, int stage_elems, int ns, bool tma,
+                     const Strassen1Coefs coef) {
+  using T = float;
+  using C = Cfg<T>;
+  constexpr int BM = C::BM, BN = C::BN, BK = C::BK, THREADS = C::THREADS, LDA = BM + C::PAD;
+  constexpr int SUM_A = BK * LDA, SUM_B = BK * BN;
+  __shared__ Strassen1Coefs cf;
+  __shared__ __align__(8) uint64_t full[MAX_STAGES];
+  extern __shared__ uint8_t smem_raw[];
+  // TMA destinations must start on 128 bytes.
+  float* sums = reinterpret_cast<float*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  float* ring = sums + 2 * (SUM_A + SUM_B);  // ns raw stages
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    cf = coef;
+    for (int i = 0; i < ns; ++i) mbar_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const Shape sh = make_shape<BM, BN, BK>(M2, K2, N2, tma);
+  const Tile t = tile_at<BM, BN>(sh, blockIdx.x);
+  __syncthreads();
+
+  // Micro-tile: rows ty*4 + {0..3} and 64 + ty*4 + {0..3} (i = 0..7),
+  // columns tx*4 + {0..3} (j); element (i, j) of acc[i * 4 + j].
+  const int tx = tid % 16, ty = tid / 16;
+  float acc[32], cacc[4][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    acc[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cacc[k][i] = 0.f;
+  }
+
+  const int S = R * sh.nk;
+  Step ld;
+  int loaded = 0;
+  auto issue = [&]() {
+    if (loaded == S) return;
+    load_step<T, BM, BN, BK, THREADS>(ring + ld.slot * stage_elems, AQ, BQ, &map_a, &map_b, &full[ld.slot],
+                                      sh, t, cf, ld.p, static_cast<int64_t>(ld.ks) * BK);
+    ld.next(sh.nk, ns);
+    ++loaded;
+  };
+  auto arrived = [&](const Step& st) {
+    if (sh.tma) mbar_wait(&full[st.slot], st.phase);
+  };
+  auto form = [&](const Step& st, int buf) {
+    const int p = st.p;
+    const float* raw = ring + st.slot * stage_elems;
+    float* sa = sums + buf * (SUM_A + SUM_B);
+    float* sb = sa + SUM_A;
+    const int na = cf.na[p], nb = cf.nb[p];
+#pragma unroll
+    for (int e = tid; e < BM * BK / 4; e += THREADS) {
+      const int r = e / (BK / 4), c = (e % (BK / 4)) * 4;
+      float v[4];
+      chunk_sum<float, 4>(v, raw + r * BK + c, BM * BK, cf.av[p], na);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sa[(c + i) * LDA + r] = v[i];
+    }
+    const float* rawb = raw + na * BM * BK;
+#pragma unroll
+    for (int e = tid; e < BK * BN / 4; e += THREADS) {
+      float v[4];
+      chunk_sum<float, 4>(v, rawb + e * 4, BK * BN, cf.bv[p], nb);
+      Vec<float, 4>::store(sb + e * 4, v);
     }
   };
 
-  load(0);
-  for (int64_t k0 = 0; k0 < K2; k0 += BK) {
+  for (int i = 0; i < ns - 1; ++i) issue();
+  Step cur, nxt;
+  nxt.next(sh.nk, ns);
+  arrived(cur);
+  __syncthreads();
+  form(cur, 0);
+  __syncthreads();
+
+  for (int s = 0; s < S; ++s) {
+    const int p = cur.p, buf = s & 1;
+    issue();  // into the stage that step s - 1's sums have left
+    {
+      const float* sa = sums + buf * (SUM_A + SUM_B);
+      const float* sb = sa + SUM_A;
 #pragma unroll
-    for (int s = 0; s < BM * BK / THREADS; ++s) {
-      const int e = tid + s * THREADS;
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[8], b[4];
+        ld4(a, sa + kk * LDA + ty * 4);
+        ld4(a + 4, sa + kk * LDA + 64 + ty * 4);
+        ld4(b, sb + kk * BN + tx * 4);
 #pragma unroll
-      for (int p = 0; p < R; ++p)
-        SA[p][e % BK][e / BK] = round_to<T>(signed_sum<4>(coef.a[p], qa[s]));
-    }
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int s = 0; s < BK * BN / THREADS; ++s) {
-      const int e = tid + s * THREADS;
-#pragma unroll
-      for (int p = 0; p < R; ++p)
-        SB[p][e / BN][e % BN] = round_to<T>(signed_sum<4>(coef.b[p], qb[s]));
-    }
-    __syncthreads();
-    if (k0 + BK < K2) load(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-#pragma unroll
-      for (int p = 0; p < R; ++p) {
-        float a[4], b[4];
-        ld4(a, &SA[p][kk][ty * 4]);
-        ld4(b, &SB[p][kk][tx * 4]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[p][i][j] = fmaf(a[i], b[j], acc[p][i][j]);
+          for (int j = 0; j < 4; ++j) acc[i * 4 + j] = fmaf(a[i], b[j], acc[i * 4 + j]);
       }
     }
+    if (s + 1 < S) {
+      arrived(nxt);
+      if (!sh.tma) __syncthreads();
+      form(nxt, buf ^ 1);
+    }
+    fence_proxy_async();  // this step's raw stage is refilled by the TMA later
     __syncthreads();
+    if (cur.ks == sh.nk - 1) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float cv = cf.c[k][p];
+        if (cv == 0.f) continue;
+        const bool assign = p == cf.first[k];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float term = __fmul_rn(cv, acc[i]);
+          cacc[k][i] = assign ? term : __fadd_rn(cacc[k][i], term);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    }
+    cur = nxt;
+    nxt.next(sh.nk, ns);
   }
 
+  float* cq = CQ + static_cast<int64_t>(t.leaf) * 4 * sh.c_quad;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t r = row0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int64_t r = t.row0 + (i / 4) * 64 + ty * 4 + i % 4;
     if (r >= M2) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int64_t c = col0 + tx * 4 + j;
+      const int64_t c = t.col0 + tx * 4 + j;
       if (c >= N2) continue;
-      float prods[R];
 #pragma unroll
-      for (int p = 0; p < R; ++p) prods[p] = acc[p][i][j];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        CQ[k * c_quad + r * N2 + c] = from_f32<T>(signed_sum<R>(coef.c[k], prods));
+      for (int k = 0; k < 4; ++k) cq[k * sh.c_quad + r * N2 + c] = cacc[k][i * 4 + j];
     }
   }
 }
 
-template <typename T, int R>
-void launch(const void* aq, const void* bq, void* cq, int64_t mb, int64_t m2, int64_t k2,
-            int64_t n2, const Strassen1Coefs& coef, cudaStream_t stream) {
-  const dim3 grid((n2 + BN - 1) / BN, (m2 + BM - 1) / BM, mb);
-  strassen1_kernel<T, R><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(aq), static_cast<const T*>(bq), static_cast<T*>(cq), m2, k2, n2, coef);
+// ------------------------------------------------------------------- host
+// Elements of one raw ring stage: the largest over p of the product's
+// nonzero A tiles plus B tiles (1024-byte multiples, for the swizzle base).
+template <typename T>
+int stage_elems(const Strassen1Coefs& c, int r) {
+  using C = Cfg<T>;
+  int most = 0;
+  for (int p = 0; p < r; ++p) most = std::max(most, c.na[p] * C::BM * C::BK + c.nb[p] * C::BK * C::BN);
+  const int per_kb = 1024 / static_cast<int>(sizeof(T));
+  return (most + per_kb - 1) / per_kb * per_kb;
 }
 
-template <typename T>
-int dispatch_rank(int r, const void* aq, const void* bq, void* cq, int64_t mb, int64_t m2,
-                  int64_t k2, int64_t n2, const Strassen1Coefs& coef, cudaStream_t stream) {
-  if (r == 7) {
-    launch<T, 7>(aq, bq, cq, mb, m2, k2, n2, coef, stream);
-  } else if (r == 8) {
-    launch<T, 8>(aq, bq, cq, mb, m2, k2, n2, coef, stream);
-  } else {
-    return cudaErrorInvalidValue;
+// Raw ring stages that fit beside the fixed shared memory: 2 to MAX_STAGES.
+int ring_stages(int fixed_bytes, int stage_bytes) {
+  constexpr int kLimit = 232448 - static_cast<int>(sizeof(Strassen1Coefs)) - 8 * MAX_STAGES;  // per block
+  return std::max(2, std::min(MAX_STAGES, (kLimit - fixed_bytes) / stage_bytes));
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) == cudaSuccess &&
+        status == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
   }
-  return cudaSuccess;
+  return fn;
+}
+
+// A (planes, rows, inner) array of T as a 3-D TMA map with box (1, box_rows,
+// box_inner); reads past rows and inner are zeros.
+template <typename T>
+bool make_map(CUtensorMap* map, const void* base, int64_t planes, int64_t rows, int64_t inner, int box_rows,
+              int box_inner) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner * sizeof(T)),
+                                 static_cast<cuuint64_t>(rows * inner * sizeof(T))};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const bool bf16 = sizeof(T) == 2;
+  return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                bf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int R, typename T, typename Kernel>
+cudaError_t launch(Kernel kernel, int fixed_bytes, const void* aq, const void* bq, void* cq, int64_t mb,
+                   int64_t m2, int64_t k2, int64_t n2, const Strassen1Coefs& coef, cudaStream_t stream) {
+  using C = Cfg<T>;
+  constexpr int VEC = 16 / sizeof(T);
+  const int stage = stage_elems<T>(coef, R);
+  const int ns = ring_stages(fixed_bytes, stage * sizeof(T));
+  const int smem = fixed_bytes + ns * stage * static_cast<int>(sizeof(T));
+  // The TMA addresses rows of whole 16-byte chunks from 16-byte-aligned bases.
+  const bool tma = aligned16(aq) && aligned16(bq) && k2 % VEC == 0 && n2 % VEC == 0;
+  CUtensorMap map_a = {}, map_b = {};
+  if (tma) {
+    if (!make_map<T>(&map_a, aq, 4 * mb, m2, k2, C::BM, C::BK) ||
+        !make_map<T>(&map_b, bq, 4 * mb, k2, n2, C::BK, C::BN)) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (m2 + C::BM - 1) / C::BM * ((n2 + C::BN - 1) / C::BN) * mb;
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), C::THREADS, smem, stream>>>(
+      map_a, map_b, static_cast<const T*>(aq), static_cast<const T*>(bq), static_cast<T*>(cq), m2, k2, n2,
+      stage, ns, tma, coef);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_rank(int dtype, const void* aq, const void* bq, void* cq, int64_t mb, int64_t m2,
+                        int64_t k2, int64_t n2, const Strassen1Coefs& coef, cudaStream_t stream) {
+  if (dtype == kBF16) {
+    using C = Cfg<__nv_bfloat16>;
+    const int fixed = 1024 + 2 * (C::BM * C::BK + C::BK * C::BN) * 2;  // alignment slack + 2 sum tiles
+    return launch<R, __nv_bfloat16>(strassen1_wgmma_kernel<R>, fixed, aq, bq, cq, mb, m2, k2, n2, coef, stream);
+  }
+  if (dtype == kF32) {
+    using C = Cfg<float>;
+    const int fixed = 1024 + 2 * (C::BK * (C::BM + C::PAD) + C::BK * C::BN) * 4;
+    return launch<R, float>(strassen1_fma_kernel<R>, fixed, aq, bq, cq, mb, m2, k2, n2, coef, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -186,21 +721,34 @@ extern "C" int repro_strassen1(const void* aq, const void* bq, void* cq, int dty
                                int64_t mb, int64_t m2, int64_t k2, int64_t n2, const float* coefs,
                                void* stream) {
   using namespace repro;
-  if (r < 1 || r > MAXR) return cudaErrorInvalidValue;
+  if (r < 1 || r > MAXR || mb < 1 || mb > 65535 || m2 > INT32_MAX || k2 > INT32_MAX || n2 > INT32_MAX) {
+    return cudaErrorInvalidValue;
+  }
   Strassen1Coefs c = {};
-  for (int p = 0; p < r; ++p)
+  for (int p = 0; p < r; ++p) {
     for (int q = 0; q < 4; ++q) {
-      c.a[p][q] = coefs[p * 4 + q];
-      c.b[p][q] = coefs[r * 4 + p * 4 + q];
+      const float a = coefs[p * 4 + q], b = coefs[r * 4 + p * 4 + q];
+      if (a != 0.f) { c.aq[p][c.na[p]] = q; c.av[p][c.na[p]++] = a; }
+      if (b != 0.f) { c.bq[p][c.nb[p]] = q; c.bv[p][c.nb[p]++] = b; }
     }
-  for (int k = 0; k < 4; ++k)
-    for (int p = 0; p < r; ++p) c.c[k][p] = coefs[r * 8 + k * r + p];
+    if (c.na[p] == 0 || c.nb[p] == 0) return cudaErrorInvalidValue;  // a zero operand row
+    c.raw_a[p] = dtype == kBF16 && c.na[p] == 1 && std::fabs(c.av[p][0]) == 1.f;
+    c.raw_b[p] = dtype == kBF16 && c.nb[p] == 1 && std::fabs(c.bv[p][0]) == 1.f;
+    c.sign[p] = (c.raw_a[p] ? c.av[p][0] : 1.f) * (c.raw_b[p] ? c.bv[p][0] : 1.f);
+  }
+  for (int k = 0; k < 4; ++k) {
+    c.first[k] = -1;
+    for (int p = 0; p < r; ++p) {
+      c.c[k][p] = coefs[r * 8 + k * r + p];
+      if (c.c[k][p] != 0.f && c.first[k] < 0) c.first[k] = p;
+    }
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-  if (dtype == kF32) {
-    err = dispatch_rank<float>(r, aq, bq, cq, mb, m2, k2, n2, c, s);
-  } else if (dtype == kBF16) {
-    err = dispatch_rank<__nv_bfloat16>(r, aq, bq, cq, mb, m2, k2, n2, c, s);
+  cudaError_t err;
+  if (r == 7) {
+    err = launch_rank<7>(dtype, aq, bq, cq, mb, m2, k2, n2, c, s);
+  } else if (r == 8) {
+    err = launch_rank<8>(dtype, aq, bq, cq, mb, m2, k2, n2, c, s);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -228,3 +228,85 @@ def test_decode_attention_matches_reference_with_window():
     got = TA.decode_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                               torch.from_numpy(pos), window=4)
     _close(got, want, 1e-5)
+
+
+# ------------------------------------------- the bf16 tensor-core kernel's rounding
+def _tensor_core_flash(q, k, v, *, causal=True, window=None, split=True):
+    """What the bf16 flash kernel computes, step by step, on the CPU.
+
+    Q K^T from bf16 inputs with fp32 sums (each product exact), 64-key tiles
+    with the online update (m, l in fp32), P into P V as two bf16 parts (hi,
+    its rounding, and lo, the rounding of the rest; one bf16 P with
+    ``split=False``), O in fp32, divided once and rounded once. Masked scores
+    are -1e30 with their probabilities 0, and a zero row sum divides as 1.
+    """
+    _, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    tile = 64
+    kf = k.float().repeat_interleave(hq // hkv, 1)
+    vf = v.float().repeat_interleave(hq // hkv, 1)
+    qf = q.float()
+    rows = torch.arange(sq)[:, None]
+    m = torch.full((*q.shape[:3], 1), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape)
+    for k0 in range(0, sk, tile):
+        cols = torch.arange(k0, min(k0 + tile, sk))[None, :]
+        live = torch.ones((sq, cols.shape[1]), dtype=torch.bool)
+        if causal:
+            live &= rows >= cols
+        if window is not None:
+            live &= rows - cols < window
+        s = torch.matmul(qf, kf[:, :, k0:k0 + tile].transpose(-1, -2)) * d**-0.5
+        s = torch.where(live, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(live, torch.exp(s - m_new), 0.0)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float() if split else torch.zeros_like(p)
+        vt = vf[:, :, k0:k0 + tile]
+        o = alpha * o + torch.matmul(hi, vt) + torch.matmul(lo, vt)
+        m = m_new
+    return (o / torch.where(l == 0.0, 1.0, l)).bfloat16()
+
+
+def _element_rule(got, want):
+    """chip_smoke.py's bf16 flash rule: every element within 2^-7 x (|want| +
+    rms(want)). Returns the worst err/limit."""
+    g, w = got.float(), want.float()
+    limit = 2**-7 * (w.abs() + w.square().mean().sqrt())
+    return ((g - w).abs() / limit).max().item()
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 256), (True, 17), (False, None)])
+@pytest.mark.parametrize("against", ["plain", "pallas"])
+def test_tensor_core_flash_rounding_holds_the_element_rule(causal, window, against):
+    """A narrow phi4-like shape (Hq 6, Hkv 2, D 128, S 1000) through the bf16
+    kernel's emulated rounding, against the port's fp32 plain version and
+    against the JAX Pallas kernel in interpret mode on the same bf16 inputs."""
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(_np(sh), "bf16") for sh in
+                                    [(1, 6, 1000, 128), (1, 2, 1000, 128), (1, 2, 1000, 128)])
+    got = _tensor_core_flash(tq, tk, tv, causal=causal, window=window)
+    if against == "plain":
+        want = flash_attention(tq, tk, tv, causal=causal, window=window)
+    else:
+        want = torch.from_numpy(np.asarray(
+            jax_flash(jq, jk, jv, causal=causal, window=window, interpret=True), np.float32))
+    assert got.shape == tq.shape and torch.isfinite(got.float()).all()
+    worst = _element_rule(got, want)
+    print(f"worst err/limit {worst:.3f} against {against}")
+    assert worst <= 1.0
+
+
+def test_one_bf16_p_would_break_the_element_rule():
+    """Why the kernel splits P: with one bf16 P (2^-9 on each P V term) a row
+    with few live keys whose terms cancel misses the rule, since its limit's
+    rms floor is set by the long rows; with P = hi + lo it holds easily."""
+    tq, tk, tv = (_pair(_np(sh), "bf16")[1] for sh in [(1, 6, 1000, 128), (1, 2, 1000, 128),
+                                                        (1, 2, 1000, 128)])
+    want = flash_attention(tq, tk, tv)
+    one = _element_rule(_tensor_core_flash(tq, tk, tv, split=False), want)
+    two = _element_rule(_tensor_core_flash(tq, tk, tv), want)
+    print(f"worst err/limit: one bf16 P {one:.3f}, P = hi + lo {two:.3f}")
+    assert one > 1.0 and two <= 0.75

@@ -9,9 +9,10 @@ hence 2e-5 in fp32 and 8e-3 (about two bf16 ulps) in bf16. RMSNorm and flash
 attention use the JAX tests' tolerances in fp32 (1e-5 and 2e-5). In bf16
 they compute in fp32 and round once, as their plain versions do, so each
 element is held to 2^-7 x (|plain| + rms(plain)): one bf16 ulp of itself,
-with a floor for elements near 0. The sLSTM kernel takes the JAX kernel
-test's 2e-5 in fp32. Smoke-config engine runs on the card launch the serving
-kernels.
+with a floor for elements near 0 (the bf16 flash kernel feeds P to its
+tensor-core P V product as two bf16 parts, so that it holds this rule). The
+sLSTM kernel takes the JAX kernel test's 2e-5 in fp32. Smoke-config engine
+runs on the card launch the serving kernels.
 """
 import numpy as np
 import pytest
@@ -67,7 +68,10 @@ def test_cuda_signed_sum_kernels_are_bit_exact(cuda, scheme_name, dtype):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 8e-3)])
 @pytest.mark.parametrize("scheme_name", SCHEMES)
 def test_cuda_strassen1_matches_plain(cuda, scheme_name, dtype, tol):
-    for mb, m2, k2, n2 in [(1, 64, 64, 64), (3, 33, 65, 17), (2, 128, 256, 128)]:
+    # aligned (the TMA path), ragged in every dimension (element loads), K2
+    # below one K step, mb > 1
+    for mb, m2, k2, n2 in [(1, 64, 64, 64), (3, 33, 65, 17), (2, 128, 256, 128),
+                           (1, 8, 192, 8), (2, 130, 72, 200), (2, 64, 8, 64)]:
         aq, bq = _on(cuda, (mb, 4, m2, k2), dtype), _on(cuda, (mb, 4, k2, n2), dtype)
         got = tst.strassen1_matmul_cuda(aq, bq, scheme=scheme_name)
         want = tref.strassen1_matmul_ref(aq, bq, scheme_name)
@@ -124,6 +128,13 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, tol):
         ((1, 6, 2, 77, 128), dict(causal=True, window=16)),
         ((1, 2, 2, 70, 256), dict(causal=True)),
         ((1, 2, 1, 33, 128), dict(causal=True, window=1)),
+        # against the 64-row query and 64-key tiles: one row, one short of a
+        # tile, one past it; GQA group 3; a window below one key tile
+        ((1, 6, 2, 1, 128), dict(causal=True)),
+        ((1, 6, 2, 63, 128), dict(causal=True)),
+        ((1, 6, 2, 65, 128), dict(causal=True)),
+        ((2, 6, 2, 200, 64), dict(causal=True, window=17)),
+        ((1, 6, 2, 300, 128), dict(causal=False)),
     ]
     for (b, hq, hkv, s, d), kw in cases:
         q = _on(cuda, (b, hq, s, d), dtype)
@@ -137,6 +148,11 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, tol):
     got = tfa.flash_attention_cuda(q, k, k, causal=True, window=8)
     assert _within(got, attention_ref(q, k, k, causal=True, window=8), tol)
     assert torch.count_nonzero(got[:, :, 23:]) == 0
+    # more keys than queries, no mask
+    q, k = _on(cuda, (1, 4, 100, 128), dtype), _on(cuda, (1, 2, 700, 128), dtype)
+    v = _on(cuda, (1, 2, 700, 128), dtype)
+    got = tfa.flash_attention_cuda(q, k, v, causal=False)
+    assert _within(got, attention_ref(q, k, v, causal=False), tol)
     with pytest.raises(ValueError, match="head dims"):
         tfa.flash_attention_cuda(*(_on(cuda, (1, 1, 8, 48), dtype),) * 3)
 

@@ -266,3 +266,42 @@ def test_build_locates_library_and_refuses_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+# ---------------------------------- the fused kernel's product-at-a-time order
+def _product_at_a_time(aq, bq, scheme_name):
+    """What the fused CUDA kernel computes, in its order, on the CPU: each
+    product M_p in fp32 from operand sums (fp32, ascending q, zeros skipped,
+    rounded to the input dtype), then c_coef[k][p] * M_p into C quadrant k in
+    ascending p, the first nonzero term assigned, C rounded once."""
+    s = get_scheme(scheme_name)
+
+    def operand(x, row):
+        acc = None
+        for q, c in enumerate(row):
+            if c != 0:
+                term = x[:, q].float() * float(c)
+                acc = term if acc is None else acc + term
+        return acc.to(x.dtype).float()
+
+    c = [None] * 4
+    for p in range(s.n_mults):
+        mp = torch.matmul(operand(aq, s.a_coef[p]), operand(bq, s.b_coef[p]))
+        for k in range(4):
+            if s.c_coef[k][p] != 0:
+                term = mp * float(s.c_coef[k][p])
+                c[k] = term if c[k] is None else c[k] + term
+    return torch.stack(c, dim=1).to(aq.dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 8e-3)])
+@pytest.mark.parametrize("scheme_name", SCHEMES)
+@pytest.mark.parametrize("mb,m2,k2,n2", [(2, 64, 96, 32), (3, 33, 65, 17), (1, 8, 192, 8)])
+def test_product_at_a_time_order_matches_plain(mb, m2, k2, n2, scheme_name, dtype, tol):
+    _, taq = _pair((mb, 4, m2, k2), dtype)
+    _, tbq = _pair((mb, 4, k2, n2), dtype)
+    got = _product_at_a_time(taq, tbq, scheme_name)
+    want = tref.strassen1_matmul_ref(taq, tbq, scheme_name)
+    assert got.dtype == want.dtype and got.shape == (mb, 4, m2, n2)
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
