@@ -7,20 +7,23 @@ toolkit. It uses ``repro_torch`` only, never JAX or ``repro``. The first path
 is Stark's Strassen multiply:
 
 1. builds every kernel in ``src/repro_torch/csrc`` (into ``build/``), logs
-   their registers and spills, and checks in the SASS that the bf16
-   strassen1 and flash kernels run on the tensor cores (HGMMA, HMMA);
+   their registers and spills (the tiled matmul kernels must not spill), and
+   checks in the SASS that the bf16 strassen1, tiled matmul and flash
+   kernels run on the tensor cores (HGMMA, HGMMA, HMMA);
 2. holds each kernel against its plain PyTorch version, in fp32 and bf16,
    for the three schemes, on aligned and ragged shapes;
 3. drives the main path, ``repro_torch.core.backend.matmul`` on two N x N
    fp32 operands made from ``--seed`` with numpy (N = 16384, the paper's
    headline size, by default), for kinds strassen_fused (depth 1 and 2),
    strassen and winograd (depth 2) and naive, plus the staged pipeline at
-   depth 2 and strassen_fused at depth 2 in bf16. Each result is checked
-   against an fp32 ``torch.matmul`` of the same operands by normwise
-   relative error, and every kernel of the path must have been launched;
+   depth 2 in fp32 and bf16 and strassen_fused at depth 2 in bf16. Each
+   result is checked against an fp32 ``torch.matmul`` of the same operands
+   by normwise relative error, and every kernel of the path must have been
+   launched;
 4. times each kernel at the main path's shapes with CUDA events, beside its
-   plain version, the matching PyTorch call and the card's bound, and splits
-   strassen_fused's device time by kernel class.
+   plain version, the matching PyTorch call and the card's bound (the tiled
+   matmul in bf16 too), and splits strassen_fused's device time by kernel
+   class.
 
 The second path serves phi4-mini-3.8B (random weights from ``--seed``, bf16,
 full width and depth) through the continuous-batching ``Engine``:
@@ -74,6 +77,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -173,6 +177,15 @@ BF16_SPREAD = 2.0
 NEAR_TIE = 0.25
 
 SCHEMES = ("strassen", "winograd", "naive8")
+# (mb, m, k, n) where the tiled matmul's tiles can break, against its 128 x 256
+# tile and its K steps (32 fp32, 64 bf16): M and N edges above and below a
+# tile (N ending in each of the four 64-column boxes of a bf16 tile); K below
+# one step; K or N rows of whole 16-byte chunks in fp32 only
+# (36, 68, 100, 260: the TMA in fp32, element loads in bf16) or in neither
+# (65, 17, 70); K long enough to wrap the ring of stages.
+MATMUL_EDGES = [(2, 130, 72, 200), (1, 257, 520, 136), (3, 33, 65, 17), (2, 64, 8, 64),
+                (2, 136, 96, 264), (2, 64, 36, 100), (2, 96, 64, 68), (2, 256, 1024, 384),
+                (1, 200, 1000, 260)]
 COUNTED = (strassen1_matmul_cuda, batched_matmul_cuda, divide_cuda, combine_cuda)
 ALL_KERNELS = (*COUNTED, matmul_cuda, rmsnorm_cuda, flash_attention_cuda, slstm_seq_cuda)
 REPLACES = {
@@ -316,6 +329,10 @@ def phase_build() -> None:
                 name = line.split("'")[1] if "'" in line else line
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {short_name(name)}: {line.strip()}")
+                spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if (spilled and any(k in name for k in NO_SPILL_KERNELS)
+                        and any(int(x) for x in spilled.groups())):
+                    fail(f"{short_name(name)} spills registers: {line.strip()}")
     check_tensor_cores(path)
 
 
@@ -328,8 +345,12 @@ def short_name(mangled: str) -> str:
 
 
 # The bf16 kernels that must run on the tensor cores, and the SASS opcode
-# each must hold: warpgroup MMA for strassen1, warp-level MMA for flash.
-TENSOR_CORE_KERNELS = {"strassen1_wgmma_kernel": "HGMMA", "flash_mma_kernel": "HMMA"}
+# each must hold: warpgroup MMA for strassen1 and the tiled matmul, warp-level
+# MMA for flash.
+TENSOR_CORE_KERNELS = {"strassen1_wgmma_kernel": "HGMMA", "matmul_wgmma_kernel": "HGMMA",
+                       "flash_mma_kernel": "HMMA"}
+# Kernels whose every instance must build without spilling registers.
+NO_SPILL_KERNELS = ("matmul_fma_kernel", "matmul_wgmma_kernel")
 
 
 def check_tensor_cores(lib: Path) -> None:
@@ -361,14 +382,20 @@ def phase_kernels(gen: np.random.Generator) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
         for mb, m, k, n in [(7, 64, 64, 64), (49, 32, 32, 32), (1, 128, 64, 128),
-                            (3, 100, 70, 130), (2, 8, 16, 8), (1, 64, 192, 128)]:
+                            (3, 100, 70, 130), (2, 8, 16, 8), (1, 64, 192, 128), *MATMUL_EDGES]:
             a, b = randn(gen, (mb, m, k), dtype), randn(gen, (mb, k, n), dtype)
             compare(f"batched_matmul {tag} {(mb, m, k, n)}", batched_matmul_cuda(a, b),
                     batched_matmul_ref(a, b), "mm")
         for m, k, n in [(128, 128, 128), (256, 128, 64), (64, 192, 128), (8, 16, 8),
-                        (96, 80, 112), (33, 65, 17)]:
+                        (96, 80, 112), *(e[1:] for e in MATMUL_EDGES)]:
             a, b = randn(gen, (m, k), dtype), randn(gen, (k, n), dtype)
             compare(f"matmul {tag} {(m, k, n)}", matmul_cuda(a, b), matmul_ref(a, b), "mm")
+        # bases off 16 bytes: the element route whatever the shape
+        mb, m, k, n = 2, 130, 264, 200
+        a = randn(gen, (mb * m * k + 1,), dtype)[1:].view(mb, m, k)
+        b = randn(gen, (mb * k * n + 1,), dtype)[1:].view(mb, k, n)
+        compare(f"batched_matmul {tag} {(mb, m, k, n)} unaligned bases", batched_matmul_cuda(a, b),
+                batched_matmul_ref(a, b), "mm")
         for name in SCHEMES:
             s = get_scheme(name)
             for shape in [(1, 4, 64, 64), (7, 4, 32, 64), (4, 4, 128, 128), (3, 4, 5, 7),
@@ -409,6 +436,7 @@ def main_path_runs(a, b, a16, b16) -> list:
         ("naive fp32", backend("naive"), a, b),
         ("stages depth=2 fp32", lambda x, w: strassen_matmul_stages(x, w, depth=2), a, b),
         ("strassen_fused depth=2 bf16", backend("strassen_fused", 2), a16, b16),
+        ("stages depth=2 bf16", lambda x, w: strassen_matmul_stages(x, w, depth=2), a16, b16),
     ]
 
 
@@ -525,6 +553,11 @@ def phase_timing(a, b, reps: int, counts: dict) -> list:
         f"batched_matmul fp32 {tuple(la.shape)}", lambda: batched_matmul_cuda(la, lb),
         lambda: batched_matmul_ref(la, lb), lambda: torch.bmm(la, lb),
         2 * 49 * (h // 2) ** 3, 3 * nbytes(la), torch.float32, "mm"))
+    # the same leaves in bf16, on the tensor cores (printed, not in the JSON line)
+    la, lb = la.bfloat16(), lb.bfloat16()
+    entry(f"batched_matmul bf16 {tuple(la.shape)}", lambda: batched_matmul_cuda(la, lb),
+          lambda: batched_matmul_ref(la, lb), lambda: torch.bmm(la, lb),
+          2 * 49 * (h // 2) ** 3, 3 * nbytes(la), torch.bfloat16, "mm")
     del la, lb
 
     # The single tiled matmul (matmul_pallas's counterpart, on no path that
@@ -533,6 +566,9 @@ def phase_timing(a, b, reps: int, counts: dict) -> list:
     add("matmul_cuda", entry(
         f"matmul fp32 {(h, h, h)}", lambda: matmul_cuda(am, bm), lambda: matmul_ref(am, bm),
         lambda: torch.matmul(am, bm), 2 * h**3, 3 * nbytes(am), torch.float32, "mm"))
+    am, bm = am.bfloat16(), bm.bfloat16()
+    entry(f"matmul bf16 {(h, h, h)}", lambda: matmul_cuda(am, bm), lambda: matmul_ref(am, bm),
+          lambda: torch.matmul(am, bm), 2 * h**3, 3 * nbytes(am), torch.bfloat16, "mm")
     return entries
 
 

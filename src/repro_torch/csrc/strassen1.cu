@@ -59,12 +59,10 @@
 // Shapes whose rows are not a multiple of 16 bytes (K2 or N2 ragged), which
 // the TMA cannot address, load tiles element by element into the same ring
 // and layout.
-#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the runtime)
-
 #include <algorithm>
 #include <cmath>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace {
@@ -97,87 +95,6 @@ struct Cfg<float> {
   static constexpr int PAD = 4;  // rows of the k-major A sum stay float4-aligned
 };
 
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ------------------------------------------------------------- wgmma (bf16)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t smem_addr) {
-  // 128-byte swizzle; 1024 bytes between 8-row groups (SBO), and the same as
-  // LBO (unused: every operand here is one swizzle atom wide).
-  uint64_t d = static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>(1024 >> 4) << 16;
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;
-  d |= static_cast<uint64_t>(1) << 62;
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Pins accumulator registers around the asynchronous MMA.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D(64x64, fp32) (+)= A(64x16, K-major) * B(16x64, N-major), both bf16 in shared memory.
-__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// --------------------------------------------------------- TMA, mbarriers
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {  // one arrival: the thread issuing the copies
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-// Waits for the phase of the given parity to complete. A wait that never
-// ends (a lost copy or arrival) traps, so the launch fails instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (int i = 0; i < (1 << 24); ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred P1;\nmbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P1;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-  }
-  __trap();
-}
-// Box (c0, c1, c2) of a 3-D tensor map into shared memory, completing on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
 // ------------------------------------------------------------ shared parts
 struct Shape {
   int64_t M2, K2, N2, a_quad, b_quad, c_quad;
@@ -423,7 +340,7 @@ strassen1_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_c
       if (!sh.tma) __syncthreads();
       form(nxt, buf ^ 1);
     }
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs(acc);
     fence_proxy_async();
     __syncthreads();
@@ -629,44 +546,6 @@ int stage_elems(const Strassen1Coefs& c, int r) {
 int ring_stages(int fixed_bytes, int stage_bytes) {
   constexpr int kLimit = 232448 - static_cast<int>(sizeof(Strassen1Coefs)) - 8 * MAX_STAGES;  // per block
   return std::max(2, std::min(MAX_STAGES, (kLimit - fixed_bytes) / stage_bytes));
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) == cudaSuccess &&
-        status == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// A (planes, rows, inner) array of T as a 3-D TMA map with box (1, box_rows,
-// box_inner); reads past rows and inner are zeros.
-template <typename T>
-bool make_map(CUtensorMap* map, const void* base, int64_t planes, int64_t rows, int64_t inner, int box_rows,
-              int box_inner) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner * sizeof(T)),
-                                 static_cast<cuuint64_t>(rows * inner * sizeof(T))};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const bool bf16 = sizeof(T) == 2;
-  return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
-                const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                bf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int R, typename T, typename Kernel>

@@ -2,10 +2,11 @@
 
 Stark multiplies its leaf blocks on one node through BLAS; the JAX package
 does it with a Pallas MXU kernel. Here it is a hand-written CUDA kernel with
-fp32 accumulation: :func:`batched_matmul_cuda` is the leaf stage batched over
-the 7^depth tag index (``batched_matmul_pallas``), and :func:`matmul_cuda`
-(``matmul_pallas``) is the same kernel with a batch of one. Each counts
-only the launches it makes itself.
+fp32 accumulation (fp32 on the CUDA cores' FMA, bf16 on Hopper's ``wgmma``,
+both fed by a TMA ring): :func:`batched_matmul_cuda` is the leaf stage
+batched over the 7^depth tag index (``batched_matmul_pallas``), and
+:func:`matmul_cuda` (``matmul_pallas``) is the same kernel with a batch of
+one. Each counts only the launches it makes itself.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it computes the plain version in ``ref.py``.

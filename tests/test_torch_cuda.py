@@ -82,7 +82,15 @@ def test_cuda_strassen1_matches_plain(cuda, scheme_name, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 8e-3)])
 def test_cuda_matmul_kernels_match_plain(cuda, dtype, tol):
-    for mb, m, k, n in [(7, 64, 64, 64), (3, 100, 70, 130), (1, 8, 192, 8)]:
+    # Against the kernel's 128 x 256 tiles and K steps (32 fp32, 64 bf16): M
+    # and N edges above and below a tile (N ending in each of the four
+    # 64-column boxes of a bf16 tile); K below one step; rows of whole 16-byte
+    # chunks (the TMA) in both dtypes, in fp32 only (K 36, N 68 or 260) or in
+    # neither (K 65 or 70, N 17); K long enough to wrap the ring of stages.
+    shapes = [(7, 64, 64, 64), (3, 100, 70, 130), (1, 8, 192, 8), (2, 130, 72, 200),
+              (1, 257, 520, 136), (3, 33, 65, 17), (2, 64, 8, 64), (2, 64, 36, 100),
+              (2, 96, 64, 68), (2, 256, 1024, 384), (1, 200, 1000, 260)]
+    for mb, m, k, n in shapes:
         a, b = _on(cuda, (mb, m, k), dtype), _on(cuda, (mb, k, n), dtype)
         for got, want in (
             (tmm.batched_matmul(a, b), tmm_ref.batched_matmul_ref(a, b)),
@@ -90,6 +98,14 @@ def test_cuda_matmul_kernels_match_plain(cuda, dtype, tol):
         ):
             scale = max(1.0, want.float().abs().max().item())
             assert (got.float() - want.float()).abs().max().item() <= tol * scale
+    # bases off 16 bytes take element loads whatever the shape
+    mb, m, k, n = 2, 130, 264, 200
+    a = _on(cuda, (mb * m * k + 1,), dtype)[1:].view(mb, m, k)
+    b = _on(cuda, (mb * k * n + 1,), dtype)[1:].view(mb, k, n)
+    want = tmm_ref.batched_matmul_ref(a, b)
+    scale = max(1.0, want.float().abs().max().item())
+    assert (tmm.batched_matmul(a, b).float() - want.float()).abs().max().item() <= tol * scale
+    a, b = _on(cuda, (1, 8, 192), dtype), _on(cuda, (1, 192, 8), dtype)
     with pytest.raises(ValueError, match="contiguous"):
         tmm.batched_matmul(a.transpose(1, 2), b.transpose(1, 2))
 
