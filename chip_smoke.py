@@ -11,7 +11,9 @@ is Stark's Strassen multiply:
    checks in the SASS that the bf16 strassen1, tiled matmul and flash
    kernels run on the tensor cores (HGMMA, HGMMA, HMMA);
 2. holds each kernel against its plain PyTorch version, in fp32 and bf16,
-   for the three schemes, on aligned and ragged shapes;
+   for the three schemes, on aligned and ragged shapes, and the matmul-type
+   kernels with the other ``out_dtype`` (bf16 operands to fp32, fp32 to
+   bf16);
 3. drives the main path, ``repro_torch.core.backend.matmul`` on two N x N
    fp32 operands made from ``--seed`` with numpy (N = 16384, the paper's
    headline size, by default), for kinds strassen_fused (depth 1 and 2),
@@ -47,11 +49,13 @@ f. prints TTFT, TPOT, tokens/s, prefill and decode-step times, peak memory,
 The third path serves xlstm-1.3b (random weights from ``--seed``, bf16, full
 width and depth: 42 mLSTM and 6 sLSTM layers) through the same ``Engine``:
 
-g. holds the RMSNorm kernel (at d_model 2048) and the sLSTM sequence kernel
-   against their plain versions at the model's shapes (for sLSTM a 1000-step
-   prefill from zero state, a 4-slot decode step from a carried state, a
-   ragged dh of 48) and checks that two halves with the carried state equal
-   one pass;
+g. holds the RMSNorm kernel (at d_model 2048, and at the other models'
+   widths 5120, 6144 and 8192) and the sLSTM sequence kernel against their
+   plain versions at the model's shapes (for sLSTM a 1000-step prefill from
+   zero state, a 4-slot decode step from a carried state, 6 rows at 64 steps,
+   8 heads whose r does not fit the SMs' shared memory, a ragged dh of 48),
+   checks that two halves with the carried state equal one pass, and that
+   the profiler sees one sLSTM kernel a call;
 h. serves 8 requests of 32 to 1024 prompt tokens, checks that every one ends
    by length with no page in use, and that each forward launched the sLSTM
    kernel 6 times and the RMSNorm kernel 49 times, and flash never;
@@ -65,7 +69,11 @@ k. the chunkwise mLSTM (``mlstm_chunk=64``) against the shipped sequential
 l. prints TTFT, TPOT, tokens/s, prefill ms at 128, 512 and 1024 tokens,
    decode-step ms, peak memory, the device split of one prefill and one
    decode step, and the RMSNorm and sLSTM kernels' times against their
-   bounds.
+   bounds (sLSTM also per step).
+
+RMSNorm is timed with its rows in L2 (the same x again) and cold (x and out
+rotating over more than 100 MB, past the 50 MB L2); the JSON line holds
+the cold time.
 
 It exits non-zero, before printing a result, on any failure or when no CUDA
 device is present. The last lines are the card's name and power limit, a
@@ -177,6 +185,9 @@ BF16_SPREAD = 2.0
 NEAR_TIE = 0.25
 
 SCHEMES = ("strassen", "winograd", "naive8")
+# The other serving models' widths (qwen1.5, internlm2 and qwen2-vl's
+# d_model), where 256 threads or more own an RMSNorm row.
+RMSNORM_WIDE = (5120, 6144, 8192)
 # (mb, m, k, n) where the tiled matmul's tiles can break, against its 128 x 256
 # tile and its K steps (32 fp32, 64 bf16): M and N edges above and below a
 # tile (N ending in each of the four 64-column boxes of a bf16 tile); K below
@@ -338,7 +349,8 @@ def phase_build() -> None:
 
 def short_name(mangled: str) -> str:
     """The kernel's own name and template arguments out of a mangled symbol."""
-    for kernel in (*TENSOR_CORE_KERNELS, "flash_kernel", "rmsnorm", "slstm", "signed_sum", "matmul"):
+    for kernel in (*TENSOR_CORE_KERNELS, "flash_kernel", "rmsnorm_kernel", "slstm_seq_kernel",
+                   "signed_sum", "matmul"):
         if kernel in mangled:
             return mangled[mangled.index(kernel):][:48]
     return mangled[:48]
@@ -417,6 +429,26 @@ def phase_kernels(gen: np.random.Generator) -> None:
                 compare(f"strassen1 {tag} {name} {(mb, m2, k2, n2)}",
                         strassen1_matmul_cuda(aq, bq, scheme=s),
                         strassen1_matmul_ref(aq, bq, s), "mm")
+    phase_out_dtype(gen)
+
+
+def phase_out_dtype(gen: np.random.Generator) -> None:
+    """The matmul-type kernels with the other out_dtype: bf16 operands stored
+    as the fp32 accumulator, fp32 operands rounded once to bf16."""
+    for dtype, out in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+        tag = f"{str(dtype)[6:]} -> {str(out)[6:]}"
+        for mb, m, k, n in ((2, 130, 72, 200), (1, 256, 512, 384), (3, 33, 65, 17)):
+            a, b = randn(gen, (mb, m, k), dtype), randn(gen, (mb, k, n), dtype)
+            compare(f"batched_matmul {tag} {(mb, m, k, n)}", batched_matmul_cuda(a, b, out_dtype=out),
+                    batched_matmul_ref(a, b, out), "mm")
+            compare(f"matmul {tag} {(m, k, n)}", matmul_cuda(a[0], b[0], out_dtype=out),
+                    matmul_ref(a[0], b[0], out), "mm")
+        for name in SCHEMES:
+            for mb, m2, k2, n2 in ((2, 128, 128, 128), (3, 33, 65, 17)):
+                aq, bq = randn(gen, (mb, 4, m2, k2), dtype), randn(gen, (mb, 4, k2, n2), dtype)
+                compare(f"strassen1 {tag} {name} {(mb, m2, k2, n2)}",
+                        strassen1_matmul_cuda(aq, bq, scheme=name, out_dtype=out),
+                        strassen1_matmul_ref(aq, bq, name, out), "mm")
 
 
 def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -484,11 +516,56 @@ def time_kernel(name, kernel, plain, library, ops, moved, dtype, kind, reps) -> 
     ms, plain_ms = time_ms(kernel, reps, queued=True), time_ms(plain, reps, queued=True)
     library_ms = time_ms(library, reps, queued=True) if library is not None else None
     bms, by = bound_ms(ops, moved, dtype)
-    lib = "n/a" if library_ms is None else f"{library_ms:.3f} ms"
-    log(f"time {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
-        f"bound {bms:.3f} ms ({by}), kernel at {bms / ms:.1%} of bound")
+    lib = "n/a" if library_ms is None else f"{library_ms:.5g} ms"
+    log(f"time {name}: kernel {ms:.5g} ms, plain {plain_ms:.5g} ms, library {lib}, "
+        f"bound {bms:.5g} ms ({by}), kernel at {bms / ms:.1%} of bound")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
                 bound_by=by, max_abs_err=err)
+
+
+def cold_inputs(gen: np.random.Generator, shape: tuple, dtype: torch.dtype) -> list:
+    """Distinct inputs of ``shape``, at least 8, enough that they and as many
+    outputs of their size pass 100 MB: twice the 50 MB L2, so each call of a
+    rotation finds its input cold."""
+    pair = 2 * int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    return [randn(gen, shape, dtype) for _ in range(max(8, -(-100_000_000 // pair)))]
+
+
+def rotating(fn, inputs: list):
+    """A call of ``fn`` on the next input in turn (the first call on the
+    first). The last output of each input is kept alive, so that the
+    allocator hands every call a different output buffer."""
+    held = [None] * len(inputs)
+    turn = [0]
+
+    def call():
+        i = turn[0] % len(inputs)
+        turn[0] += 1
+        held[i] = None
+        held[i] = fn(inputs[i])
+        return held[i]
+    return call
+
+
+def time_rmsnorm(gen: np.random.Generator, rows: int, d: int, reps: int) -> dict:
+    """RMSNorm bf16 (rows, d), w fp32, beside its plain version and
+    F.rms_norm: warm (the same x each call, its rows in L2), then cold (x and
+    out rotating past the L2). Returns the cold stats."""
+    w = 1.0 + randn(gen, (d,), torch.float32)
+    w16 = w.bfloat16()
+    ops, moved = 3 * rows * d, 2 * rows * d * 2 + nbytes(w)
+
+    def lib(x):
+        return torch.nn.functional.rms_norm(x, (d,), w16, 1e-6)
+
+    x = randn(gen, (rows, d), torch.bfloat16)
+    time_kernel(f"rmsnorm bf16 {(rows, d)} warm L2", lambda: rmsnorm_cuda(x, w), lambda: rmsnorm_ref(x, w),
+                lambda: lib(x), ops, moved, torch.float32, "norm", reps)
+    xs = cold_inputs(gen, (rows, d), torch.bfloat16)
+    return time_kernel(
+        f"rmsnorm bf16 {(rows, d)} cold L2 ({len(xs)} x/out pairs rotating)",
+        rotating(lambda x: rmsnorm_cuda(x, w), xs), rotating(lambda x: rmsnorm_ref(x, w), xs),
+        rotating(lib, xs), ops, moved, torch.float32, "norm", reps)
 
 
 def json_row(fname: str, counts: dict, stats: dict) -> dict:
@@ -819,9 +896,9 @@ def phase_strassen_prefill(cfg, params, gen: np.random.Generator) -> None:
         fail(f"strassen_fused prefill: {launches} strassen1 launches, rel_err {err:.3e}")
 
 
-def device_split(fn) -> dict:
-    """Device time (ms) of the kernels one call of ``fn`` runs, by class, from
-    torch.profiler's CUDA activity; empty when the profiler saw no kernel."""
+def device_kernels(fn) -> list:
+    """(name, device ms) of each kernel one call of ``fn`` runs, from
+    torch.profiler's CUDA activity, after one call to warm up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -830,24 +907,29 @@ def device_split(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return [(evt.name, evt.device_time_total / 1e3) for evt in prof.events()
+            if evt.device_type == DeviceType.CUDA]
+
+
+def device_split(fn) -> dict:
+    """Device time (ms) of the kernels one call of ``fn`` runs, by class;
+    empty when the profiler saw no kernel."""
     split: dict = {}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        name = evt.name.lower()
+    for name, ms in device_kernels(fn):
+        name = name.lower()
         if "flash_kernel" in name or "flash_mma_kernel" in name:
             key = "flash kernel"
         elif "strassen1_" in name:
             key = "strassen1 kernel"
         elif "rmsnorm_kernel" in name:
             key = "rmsnorm kernel"
-        elif "slstm_step_kernel" in name:
+        elif "slstm_seq_kernel" in name:
             key = "sLSTM kernel"
         elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
             key = "matmul (cuBLAS)"
         else:
             key = "other kernels"
-        split[key] = split.get(key, 0.0) + evt.device_time_total / 1e3
+        split[key] = split.get(key, 0.0) + ms
     return split
 
 
@@ -918,12 +1000,9 @@ def phase_serving_timing(cfg, reps: int, counts: dict) -> list:
     do that work."""
     gen = np.random.default_rng(2)
     s, d, hq, hkv, hd = 1024, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    x, w = randn(gen, (s, d), torch.bfloat16), 1.0 + randn(gen, (d,), torch.float32)
+    rows = [json_row("rmsnorm_cuda", counts, time_rmsnorm(gen, s, d, reps))]
+    w = 1.0 + randn(gen, (d,), torch.float32)
     w16 = w.bfloat16()
-    rows = [json_row("rmsnorm_cuda", counts, time_kernel(
-        f"rmsnorm bf16 {(s, d)}", lambda: rmsnorm_cuda(x, w), lambda: rmsnorm_ref(x, w),
-        lambda: torch.nn.functional.rms_norm(x, (d,), w16, 1e-6),
-        3 * s * d, 2 * nbytes(x) + nbytes(w), torch.float32, "norm", reps))]
     xd = randn(gen, (SERVE["slots"], d), torch.bfloat16)
     time_kernel(f"rmsnorm bf16 {tuple(xd.shape)} (decode)", lambda: rmsnorm_cuda(xd, w),
                 lambda: rmsnorm_ref(xd, w), lambda: torch.nn.functional.rms_norm(xd, (d,), w16, 1e-6),
@@ -963,19 +1042,24 @@ def slstm_inputs(gen: np.random.Generator, b: int, s: int, h: int, dh: int, carr
 
 def phase_xlstm_kernels(gen: np.random.Generator, cfg) -> None:
     """(g) The RMSNorm and sLSTM kernels against their plain versions at the
-    model's shapes: RMSNorm on a decode step's and a prefill's rows."""
+    model's shapes: RMSNorm on a decode step's and a prefill's rows, at this
+    model's width and at the widths where a block owns a row."""
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
-        for r in (SERVE["slots"], 1024):
-            x, w = randn(gen, (r, cfg.d_model), dtype), 1.0 + randn(gen, (cfg.d_model,), torch.float32)
-            compare(f"rmsnorm {tag} {(r, cfg.d_model)} w fp32", rmsnorm_cuda(x, w),
-                    rmsnorm_ref(x, w), "norm")
+        for d in (cfg.d_model, *RMSNORM_WIDE):
+            for r in (SERVE["slots"], 1024):
+                x, w = randn(gen, (r, d), dtype), 1.0 + randn(gen, (d,), torch.float32)
+                compare(f"rmsnorm {tag} {(r, d)} w fp32", rmsnorm_cuda(x, w), rmsnorm_ref(x, w), "norm")
     h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
-    for b, s, d, carried in ((1, 1000, dh, False), (SERVE["slots"], 1, dh, True), (2, 64, 48, True)):
-        wx, r, state = slstm_inputs(gen, b, s, h, d, carried)
+    # a prefill from zero state; a decode step; more rows than a pass over a
+    # tile; twice the heads, whose r does not fit the SMs' shared memory and
+    # is read from L2 in part; a ragged dh
+    for b, s, hh, d, carried in ((1, 1000, h, dh, False), (SERVE["slots"], 1, h, dh, True),
+                                 (6, 64, h, dh, True), (2, 16, 2 * h, dh, True), (2, 64, h, 48, True)):
+        wx, r, state = slstm_inputs(gen, b, s, hh, d, carried)
         got_st, got = slstm_seq_cuda(wx, r, state)
         want_st, want = slstm_seq_ref(wx, r, state)
-        tag = f"slstm fp32 {(b, s, 4, h, d)} from {'a carried' if carried else 'zero'} state"
+        tag = f"slstm fp32 {(b, s, 4, hh, d)} from {'a carried' if carried else 'zero'} state"
         compare(f"{tag}: hs", got, want, "slstm")
         for k in ("c", "n", "m", "h"):
             compare(f"{tag}: {k}", got_st[k], want_st[k], "slstm")
@@ -987,6 +1071,13 @@ def phase_xlstm_kernels(gen: np.random.Generator, cfg) -> None:
             full, "slstm")
     for k in ("c", "n", "m", "h"):
         compare(f"slstm two halves vs one pass: {k}", end[k], full_st[k], "slstm")
+    names = [name for name, _ in device_kernels(lambda: slstm_seq_cuda(wx, r, state))]
+    found = [name for name in names if "slstm" in name.lower()]
+    ok = len(found) == 1
+    log(f"slstm device kernels in one call of {tuple(wx.shape)}: {len(found)} ({found}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"slstm_seq_cuda ran {len(found)} sLSTM kernels in one call, want 1: {names}")
 
 
 def phase_chunkwise_prefill(cfg, params, gen: np.random.Generator) -> float:
@@ -1065,30 +1156,32 @@ def phase_xlstm_numbers(cfg, params, prompts: list, ms_1024: float) -> None:
 
 
 def phase_slstm_timing(cfg, reps: int, counts: dict) -> list:
-    """RMSNorm at the model's prefill width (printed; its JSON row is phi4's),
-    and the sLSTM kernel at a 1024-token prefill from zero state and a 4-slot
-    decode step, beside its bound and its plain version. No single PyTorch
-    call computes the recurrence, so there is no library time. The bound
-    counts the mat-vecs' fp32 operations (2 * B * S * 4 * H * dh^2) and the
-    bytes of wx, r, the state in and out and hs."""
+    """RMSNorm at the model's prefill width, warm and cold (printed; its
+    JSON row is phi4's), and the sLSTM kernel at a 1024-token prefill and a
+    single step from zero state and a 4-slot decode step, beside its bound and
+    its plain version; the time a step adds is (t(1024) - t(1)) / 1023. No
+    single PyTorch call computes the recurrence, so there is no library time.
+    The bound counts the mat-vecs' fp32 operations (2 * B * S * 4 * H * dh^2)
+    and the bytes of wx, r, the state in and out and hs."""
     gen = np.random.default_rng(3)
     d = cfg.d_model
-    x, w = randn(gen, (1024, d), torch.bfloat16), 1.0 + randn(gen, (d,), torch.float32)
-    w16 = w.bfloat16()
-    time_kernel(f"rmsnorm bf16 {tuple(x.shape)}", lambda: rmsnorm_cuda(x, w), lambda: rmsnorm_ref(x, w),
-                lambda: torch.nn.functional.rms_norm(x, (d,), w16, 1e-6),
-                3 * x.numel(), 2 * nbytes(x) + nbytes(w), torch.float32, "norm", reps)
+    time_rmsnorm(gen, 1024, d, reps)
     h, dh = cfg.n_heads, d // cfg.n_heads
-    rows = []
-    for b, s, carried in ((1, 1024, False), (SERVE["slots"], 1, True)):
+    rows, ms = [], {}
+    for b, s, carried in ((1, 1024, False), (1, 1, False), (SERVE["slots"], 1, True)):
         wx, r, state = slstm_inputs(gen, b, s, h, dh, carried)
         moved = nbytes(wx, r) + 2 * nbytes(*state.values()) + b * s * h * dh * 4
         stats = time_kernel(
             f"slstm fp32 {(b, s, 4, h, dh)}", lambda: slstm_seq_cuda(wx, r, state)[1],
             lambda: slstm_seq_ref(wx, r, state)[1], None, 2 * b * s * 4 * h * dh * dh, moved,
             torch.float32, "slstm", reps)
+        ms[(b, s)] = stats["ms"]
         if s > 1:
             rows.append(json_row("slstm_seq_cuda", counts, stats))
+    step_us = (ms[(1, 1024)] - ms[(1, 1)]) / 1023 * 1e3
+    log(f"time slstm per step inside a 1024-step prefill: {step_us:.3f} us "
+        f"((t(1024) - t(1)) / 1023; the fp32 work of a step bounds it at "
+        f"{2 * 4 * h * dh * dh / PEAK_OPS[torch.float32] * 1e6:.3f} us)")
     return rows
 
 

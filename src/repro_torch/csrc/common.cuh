@@ -52,6 +52,27 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Stores N (2 or 4) consecutive fp32 values as storage type T, each rounded
+// once, in one vector store: dst must be aligned to N * sizeof(T) bytes.
+template <typename T, int N>
+__device__ __forceinline__ void store_vec(T* dst, const float* v) {
+  static_assert(N == 2 || N == 4, "store_vec stores 2 or 4 values");
+  if constexpr (sizeof(T) == 4) {
+    if constexpr (N == 2) {
+      *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+    } else {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+    uint2 u;
+    *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v[0], v[1]);
+    *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(dst) = u;
+  }
+}
+
 // True when a pointer allows 16-byte vector loads and stores.
 inline bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 

@@ -43,6 +43,9 @@
 //   group after it has been issued and the group on it has completed. (A
 //   128 x 128 tile, or two of them an SM, ran 1.2-1.3x slower.)
 //
+// Both kernels store C as fp32 or bf16 (out_dtype), whatever the operands:
+// the fp32 accumulators are stored as they are, or rounded once to bf16.
+//
 // Shapes whose rows are not whole 16-byte chunks (K or N not a multiple of 4
 // fp32 or 8 bf16), or whose bases are not 16-byte aligned, which the TMA
 // cannot address, load tiles element by element into the same ring and
@@ -90,10 +93,10 @@ constexpr int A_TILE = BM * BK, B_TILE = BK * BN, STAGE = A_TILE + B_TILE;  // f
 constexpr int SMEM = 1024 + STAGES * STAGE * 4;  // 1024-byte alignment slack + the ring
 }  // namespace f32
 
-template <bool TMA>
+template <bool TMA, typename OutT>
 __global__ void __launch_bounds__(f32::THREADS, 1)
 matmul_fma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-                  const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C, int M,
+                  const float* __restrict__ A, const float* __restrict__ B, OutT* __restrict__ C, int M,
                   int K, int N, int tiles_m, int tiles_n, bool vec_out) {
   using namespace f32;
   __shared__ __align__(8) uint64_t full[STAGES];  // a stage's tiles have landed
@@ -185,7 +188,7 @@ matmul_fma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_consta
     if (++slot == STAGES) { slot = 0; phase ^= 1; }
   }
 
-  float* c = C + static_cast<int64_t>(t.batch) * M * N;
+  OutT* c = C + static_cast<int64_t>(t.batch) * M * N;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = t.row0 + a_row + 4 * i;
@@ -193,13 +196,13 @@ matmul_fma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_consta
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int col = t.col0 + b_col + 32 * q;
-      float* dst = c + static_cast<int64_t>(r) * N + col;
+      OutT* dst = c + static_cast<int64_t>(r) * N + col;
       if (vec_out && col + 3 < N) {
-        Vec<float, 4>::store(dst, &acc[i][4 * q]);
+        store_vec<OutT, 4>(dst, &acc[i][4 * q]);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (col + j < N) dst[j] = acc[i][4 * q + j];
+          if (col + j < N) dst[j] = from_f32<OutT>(acc[i][4 * q + j]);
       }
     }
   }
@@ -214,11 +217,11 @@ constexpr int A_TILE = BM * BK, B_BOX = BK * 64, STAGE = A_TILE + BOXES * B_BOX;
 constexpr int SMEM = 1024 + STAGES * STAGE * 2;
 }  // namespace b16
 
-template <bool TMA>
+template <bool TMA, typename OutT>
 __global__ void __launch_bounds__(b16::THREADS, 1)
 matmul_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
                     const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
-                    __nv_bfloat16* __restrict__ C, int M, int K, int N, int tiles_m, int tiles_n,
+                    OutT* __restrict__ C, int M, int K, int N, int tiles_m, int tiles_n,
                     bool pairs_out) {
   using namespace b16;
   using T = __nv_bfloat16;
@@ -312,10 +315,11 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_cons
   wgmma_wait<0>();
   fence_regs(acc);
 
-  // Round once and store. wgmma's accumulator layout: register 4i + 2h + j
-  // of lane l in warp w is row 16w + l/4 + 8h, column 8i + 2(l%4) + j of the
-  // warpgroup's 64 x BN.
-  T* c = C + static_cast<int64_t>(t.batch) * M * N;
+  // Store, rounded once to OutT. wgmma's accumulator layout: register
+  // 4i + 2h + j of lane l in warp w is row 16w + l/4 + 8h, column
+  // 8i + 2(l%4) + j of the warpgroup's 64 x BN. A pair is one store of 4
+  // (bf16) or 8 (fp32) bytes.
+  OutT* c = C + static_cast<int64_t>(t.batch) * M * N;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = t.row0 + wg * 64 + warp * 16 + lane / 4 + 8 * h;
@@ -323,20 +327,20 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_cons
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i) {
       const int col = t.col0 + 8 * i + 2 * (lane % 4);
-      T* dst = c + static_cast<int64_t>(r) * N + col;
-      const float v0 = acc[4 * i + 2 * h], v1 = acc[4 * i + 2 * h + 1];
+      OutT* dst = c + static_cast<int64_t>(r) * N + col;
+      const float v[2] = {acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]};
       if (pairs_out && col + 1 < N) {
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+        store_vec<OutT, 2>(dst, v);
       } else {
-        if (col < N) dst[0] = from_f32<T>(v0);
-        if (col + 1 < N) dst[1] = from_f32<T>(v1);
+        if (col < N) dst[0] = from_f32<OutT>(v[0]);
+        if (col + 1 < N) dst[1] = from_f32<OutT>(v[1]);
       }
     }
   }
 }
 
 // ------------------------------------------------------------------- host
-template <typename T, typename Kernel>
+template <typename T, typename OutT, typename Kernel>
 cudaError_t launch(Kernel kernel, int bm, int bn, int threads, int smem, const CUtensorMap& map_a,
                    const CUtensorMap& map_b, const void* a, const void* b, void* c, int64_t mb, int64_t m,
                    int64_t k, int64_t n, bool vec_out, cudaStream_t stream) {
@@ -350,7 +354,7 @@ cudaError_t launch(Kernel kernel, int bm, int bn, int threads, int smem, const C
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-      map_a, map_b, static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
+      map_a, map_b, static_cast<const T*>(a), static_cast<const T*>(b), static_cast<OutT*>(c),
       static_cast<int>(m), static_cast<int>(k), static_cast<int>(n), static_cast<int>(tiles_m),
       static_cast<int>(tiles_n), vec_out);
   return cudaGetLastError();
@@ -361,6 +365,13 @@ bool tma_ok(const void* a, const void* b, int64_t k, int64_t n, int vec) {
   return aligned16(a) && aligned16(b) && k > 0 && k % vec == 0 && n % vec == 0;
 }
 
+// c is aligned to n_vec stores of OutT when its base and its rows are.
+template <typename OutT>
+bool vec_aligned(const void* c, int64_t n, int n_vec) {
+  return reinterpret_cast<uintptr_t>(c) % (n_vec * sizeof(OutT)) == 0 && n % n_vec == 0;
+}
+
+template <typename OutT>
 cudaError_t launch_f32(const void* a, const void* b, void* c, int64_t mb, int64_t m, int64_t k, int64_t n,
                        cudaStream_t stream) {
   using namespace f32;
@@ -370,11 +381,12 @@ cudaError_t launch_f32(const void* a, const void* b, void* c, int64_t mb, int64_
               !make_map<float>(&map_b, b, mb, k, n, BK, BN, false))) {
     return cudaErrorInvalidValue;
   }
-  const bool vec_out = aligned16(c) && n % 4 == 0;
-  return launch<float>(tma ? matmul_fma_kernel<true> : matmul_fma_kernel<false>, BM, BN, THREADS, SMEM, map_a,
-                       map_b, a, b, c, mb, m, k, n, vec_out, stream);
+  return launch<float, OutT>(tma ? matmul_fma_kernel<true, OutT> : matmul_fma_kernel<false, OutT>, BM, BN,
+                             THREADS, SMEM, map_a, map_b, a, b, c, mb, m, k, n, vec_aligned<OutT>(c, n, 4),
+                             stream);
 }
 
+template <typename OutT>
 cudaError_t launch_bf16(const void* a, const void* b, void* c, int64_t mb, int64_t m, int64_t k, int64_t n,
                         cudaStream_t stream) {
   using namespace b16;
@@ -384,24 +396,29 @@ cudaError_t launch_bf16(const void* a, const void* b, void* c, int64_t mb, int64
               !make_map<__nv_bfloat16>(&map_b, b, mb, k, n, BK, 64))) {
     return cudaErrorInvalidValue;
   }
-  const bool pairs_out = reinterpret_cast<uintptr_t>(c) % 4 == 0 && n % 2 == 0;
-  return launch<__nv_bfloat16>(tma ? matmul_wgmma_kernel<true> : matmul_wgmma_kernel<false>, BM, BN, THREADS,
-                               SMEM, map_a, map_b, a, b, c, mb, m, k, n, pairs_out, stream);
+  return launch<__nv_bfloat16, OutT>(tma ? matmul_wgmma_kernel<true, OutT> : matmul_wgmma_kernel<false, OutT>,
+                                     BM, BN, THREADS, SMEM, map_a, map_b, a, b, c, mb, m, k, n,
+                                     vec_aligned<OutT>(c, n, 2), stream);
 }
 
 }  // namespace
 }  // namespace repro
 
-extern "C" int repro_batched_matmul(const void* a, const void* b, void* c, int dtype, int64_t mb,
-                                    int64_t m, int64_t k, int64_t n, void* stream) {
+// a, b of type dtype; c of type out_dtype (fp32 or bf16, either way).
+extern "C" int repro_batched_matmul(const void* a, const void* b, void* c, int dtype, int out_dtype,
+                                    int64_t mb, int64_t m, int64_t k, int64_t n, void* stream) {
   using namespace repro;
   if (mb < 1 || m > INT32_MAX || k > INT32_MAX || n > INT32_MAX) return cudaErrorInvalidValue;
+  if (out_dtype != kF32 && out_dtype != kBF16) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool f32_out = out_dtype == kF32;
   cudaError_t err;
   if (dtype == kF32) {
-    err = launch_f32(a, b, c, mb, m, k, n, s);
+    err = f32_out ? launch_f32<float>(a, b, c, mb, m, k, n, s)
+                  : launch_f32<__nv_bfloat16>(a, b, c, mb, m, k, n, s);
   } else if (dtype == kBF16) {
-    err = launch_bf16(a, b, c, mb, m, k, n, s);
+    err = f32_out ? launch_bf16<float>(a, b, c, mb, m, k, n, s)
+                  : launch_bf16<__nv_bfloat16>(a, b, c, mb, m, k, n, s);
   } else {
     return cudaErrorInvalidValue;
   }

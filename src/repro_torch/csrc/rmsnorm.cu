@@ -1,27 +1,37 @@
 // RMSNorm over the rows of an (R, D) array: y = x * rsqrt(mean(x^2) + eps) * w.
 //
 // Replaces rmsnorm_pallas (src/repro/kernels/rmsnorm/rmsnorm.py:29), which
-// tiles rows into VMEM and keeps the reduction and the rescale there. Here
-// one block of 256 threads owns a row (one warp owns a row when D <= 1024,
-// eight rows to a block), so nothing is shared between blocks.
+// tiles rows into VMEM and keeps the reduction and the rescale there.
 //
 // What bounds it: two flops per element against one element read and one
-// written, so device-memory bandwidth (3.35 TB/s) is the bound. Design: each
-// thread moves 16 bytes at a time (a float4 of fp32 or eight bf16) when D and
-// the pointers allow, one element otherwise. The second pass over a row
-// re-reads it from L2 (a row of the model is 6 KB), so device memory sees
-// each element read once and written once.
+// written, so device-memory bandwidth (3.35 TB/s) is the bound: a kernel
+// that reads each row once, writes it once and keeps enough bytes in flight.
 //
-// Numerics: sum x^2 in fp32 (warp shuffles, then a shared-memory step across
-// warps), mean = sum / D, then (x * rsqrtf(mean + eps)) * w in fp32 and one
-// rounding to x's type. w is fp32 or x's type.
+// Design: the row lives in registers. ROW threads own a row, ROW the
+// smallest power of two from 32 to 512 that leaves each thread at most
+// MAXV vectors of 16 bytes: a warp a row up to 1024 bf16, 128 threads at
+// phi4's 3072, 256 at qwen2-vl's 8192; up to 16384 bf16 or 8192 fp32
+// (wider rows are refused: 1024 threads a row spilled registers). Rows of fewer than 128 threads share a block of
+// 128. Each thread issues all of its loads first, its row's vectors and the
+// matching w (16-byte vectors through the read-only path, where w stays in
+// L1 across rows), then forms its sum of squares; the row is never read
+// again. Few vectors a thread keep the serial part short: the time of a
+// call is one memory latency and the launch, not a chain of dependent loads
+// and adds. (A warp a row up to 16 vectors a lane, 4096 bf16, ran slower:
+// tools/rmsnorm_variants.py.) D not a multiple of the vector, or pointers
+// off 16 bytes, take the same kernels with one element a vector.
+//
+// Numerics: sum x^2 in fp32 (each thread over its vectors in order, warp
+// shuffles, then a shared-memory step across the warps of a row), mean =
+// sum / D, then (x * rsqrtf(mean + eps)) * w in fp32 and one rounding to x's
+// type. w is fp32 or x's type.
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int MAXV = 4;         // vectors a thread holds
+constexpr int BLOCK_MIN = 128;  // threads of a block of rows narrower than this
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -29,76 +39,140 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// VEC weights as floats: w has x's type, or fp32 beside bf16 x (two float4).
+// VEC consecutive elements of T, held as loaded (16 bytes, or one element).
+template <typename T, int VEC>
+struct Chunk {
+  T v;
+  __device__ __forceinline__ void load(const T* p) { v = *p; }
+  __device__ __forceinline__ void get(float* f) const { f[0] = to_f32(v); }
+};
+template <>
+struct Chunk<float, 4> {
+  float4 v;
+  __device__ __forceinline__ void load(const float* p) { v = *reinterpret_cast<const float4*>(p); }
+  __device__ __forceinline__ void get(float* f) const { f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w; }
+};
+template <>
+struct Chunk<__nv_bfloat16, 8> {
+  uint4 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) { v = *reinterpret_cast<const uint4*>(p); }
+  __device__ __forceinline__ void get(float* f) const {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(h[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+};
+
+// VEC weights as floats through the read-only path: w has x's type, or fp32
+// beside bf16 x (two float4).
 template <typename W, int VEC>
 __device__ __forceinline__ void load_w(float* dst, const W* src) {
-  if constexpr (VEC == 8 && sizeof(W) == 4) {
-    Vec<float, 4>::load(dst, src);
-    Vec<float, 4>::load(dst + 4, src + 4);
+  if constexpr (VEC == 1) {
+    dst[0] = to_f32(__ldg(src));
+  } else if constexpr (sizeof(W) == 4) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(src) + q);
+      dst[4 * q] = v.x; dst[4 * q + 1] = v.y; dst[4 * q + 2] = v.z; dst[4 * q + 3] = v.w;
+    }
   } else {
-    Vec<W, VEC>::load(dst, src);
+    Chunk<W, VEC> c;
+    c.v = __ldg(reinterpret_cast<const uint4*>(src));
+    c.get(dst);
   }
 }
 
-template <typename T, typename W, int VEC, bool WARP_ROW>
-__global__ void __launch_bounds__(THREADS)
-rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ out,
-               int64_t rows, int64_t d, float eps) {
-  const int64_t row = WARP_ROW ? static_cast<int64_t>(blockIdx.x) * WARPS + threadIdx.x / 32
-                               : static_cast<int64_t>(blockIdx.x);
-  const int lane = WARP_ROW ? threadIdx.x % 32 : threadIdx.x;
-  const int stride = WARP_ROW ? 32 : THREADS;
-  if (row >= rows) return;  // only whole warps of a WARP_ROW block return here
+// ROW threads own a row; a block holds BLOCK / ROW rows.
+template <typename T, typename W, int VEC, int ROW, int BLOCK>
+__global__ void __launch_bounds__(BLOCK)
+rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ out, int64_t rows,
+               int64_t d, float eps) {
+  constexpr int WARPS = ROW / 32;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (BLOCK / ROW) + threadIdx.x / ROW;
+  const int lane = threadIdx.x % ROW;
   const T* xr = x + row * d;
   T* orow = out + row * d;
-  const int64_t nvec = d / VEC;
+  // A row past the last takes part in the block's barrier and touches nothing.
+  const int nvec = row < rows ? static_cast<int>(d / VEC) : 0;
 
-  float ss = 0.f;
-  for (int64_t i = lane; i < nvec; i += stride) {
-    float v[VEC];
-    Vec<T, VEC>::load(v, xr + i * VEC);
+  Chunk<T, VEC> xs[MAXV];
+  float wv[MAXV][VEC];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) ss = fmaf(v[e], v[e], ss);
+  for (int j = 0; j < MAXV; ++j) {
+    const int i = lane + j * ROW;
+    if (i < nvec) {
+      xs[j].load(xr + static_cast<int64_t>(i) * VEC);
+      load_w<W, VEC>(wv[j], w + static_cast<int64_t>(i) * VEC);
+    }
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAXV; ++j) {
+    if (lane + j * ROW < nvec) {
+      float v[VEC];
+      xs[j].get(v);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) ss = fmaf(v[e], v[e], ss);
+    }
   }
   ss = warp_sum(ss);
-  if (!WARP_ROW) {
-    __shared__ float part[WARPS];
-    __shared__ float total;
-    if (lane % 32 == 0) part[lane / 32] = ss;
+  if constexpr (WARPS > 1) {
+    __shared__ float part[BLOCK / 32];
+    const int first = (threadIdx.x / ROW) * WARPS;  // this row's warps in the block
+    if (lane % 32 == 0) part[first + lane / 32] = ss;
     __syncthreads();
-    if (lane < 32) {
-      float t = lane < WARPS ? part[lane] : 0.f;
-      t = warp_sum(t);
-      if (lane == 0) total = t;
-    }
-    __syncthreads();
-    ss = total;
+    ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < WARPS; ++i) ss += part[first + i];
   }
   const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
 
-  for (int64_t i = lane; i < nvec; i += stride) {
-    float v[VEC], wv[VEC], o[VEC];
-    Vec<T, VEC>::load(v, xr + i * VEC);
-    load_w<W, VEC>(wv, w + i * VEC);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) o[e] = __fmul_rn(__fmul_rn(v[e], inv), wv[e]);
-    Vec<T, VEC>::store(orow + i * VEC, o);
+  for (int j = 0; j < MAXV; ++j) {
+    const int i = lane + j * ROW;
+    if (i < nvec) {
+      float v[VEC], o[VEC];
+      xs[j].get(v);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) o[e] = __fmul_rn(__fmul_rn(v[e], inv), wv[j][e]);
+      Vec<T, VEC>::store(orow + static_cast<int64_t>(i) * VEC, o);
+    }
   }
 }
 
+template <typename T, typename W, int VEC, int ROW>
+void launch_rows(const T* x, const W* w, T* out, int64_t rows, int64_t d, float eps, cudaStream_t stream) {
+  constexpr int BLOCK = ROW < BLOCK_MIN ? BLOCK_MIN : ROW;
+  constexpr int PER_BLOCK = BLOCK / ROW;
+  const unsigned grid = static_cast<unsigned>((rows + PER_BLOCK - 1) / PER_BLOCK);
+  rmsnorm_kernel<T, W, VEC, ROW, BLOCK><<<grid, BLOCK, 0, stream>>>(x, w, out, rows, d, eps);
+}
+
 template <typename T, typename W, int VEC>
-void launch(const void* x, const void* w, void* out, int64_t rows, int64_t d, float eps,
-            cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* w, void* out, int64_t rows, int64_t d, float eps,
+                   cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   const W* wp = static_cast<const W*>(w);
   T* op = static_cast<T*>(out);
-  if (d <= 1024) {
-    const unsigned grid = static_cast<unsigned>((rows + WARPS - 1) / WARPS);
-    rmsnorm_kernel<T, W, VEC, true><<<grid, THREADS, 0, stream>>>(xp, wp, op, rows, d, eps);
+  const int64_t nvec = d / VEC;
+  if (nvec <= 32 * MAXV) {
+    launch_rows<T, W, VEC, 32>(xp, wp, op, rows, d, eps, stream);
+  } else if (nvec <= 64 * MAXV) {
+    launch_rows<T, W, VEC, 64>(xp, wp, op, rows, d, eps, stream);
+  } else if (nvec <= 128 * MAXV) {
+    launch_rows<T, W, VEC, 128>(xp, wp, op, rows, d, eps, stream);
+  } else if (nvec <= 256 * MAXV) {
+    launch_rows<T, W, VEC, 256>(xp, wp, op, rows, d, eps, stream);
+  } else if (nvec <= 512 * MAXV) {
+    launch_rows<T, W, VEC, 512>(xp, wp, op, rows, d, eps, stream);
   } else {
-    const unsigned grid = static_cast<unsigned>(rows);
-    rmsnorm_kernel<T, W, VEC, false><<<grid, THREADS, 0, stream>>>(xp, wp, op, rows, d, eps);
+    return cudaErrorInvalidValue;  // a row wider than a block's registers hold
   }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -111,26 +185,19 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* out, int dtype,
   if (rows < 1 || d < 1 || rows > 0x7fffffffLL) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec_ok = aligned16(x) && aligned16(w) && aligned16(out);
+  cudaError_t err;
   if (dtype == kF32 && wdtype == kF32) {
-    if (vec_ok && d % 4 == 0) {
-      launch<float, float, 4>(x, w, out, rows, d, eps, s);
-    } else {
-      launch<float, float, 1>(x, w, out, rows, d, eps, s);
-    }
+    err = vec_ok && d % 4 == 0 ? launch<float, float, 4>(x, w, out, rows, d, eps, s)
+                               : launch<float, float, 1>(x, w, out, rows, d, eps, s);
   } else if (dtype == kBF16 && wdtype == kBF16) {
-    if (vec_ok && d % 8 == 0) {
-      launch<__nv_bfloat16, __nv_bfloat16, 8>(x, w, out, rows, d, eps, s);
-    } else {
-      launch<__nv_bfloat16, __nv_bfloat16, 1>(x, w, out, rows, d, eps, s);
-    }
+    err = vec_ok && d % 8 == 0 ? launch<__nv_bfloat16, __nv_bfloat16, 8>(x, w, out, rows, d, eps, s)
+                               : launch<__nv_bfloat16, __nv_bfloat16, 1>(x, w, out, rows, d, eps, s);
   } else if (dtype == kBF16 && wdtype == kF32) {
-    if (vec_ok && d % 8 == 0) {
-      launch<__nv_bfloat16, float, 8>(x, w, out, rows, d, eps, s);
-    } else {
-      launch<__nv_bfloat16, float, 1>(x, w, out, rows, d, eps, s);
-    }
+    err = vec_ok && d % 8 == 0 ? launch<__nv_bfloat16, float, 8>(x, w, out, rows, d, eps, s)
+                               : launch<__nv_bfloat16, float, 1>(x, w, out, rows, d, eps, s);
   } else {
     return cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

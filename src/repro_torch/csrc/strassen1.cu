@@ -24,15 +24,18 @@
 //      stages (as many as shared memory holds, 2 to 8), each completing on
 //      its own mbarrier; ragged edges arrive zero-filled;
 //   2. the block forms the operand-sum tiles of step s + 1 from the ring:
-//      fp32 adds over q in ascending order, zeros skipped, no contraction,
-//      rounded once to the storage type (as the Pallas kernel multiplies
-//      sums in the input dtype), into a double-buffered sum tile;
+//      adds over q in ascending order, zeros skipped, no contraction, each
+//      term and each partial sum rounded to the storage type (the Pallas
+//      kernel forms its operands in the input dtype, one rounding per op;
+//      in fp32 these roundings do nothing), into a double-buffered sum tile;
 //   3. meanwhile the product M_p accumulates step s in fp32;
 //   4. after M_p's last K step, c_coef[k][p] * M_p goes into the C
 //      accumulator of each quadrant k where it is nonzero: the first nonzero
 //      term is assigned and later ones added, in ascending p, with __fmul_rn
 //      and __fadd_rn (signed_sum's order, so the combine rounds as before);
-//   5. C is rounded once to the storage type and written.
+//   5. C is written as fp32 or bf16 (out_dtype, whatever the operands):
+//      the fp32 accumulators as they are, or rounded once to bf16, as the
+//      Pallas kernel's _flush casts its fp32 combine to o_ref's dtype.
 // Only one product accumulator and the four C accumulators are live.
 //
 //   bf16: two warpgroups, each owning 64 x 64 of the tile, multiply with
@@ -163,7 +166,8 @@ __device__ __forceinline__ void load_step(T* stage, const T* __restrict__ A, con
 }
 
 // Signed sum of n raw VEC-element chunks (stride apart) in ascending order:
-// the first term assigned, later ones added, no contraction.
+// the first term assigned, later ones added, no contraction, each term and
+// each partial sum rounded to T (as the Pallas kernel's sums in T are).
 template <typename T, int VEC>
 __device__ __forceinline__ void chunk_sum(float* acc, const T* src, int stride, const float* cv, int n) {
 #pragma unroll
@@ -173,15 +177,15 @@ __device__ __forceinline__ void chunk_sum(float* acc, const T* src, int stride, 
     Vec<T, VEC>::load(x, src + j * stride);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      const float term = __fmul_rn(cv[j], x[i]);
-      acc[i] = j == 0 ? term : __fadd_rn(acc[i], term);
+      const float term = round_to<T>(__fmul_rn(cv[j], x[i]));
+      acc[i] = j == 0 ? term : round_to<T>(__fadd_rn(acc[i], term));
     }
   }
 }
 
 // The operand sum of n bf16 tiles (stride apart) over `chunks` 16-byte
 // chunks at the same offsets, written to dst: one bf16x2 FMA a pair when it
-// is two +-1 terms, else the fp32 sum rounded once.
+// is two +-1 terms, else chunk_sum's sum, rounded after each term.
 template <int THREADS>
 __device__ __forceinline__ void form_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src, int stride,
                                           int chunks, const float* cv, int n) {
@@ -246,11 +250,11 @@ struct Step {
 };
 
 // ------------------------------------------------------------ bf16 kernel
-template <int R>
+template <int R, typename OutT>
 __global__ void __launch_bounds__(256, 1)
 strassen1_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
                        const __nv_bfloat16* __restrict__ AQ, const __nv_bfloat16* __restrict__ BQ,
-                       __nv_bfloat16* __restrict__ CQ, int64_t M2, int64_t K2, int64_t N2,
+                       OutT* __restrict__ CQ, int64_t M2, int64_t K2, int64_t N2,
                        int stage_elems, int ns, bool tma, const Strassen1Coefs coef) {
   using T = __nv_bfloat16;
   using C = Cfg<T>;
@@ -361,11 +365,12 @@ strassen1_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_c
     nxt.next(sh.nk, ns);
   }
 
-  // Round C once and store it. wgmma's accumulator layout: register
+  // Store C, rounded once to OutT. wgmma's accumulator layout: register
   // 4i + 2h + j of lane l in warp w is row 16w + l/4 + 8h, column
-  // 8i + 2(l%4) + j of the warpgroup's 64 x 64.
-  T* cq = CQ + static_cast<int64_t>(t.leaf) * 4 * sh.c_quad;
-  const bool pairs = N2 % 2 == 0;
+  // 8i + 2(l%4) + j of the warpgroup's 64 x 64. A pair is one store of 4
+  // (bf16) or 8 (fp32) bytes.
+  OutT* cq = CQ + static_cast<int64_t>(t.leaf) * 4 * sh.c_quad;
+  const bool pairs = N2 % 2 == 0 && reinterpret_cast<uintptr_t>(CQ) % (2 * sizeof(OutT)) == 0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int64_t r = t.row0 + wg * 64 + warp * 16 + lane / 4 + 8 * h;
@@ -375,13 +380,13 @@ strassen1_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_c
       const int64_t c = t.col0 + 8 * i + 2 * (lane % 4);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        T* dst = cq + k * sh.c_quad + r * N2 + c;
-        const float v0 = cacc[k][4 * i + 2 * h], v1 = cacc[k][4 * i + 2 * h + 1];
+        OutT* dst = cq + k * sh.c_quad + r * N2 + c;
+        const float v[2] = {cacc[k][4 * i + 2 * h], cacc[k][4 * i + 2 * h + 1]};
         if (pairs && c + 1 < N2) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+          store_vec<OutT, 2>(dst, v);
         } else {
-          if (c < N2) dst[0] = from_f32<T>(v0);
-          if (c + 1 < N2) dst[1] = from_f32<T>(v1);
+          if (c < N2) dst[0] = from_f32<OutT>(v[0]);
+          if (c + 1 < N2) dst[1] = from_f32<OutT>(v[1]);
         }
       }
     }
@@ -389,10 +394,10 @@ strassen1_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_c
 }
 
 // ------------------------------------------------------------ fp32 kernel
-template <int R>
+template <int R, typename OutT>
 __global__ void __launch_bounds__(256, 1)
 strassen1_fma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-                     const float* __restrict__ AQ, const float* __restrict__ BQ, float* __restrict__ CQ,
+                     const float* __restrict__ AQ, const float* __restrict__ BQ, OutT* __restrict__ CQ,
                      int64_t M2, int64_t K2, int64_t N2, int stage_elems, int ns, bool tma,
                      const Strassen1Coefs coef) {
   using T = float;
@@ -515,7 +520,7 @@ strassen1_fma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_con
     nxt.next(sh.nk, ns);
   }
 
-  float* cq = CQ + static_cast<int64_t>(t.leaf) * 4 * sh.c_quad;
+  OutT* cq = CQ + static_cast<int64_t>(t.leaf) * 4 * sh.c_quad;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int64_t r = t.row0 + (i / 4) * 64 + ty * 4 + i % 4;
@@ -525,7 +530,7 @@ strassen1_fma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_con
       const int64_t c = t.col0 + tx * 4 + j;
       if (c >= N2) continue;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) cq[k * sh.c_quad + r * N2 + c] = cacc[k][i * 4 + j];
+      for (int k = 0; k < 4; ++k) cq[k * sh.c_quad + r * N2 + c] = from_f32<OutT>(cacc[k][i * 4 + j]);
     }
   }
 }
@@ -548,7 +553,7 @@ int ring_stages(int fixed_bytes, int stage_bytes) {
   return std::max(2, std::min(MAX_STAGES, (kLimit - fixed_bytes) / stage_bytes));
 }
 
-template <int R, typename T, typename Kernel>
+template <int R, typename T, typename OutT, typename Kernel>
 cudaError_t launch(Kernel kernel, int fixed_bytes, const void* aq, const void* bq, void* cq, int64_t mb,
                    int64_t m2, int64_t k2, int64_t n2, const Strassen1Coefs& coef, cudaStream_t stream) {
   using C = Cfg<T>;
@@ -570,33 +575,44 @@ cudaError_t launch(Kernel kernel, int fixed_bytes, const void* aq, const void* b
   const int64_t blocks = (m2 + C::BM - 1) / C::BM * ((n2 + C::BN - 1) / C::BN) * mb;
   if (blocks > INT32_MAX) return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(blocks), C::THREADS, smem, stream>>>(
-      map_a, map_b, static_cast<const T*>(aq), static_cast<const T*>(bq), static_cast<T*>(cq), m2, k2, n2,
+      map_a, map_b, static_cast<const T*>(aq), static_cast<const T*>(bq), static_cast<OutT*>(cq), m2, k2, n2,
       stage, ns, tma, coef);
   return cudaGetLastError();
 }
 
-template <int R>
+template <int R, typename OutT>
 cudaError_t launch_rank(int dtype, const void* aq, const void* bq, void* cq, int64_t mb, int64_t m2,
                         int64_t k2, int64_t n2, const Strassen1Coefs& coef, cudaStream_t stream) {
   if (dtype == kBF16) {
     using C = Cfg<__nv_bfloat16>;
     const int fixed = 1024 + 2 * (C::BM * C::BK + C::BK * C::BN) * 2;  // alignment slack + 2 sum tiles
-    return launch<R, __nv_bfloat16>(strassen1_wgmma_kernel<R>, fixed, aq, bq, cq, mb, m2, k2, n2, coef, stream);
+    return launch<R, __nv_bfloat16, OutT>(strassen1_wgmma_kernel<R, OutT>, fixed, aq, bq, cq, mb, m2, k2, n2,
+                                          coef, stream);
   }
   if (dtype == kF32) {
     using C = Cfg<float>;
     const int fixed = 1024 + 2 * (C::BK * (C::BM + C::PAD) + C::BK * C::BN) * 4;
-    return launch<R, float>(strassen1_fma_kernel<R>, fixed, aq, bq, cq, mb, m2, k2, n2, coef, stream);
+    return launch<R, float, OutT>(strassen1_fma_kernel<R, OutT>, fixed, aq, bq, cq, mb, m2, k2, n2, coef,
+                                  stream);
   }
+  return cudaErrorInvalidValue;
+}
+
+template <int R>
+cudaError_t launch_out(int dtype, int out_dtype, const void* aq, const void* bq, void* cq, int64_t mb,
+                       int64_t m2, int64_t k2, int64_t n2, const Strassen1Coefs& coef, cudaStream_t stream) {
+  if (out_dtype == kF32) return launch_rank<R, float>(dtype, aq, bq, cq, mb, m2, k2, n2, coef, stream);
+  if (out_dtype == kBF16) return launch_rank<R, __nv_bfloat16>(dtype, aq, bq, cq, mb, m2, k2, n2, coef, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace repro
 
+// aq, bq of type dtype; cq of type out_dtype (fp32 or bf16, either way).
 // coefs: host array of the scheme's a_coef (r, 4), b_coef (r, 4) and
 // c_coef (4, r), each row-major, one after the other.
-extern "C" int repro_strassen1(const void* aq, const void* bq, void* cq, int dtype, int r,
+extern "C" int repro_strassen1(const void* aq, const void* bq, void* cq, int dtype, int out_dtype, int r,
                                int64_t mb, int64_t m2, int64_t k2, int64_t n2, const float* coefs,
                                void* stream) {
   using namespace repro;
@@ -625,9 +641,9 @@ extern "C" int repro_strassen1(const void* aq, const void* bq, void* cq, int dty
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (r == 7) {
-    err = launch_rank<7>(dtype, aq, bq, cq, mb, m2, k2, n2, c, s);
+    err = launch_out<7>(dtype, out_dtype, aq, bq, cq, mb, m2, k2, n2, c, s);
   } else if (r == 8) {
-    err = launch_rank<8>(dtype, aq, bq, cq, mb, m2, k2, n2, c, s);
+    err = launch_out<8>(dtype, out_dtype, aq, bq, cq, mb, m2, k2, n2, c, s);
   } else {
     return cudaErrorInvalidValue;
   }

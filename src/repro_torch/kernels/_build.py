@@ -21,11 +21,11 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["dtype_code", "build", "launch", "library_path", "build_seconds"]
+__all__ = ["dtype_code", "build", "launch", "device_limits", "library_path", "build_seconds"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -41,18 +41,21 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 # C signature of every entry point: argument types, all returning int.
 _SIGNATURES = {
-    # a, b, c, dtype, mb, m, k, n, stream
-    "repro_batched_matmul": [_P, _P, _P, _I, _L, _L, _L, _L, _P],
+    # a, b, c, dtype, out dtype, mb, m, k, n, stream
+    "repro_batched_matmul": [_P, _P, _P, _I, _I, _L, _L, _L, _L, _P],
     # x, out, dtype, m, q, p, plane, coef (host), stream
     "repro_signed_sum": [_P, _P, _I, _L, _I, _I, _L, _P, _P],
-    # aq, bq, cq, dtype, r, mb, m2, k2, n2, coefs (host), stream
-    "repro_strassen1": [_P, _P, _P, _I, _I, _L, _L, _L, _L, _P, _P],
+    # aq, bq, cq, dtype, out dtype, r, mb, m2, k2, n2, coefs (host), stream
+    "repro_strassen1": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P, _P],
     # x, w, out, dtype, w dtype, rows, d, eps, stream
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _L, _L, _F, _P],
     # q, k, v, out, dtype, b, hq, hkv, sq, sk, d, causal, window, scale, stream
     "repro_flash_attention": [_P, _P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _I, _L, _F, _P],
-    # wx, r, h0, c, n, m, hs, b, s, h, dh, stream
-    "repro_slstm_seq": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P],
+    # wx, r, h0, c0, n0, m0, c, n, m, hs, counters, b, s, h, dh, blocks, tiles per block,
+    # resident, stream
+    "repro_slstm_seq": [_P] * 11 + [_L] * 7 + [_P],
+    # device, SM count (out), shared memory a block may opt in to (out)
+    "repro_device_limits": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -145,6 +148,17 @@ def build() -> ctypes.CDLL:
 def build_seconds() -> Optional[float]:
     """Seconds the first :func:`build` took in this process (None before)."""
     return _build_seconds
+
+
+def device_limits(device: torch.device) -> Tuple[int, int]:
+    """(SM count, bytes of shared memory a block may opt in to) of ``device``."""
+    lib = build()
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    err = lib.repro_device_limits(index, ctypes.byref(sms), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"repro_device_limits failed with CUDA error {err}")
+    return sms.value, smem.value
 
 
 def launch(name: str, device: torch.device, *args) -> None:

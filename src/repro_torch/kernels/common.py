@@ -9,9 +9,14 @@ failed build or launch.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-__all__ = ["on_cuda", "pick_block", "cdiv"]
+__all__ = ["on_cuda", "out_dtype_of", "pick_block", "cdiv"]
+
+# The output types of the matmul-type kernels and their plain versions.
+OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -27,6 +32,14 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel for device {device}")
     return device.type == "cuda"
+
+
+def out_dtype_of(out_dtype: Optional[torch.dtype], operand: torch.Tensor) -> torch.dtype:
+    """The reference's rule ``out_dtype or a.dtype``: fp32 or bf16, else TypeError."""
+    dtype = out_dtype or operand.dtype
+    if dtype not in OUT_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {dtype}")
+    return dtype
 
 
 def cdiv(a: int, b: int) -> int:

@@ -6,17 +6,21 @@ fp32 accumulation (fp32 on the CUDA cores' FMA, bf16 on Hopper's ``wgmma``,
 both fed by a TMA ring): :func:`batched_matmul_cuda` is the leaf stage
 batched over the 7^depth tag index (``batched_matmul_pallas``), and
 :func:`matmul_cuda` (``matmul_pallas``) is the same kernel with a batch of
-one. Each counts only the launches it makes itself.
+one. Each counts only the launches it makes itself. Both take the
+reference's ``out_dtype`` (fp32 or bf16, the operands' dtype by default):
+the fp32 accumulators are stored as they are or rounded once.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it computes the plain version in ``ref.py``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import on_cuda
+from repro_torch.kernels.common import on_cuda, out_dtype_of
 from repro_torch.kernels.matmul.ref import batched_matmul_ref
 
 __all__ = ["matmul_cuda", "batched_matmul_cuda"]
@@ -36,16 +40,19 @@ def _launch(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, code: int) -> N
     (mb, m, k), n = a.shape, b.shape[2]
     _build.launch(
         "repro_batched_matmul", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-        code, mb, m, k, n,
+        code, _build.dtype_code(out), mb, m, k, n,
     )
 
 
-def batched_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(mb, m, k) x (mb, k, n) -> (mb, m, n), fp32 accumulation, a's dtype."""
+def batched_matmul_cuda(
+    a: torch.Tensor, b: torch.Tensor, *, out_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """(mb, m, k) x (mb, k, n) -> (mb, m, n), fp32 accumulation, in ``out_dtype``."""
     code = _check(a, b)
+    dtype = out_dtype_of(out_dtype, a)
     if not on_cuda(a, b):
-        return batched_matmul_ref(a, b)
-    out = torch.empty((a.shape[0], a.shape[1], b.shape[2]), dtype=a.dtype, device=a.device)
+        return batched_matmul_ref(a, b, dtype)
+    out = torch.empty((a.shape[0], a.shape[1], b.shape[2]), dtype=dtype, device=a.device)
     if out.numel():
         _launch(a, b, out, code)
         batched_matmul_cuda.launches += 1
@@ -55,15 +62,18 @@ def batched_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 batched_matmul_cuda.launches = 0
 
 
-def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul_cuda(
+    a: torch.Tensor, b: torch.Tensor, *, out_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
     """(m, k) x (k, n) -> (m, n): the batched kernel with a batch of one."""
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"bad matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     a3, b3 = a[None], b[None]
     code = _check(a3, b3)
+    dtype = out_dtype_of(out_dtype, a)
     if not on_cuda(a, b):
-        return batched_matmul_ref(a3, b3)[0]
-    out = torch.empty((1, a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
+        return batched_matmul_ref(a3, b3, dtype)[0]
+    out = torch.empty((1, a.shape[0], b.shape[1]), dtype=dtype, device=a.device)
     if out.numel():
         _launch(a3, b3, out, code)
         matmul_cuda.launches += 1

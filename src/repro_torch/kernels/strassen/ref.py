@@ -2,18 +2,23 @@
 
 They repeat the kernels' arithmetic: each signed sum runs in fp32 over q in
 ascending order and skips zero coefficients (so the divide and combine
-kernels match them bit for bit), operand sums are rounded to the input
-dtype before the products, products are fp32 with TF32 off, and each output
-is rounded once. The wrappers use them for CPU tensors; ``chip_smoke.py``
+kernels match them bit for bit), the fused kernel's operand sums are formed
+as the Pallas kernel forms them, in the input dtype with one rounding per
+term and per add, products are fp32 with TF32 off, and each output is
+rounded once (to ``out_dtype``, the input dtype by default, where the
+function takes one). The wrappers use them for CPU tensors; ``chip_smoke.py``
 holds the kernels against them on the card.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.coefficients import STRASSEN, Scheme, get_scheme
 from repro_torch.core.precision import matmul_precision
+from repro_torch.kernels.common import out_dtype_of
 
 
 def signed_sum_ref(x: torch.Tensor, coef: np.ndarray) -> torch.Tensor:
@@ -43,20 +48,45 @@ def combine_ref(products: torch.Tensor, c_coef: np.ndarray) -> torch.Tensor:
     return signed_sum_ref(products, c_coef).to(products.dtype)
 
 
+def _operand_sums(x: torch.Tensor, coef: np.ndarray) -> torch.Tensor:
+    """(m, 4, h, w) -> (m, r, h, w) in fp32: the fused kernel's operand sums,
+    over q in ascending order, zeros skipped, each term and each partial sum
+    rounded to x's dtype (no rounding in fp32), as ``_signed_sum`` in
+    ``repro/kernels/strassen/strassen.py`` adds in the input dtype."""
+    rows = []
+    for row in np.asarray(coef):
+        acc = None
+        for q, c in enumerate(row):
+            if c == 0:
+                continue
+            term = (x[:, q].float() * float(c)).to(x.dtype).float()
+            acc = term if acc is None else (acc + term).to(x.dtype).float()
+        assert acc is not None, "coefficient row is all zero"
+        rows.append(acc)
+    return torch.stack(rows, dim=1)
+
+
 def strassen1_matmul_ref(
-    aq: torch.Tensor, bq: torch.Tensor, scheme: Scheme | str = STRASSEN
+    aq: torch.Tensor,
+    bq: torch.Tensor,
+    scheme: Scheme | str = STRASSEN,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """(mb,4,M2,K2) x (mb,4,K2,N2) -> (mb,4,M2,N2), unfused fp32 pipeline."""
     if isinstance(scheme, str):
         scheme = get_scheme(scheme)
-    left = divide_ref(aq, scheme.a_coef).float()
-    right = divide_ref(bq, scheme.b_coef).float()
+    dtype = out_dtype_of(out_dtype, aq)
+    left = _operand_sums(aq, scheme.a_coef)
+    right = _operand_sums(bq, scheme.b_coef)
     with matmul_precision("highest"):
         prods = torch.matmul(left, right)
-    return signed_sum_ref(prods, scheme.c_coef).to(aq.dtype)
+    return signed_sum_ref(prods, scheme.c_coef).to(dtype)
 
 
-def strassen1_full_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def strassen1_full_ref(
+    a: torch.Tensor, b: torch.Tensor, out_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
     """Direct (M,K)@(K,N) oracle for the whole fused op."""
+    dtype = out_dtype_of(out_dtype, a)
     with matmul_precision("highest"):
-        return torch.matmul(a.float(), b.float()).to(a.dtype)
+        return torch.matmul(a.float(), b.float()).to(dtype)

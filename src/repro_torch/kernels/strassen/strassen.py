@@ -13,6 +13,8 @@ On the card those levels are memory-bound signed sums, so:
   operand sums, accumulates the r products in fp32 registers and combines
   them into the 4 C quadrants, so none of the level's 7/4x intermediates
   reach device memory. Backend kind ``strassen_fused`` runs through it.
+  It takes the reference's ``out_dtype`` (fp32 or bf16, the operands'
+  dtype by default): the fp32 combine is stored as it is or rounded once.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it computes the plain version in ``ref.py``.
@@ -20,13 +22,14 @@ tensor it computes the plain version in ``ref.py``.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.coefficients import STRASSEN, Scheme, get_scheme
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import on_cuda
+from repro_torch.kernels.common import on_cuda, out_dtype_of
 from repro_torch.kernels.strassen.ref import combine_ref, divide_ref, strassen1_matmul_ref
 
 __all__ = ["divide_cuda", "combine_cuda", "strassen1_matmul_cuda"]
@@ -88,7 +91,11 @@ combine_cuda.launches = 0
 
 
 def strassen1_matmul_cuda(
-    aq: torch.Tensor, bq: torch.Tensor, *, scheme: Scheme | str = STRASSEN
+    aq: torch.Tensor,
+    bq: torch.Tensor,
+    *,
+    scheme: Scheme | str = STRASSEN,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Fused one-level Strassen on quadrant layout.
 
@@ -97,7 +104,7 @@ def strassen1_matmul_cuda(
       bq: (mb, 4, K2, N2) B-quadrants.
 
     Returns:
-      (mb, 4, M2, N2) C-quadrants in the operands' dtype.
+      (mb, 4, M2, N2) C-quadrants in ``out_dtype`` (the operands' dtype by default).
     """
     if isinstance(scheme, str):
         scheme = get_scheme(scheme)
@@ -107,19 +114,20 @@ def strassen1_matmul_cuda(
     ):
         raise ValueError(f"bad quadrant shapes {tuple(aq.shape)} x {tuple(bq.shape)}")
     code = _build.dtype_code(aq, bq)
+    dtype = out_dtype_of(out_dtype, aq)
     if not on_cuda(aq, bq):
-        return strassen1_matmul_ref(aq, bq, scheme)
+        return strassen1_matmul_ref(aq, bq, scheme, dtype)
     if not (aq.is_contiguous() and bq.is_contiguous()):
         raise ValueError("strassen1_matmul_cuda needs contiguous quadrant operands")
     mb, _, m2, k2 = aq.shape
     n2 = bq.shape[3]
-    out = torch.empty((mb, 4, m2, n2), dtype=aq.dtype, device=aq.device)
+    out = torch.empty((mb, 4, m2, n2), dtype=dtype, device=aq.device)
     if out.numel() == 0:
         return out
     c = _floats(scheme.a_coef, scheme.b_coef, scheme.c_coef)
     _build.launch(
         "repro_strassen1", aq.device, aq.data_ptr(), bq.data_ptr(), out.data_ptr(),
-        code, scheme.n_mults, mb, m2, k2, n2, ctypes.addressof(c),
+        code, _build.dtype_code(out), scheme.n_mults, mb, m2, k2, n2, ctypes.addressof(c),
     )
     strassen1_matmul_cuda.launches += 1
     return out

@@ -123,9 +123,38 @@ def _within(got, want, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_matmul_kernels_out_dtype(cuda, out_dtype):
+    # the other out_dtype than the operands': the fp32 accumulator stored as
+    # it is, or rounded once to bf16; tiled matmul and strassen1, ragged too
+    dtype = torch.bfloat16 if out_dtype == torch.float32 else torch.float32
+    tol = 2e-5 if out_dtype == torch.float32 else 8e-3
+    for mb, m, k, n in [(2, 130, 72, 200), (1, 256, 512, 384), (3, 33, 65, 17)]:
+        a, b = _on(cuda, (mb, m, k), dtype), _on(cuda, (mb, k, n), dtype)
+        for got, want in (
+            (tmm.batched_matmul(a, b, out_dtype=out_dtype), tmm_ref.batched_matmul_ref(a, b, out_dtype)),
+            (tmm.matmul(a[0], b[0], out_dtype=out_dtype), tmm_ref.matmul_ref(a[0], b[0], out_dtype)),
+        ):
+            scale = max(1.0, want.float().abs().max().item())
+            assert got.dtype == out_dtype
+            assert (got.float() - want.float()).abs().max().item() <= tol * scale
+    for scheme_name in SCHEMES:
+        for mb, m2, k2, n2 in [(2, 128, 128, 128), (3, 33, 65, 17)]:
+            aq, bq = _on(cuda, (mb, 4, m2, k2), dtype), _on(cuda, (mb, 4, k2, n2), dtype)
+            got = tst.strassen1_matmul_cuda(aq, bq, scheme=scheme_name, out_dtype=out_dtype)
+            want = tref.strassen1_matmul_ref(aq, bq, scheme_name, out_dtype)
+            scale = max(1.0, want.float().abs().max().item())
+            assert got.dtype == out_dtype
+            assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2**-7)])
 def test_cuda_rmsnorm_matches_plain(cuda, dtype, tol):
-    for r, d in [(1, 3072), (7, 3072), (64, 1000), (33, 128), (5, 250)]:
+    # a warp a row up to 4096 bf16 or 2048 fp32 (xLSTM 2048, phi4 3072),
+    # a block a row above (qwen1.5 5120, internlm2 6144, qwen2-vl 8192)
+    wide = [(r, d) for d in (2048, 5120, 6144, 8192) for r in (4, 1024)]
+    for r, d in [(1, 3072), (7, 3072), (64, 1000), (33, 128), (5, 250), *wide]:
         x = _on(cuda, (r, d), dtype)
         for w in (_on(cuda, (d,), dtype), _on(cuda, (d,), torch.float32)):
             n = trn.rmsnorm_cuda.launches
@@ -202,12 +231,27 @@ def _slstm_state(device, b, h, dh, carried):
     return st
 
 
+def _slstm_device_kernels(fn):
+    """Names of the device kernels that one call of fn runs whose name holds 'slstm'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "slstm" in e.name.lower()]
+
+
 @pytest.mark.cuda
 def test_cuda_slstm_matches_plain(cuda):
-    # the JAX kernel test's shapes (dh 4 and 8 fill part of a block's 16
-    # columns), dh 48, batches past a block's 4 rows, and xlstm's decode shape
+    # the JAX kernel test's shapes (dh 4 and 8 fill part of a tile's 16
+    # columns), dh 48, batches past a pass's 4 rows, xlstm's decode shape, a
+    # 1024-step prefill from zero state at full width, 8 heads whose r does
+    # not fit the SMs' shared memory, and 6 rows at full width
     cases = [(1, 8, 1, 4, False), (2, 16, 2, 8, False), (2, 32, 4, 16, True),
-             (1, 40, 2, 48, False), (6, 3, 4, 64, True), (4, 1, 4, 512, True)]
+             (1, 40, 2, 48, False), (6, 3, 4, 64, True), (4, 1, 4, 512, True),
+             (1, 1024, 4, 512, False), (2, 16, 8, 512, True), (6, 64, 4, 512, True)]
     for b, s, h, dh, carried in cases:
         wx = _on(cuda, (b, s, 4, h, dh), torch.float32)
         r = _on(cuda, (4, h, dh, dh), torch.float32) * dh**-0.5
@@ -216,6 +260,8 @@ def test_cuda_slstm_matches_plain(cuda):
         n = tsl.slstm_seq_cuda.launches
         st, hs = tsl.slstm_seq_cuda(wx, r, state)
         assert tsl.slstm_seq_cuda.launches == n + 1
+        # one device launch a call, whatever S
+        assert len(_slstm_device_kernels(lambda: tsl.slstm_seq_cuda(wx, r, state))) == 1
         st_ref, hs_ref = slstm_seq_ref(wx, r, state)
         for got, want in [(hs, hs_ref)] + [(st[k], st_ref[k]) for k in ("c", "n", "m", "h")]:
             assert got.shape == want.shape and _within(got, want, 2e-5), (b, s, h, dh)

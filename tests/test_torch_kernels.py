@@ -21,6 +21,7 @@ import numpy as np
 from repro.core.coefficients import get_scheme
 from repro.kernels import common as jcommon
 from repro.kernels.matmul import ops as jmm
+from repro.kernels.matmul import matmul as jmm_kernel
 from repro.kernels.strassen import ops as jops
 from repro.kernels.strassen import strassen as jst
 from repro_torch.kernels import _build, common
@@ -133,6 +134,64 @@ def test_matmul_matches_pallas(m, k, n, bm, bn, bk, dtype):
     got = tmm.matmul(ta, tb)
     assert got.shape == (m, n) and got.dtype == DTYPES[dtype][1]
     _close(got, jmm.matmul(ja, jb, block_m=bm, block_n=bn, block_k=bk), TOL_MM[dtype])
+
+
+# (operand dtype, out_dtype): the fp32 accumulator stored as it is or rounded
+# once, and the default (the operands' dtype).
+OUT_DTYPE_CASES = [("bfloat16", "float32"), ("float32", "bfloat16"),
+                   ("bfloat16", None), ("float32", None)]
+OUT_DTYPE_KERNELS = ["matmul", "batched_matmul", *(f"strassen1_{s}" for s in SCHEMES)]
+
+
+def _out_dtype_call(kernel, dtype, out):
+    """(port result, Pallas result in interpret mode) on the same seeded inputs."""
+    jout = None if out is None else DTYPES[out][0]
+    tout = None if out is None else DTYPES[out][1]
+    if kernel == "matmul":
+        (ja, ta), (jb, tb) = _pair((128, 128), dtype), _pair((128, 128), dtype)
+        return (tmm_kernel.matmul_cuda(ta, tb, out_dtype=tout),
+                jmm_kernel.matmul_pallas(ja, jb, block_m=64, block_n=64, block_k=64,
+                                         out_dtype=jout))
+    if kernel == "batched_matmul":
+        (ja, ta), (jb, tb) = _pair((2, 128, 64), dtype), _pair((2, 64, 96), dtype)
+        return (tmm_kernel.batched_matmul_cuda(ta, tb, out_dtype=tout),
+                jmm_kernel.batched_matmul_pallas(ja, jb, block_m=64, block_n=32, block_k=32,
+                                                 out_dtype=jout))
+    scheme = kernel.split("_", 1)[1]
+    (jaq, taq), (jbq, tbq) = _pair((2, 4, 64, 64), dtype), _pair((2, 4, 64, 64), dtype)
+    return (tst.strassen1_matmul_cuda(taq, tbq, scheme=scheme, out_dtype=tout),
+            jst.strassen1_matmul_pallas(jaq, jbq, scheme=scheme, block_m=32, block_n=32,
+                                        block_k=32, out_dtype=jout))
+
+
+@pytest.mark.parametrize("dtype,out", OUT_DTYPE_CASES)
+@pytest.mark.parametrize("kernel", OUT_DTYPE_KERNELS)
+def test_out_dtype_matches_pallas(kernel, dtype, out):
+    """The matmul-type kernels take the reference's out_dtype (out_dtype or
+    a.dtype): fp32 outputs within 2e-5 * max(1, max|ref|), the fp32
+    accumulator unrounded; bf16 outputs each within 2^-7 * (|ref| + rms(ref)),
+    one rounding of the same fp32 sum."""
+    got, want = _out_dtype_call(kernel, dtype, out)
+    want = _f32(want)
+    assert got.dtype == DTYPES[out or dtype][1] and tuple(got.shape) == want.shape
+    g = got.float().numpy()
+    if got.dtype == torch.float32:
+        assert np.abs(g - want).max() <= 2e-5 * max(1.0, np.abs(want).max())
+    else:
+        limit = 2**-7 * (np.abs(want) + np.sqrt(np.mean(want**2)))
+        assert (np.abs(g - want) <= limit).all()
+
+
+@pytest.mark.parametrize("bad", [torch.float16, torch.float64, torch.int32])
+def test_out_dtype_rejects_other_types(bad):
+    x = torch.zeros(1, 4, 8, 8)
+    for call in (lambda: tmm_kernel.matmul_cuda(x[0, 0], x[0, 0], out_dtype=bad),
+                 lambda: tmm_kernel.batched_matmul_cuda(x[0], x[0], out_dtype=bad),
+                 lambda: tst.strassen1_matmul_cuda(x, x, out_dtype=bad),
+                 lambda: tmm_ref.matmul_ref(x[0, 0], x[0, 0], bad),
+                 lambda: tref.strassen1_full_ref(x[0, 0], x[0, 0], bad)):
+        with pytest.raises(TypeError, match="out_dtype"):
+            call()
 
 
 def test_staged_pipeline_bf16_error_is_the_algorithms():
@@ -295,18 +354,19 @@ def test_build_locates_library_and_refuses_without_nvcc(monkeypatch, tmp_path):
 # ---------------------------------- the fused kernel's product-at-a-time order
 def _product_at_a_time(aq, bq, scheme_name):
     """What the fused CUDA kernel computes, in its order, on the CPU: each
-    product M_p in fp32 from operand sums (fp32, ascending q, zeros skipped,
-    rounded to the input dtype), then c_coef[k][p] * M_p into C quadrant k in
-    ascending p, the first nonzero term assigned, C rounded once."""
+    product M_p in fp32 from operand sums (ascending q, zeros skipped, each
+    term and partial sum rounded to the input dtype), then c_coef[k][p] * M_p
+    into C quadrant k in ascending p, the first nonzero term assigned, C
+    rounded once."""
     s = get_scheme(scheme_name)
 
     def operand(x, row):
         acc = None
         for q, c in enumerate(row):
             if c != 0:
-                term = x[:, q].float() * float(c)
-                acc = term if acc is None else acc + term
-        return acc.to(x.dtype).float()
+                term = (x[:, q].float() * float(c)).to(x.dtype).float()
+                acc = term if acc is None else (acc + term).to(x.dtype).float()
+        return acc
 
     c = [None] * 4
     for p in range(s.n_mults):

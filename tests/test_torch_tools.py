@@ -1,8 +1,10 @@
 """The port's tools that run on the card, checked here where they can be.
 
-``tools/matmul_variants.py`` builds design variants of the tiled matmul
-kernel by replacing lines of ``csrc/matmul.cu``; each replacement must still
-find its line in the shipped source, or the tool stops on the card.
+``tools/matmul_variants.py``, ``tools/slstm_variants.py`` and
+``tools/rmsnorm_variants.py`` build design variants of the tiled matmul,
+sLSTM and RMSNorm kernels by replacing lines of their ``csrc/*.cu``; each
+replacement must still find its line in the shipped source, or the tool
+stops on the card.
 """
 import importlib.util
 from pathlib import Path
@@ -11,11 +13,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-TOOL = Path(__file__).resolve().parents[1] / "tools" / "matmul_variants.py"
+TOOLS = Path(__file__).resolve().parents[1] / "tools"
 
 
-def _tool():
-    spec = importlib.util.spec_from_file_location("matmul_variants", TOOL)
+def _tool(name="matmul_variants"):
+    spec = importlib.util.spec_from_file_location(name, TOOLS / f"{name}.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -35,4 +37,29 @@ def test_matmul_variants_refuses_without_a_gpu(monkeypatch):
     tool = _tool()
     monkeypatch.setattr(tool.torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr("sys.argv", ["matmul_variants.py"])
+    assert tool.main() == 2
+
+
+def test_every_slstm_variant_applies_and_refuses_without_a_gpu(monkeypatch):
+    tool = _tool("slstm_variants")
+    shipped = (tool.CSRC / "slstm.cu").read_text()
+    for name in tool.VARIANTS:
+        text = tool.variant_source(name)
+        assert text != shipped and "repro_slstm_seq" in text, name
+    assert "tile_dots<ROWS, true>" not in tool.variant_source("exchange_only")
+    assert "wait_count(counters" not in tool.variant_source("no_wait")
+    monkeypatch.setattr(tool.torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["slstm_variants.py"])
+    assert tool.main() == 2
+
+
+def test_every_rmsnorm_variant_applies_and_refuses_without_a_gpu(monkeypatch):
+    tool = _tool("rmsnorm_variants")
+    shipped = (tool.CSRC / "rmsnorm.cu").read_text()
+    for name in tool.VARIANTS:
+        text = tool.variant_source(name)
+        assert text != shipped and "repro_rmsnorm" in text, name
+    assert "constexpr int MAXV = 16;" in tool.variant_source("warp_rows")
+    monkeypatch.setattr(tool.torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["rmsnorm_variants.py"])
     assert tool.main() == 2

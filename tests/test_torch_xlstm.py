@@ -146,6 +146,53 @@ def test_slstm_seq_cuda_rejects_bad_inputs():
         tsl.slstm_seq_cuda(_t(wx).double(), _t(r), st)
 
 
+# An H100's SM count and the shared memory a block may opt in to (227 KiB).
+H100 = dict(sms=132, smem_per_block=232448)
+
+
+def test_slstm_plan_keeps_r_resident_at_xlstm_width():
+    """xlstm-1.3b's 4 heads of 512 on an H100: 128 blocks, 32 a head, each
+    16 columns whose 128 KiB slice of r stays in shared memory over a
+    prefill; a single decode step reads r once, straight from memory."""
+    plan = tsl.slstm_plan(4, 512, 1024, **H100)
+    assert (plan.blocks, plan.blocks_per_head, plan.cols_per_block) == (128, 32, 16)
+    assert plan.resident == plan.tiles_per_block == 1 and plan.r_resident
+    assert 128 * 1024 < plan.smem_bytes <= H100["smem_per_block"]
+    step = tsl.slstm_plan(4, 512, 1, **H100)
+    assert (step.blocks, step.resident, step.r_resident) == (128, 0, False)
+    assert step.smem_bytes < 32 * 1024
+
+
+def test_slstm_plan_streams_r_that_does_not_fit():
+    """8 heads of 512 (32 MiB of r) on an H100: two tiles a block, one of
+    them resident, the other read from L2 every step."""
+    plan = tsl.slstm_plan(8, 512, 16, **H100)
+    assert plan.blocks <= H100["sms"] and plan.blocks * plan.tiles_per_block >= 8 * 32
+    assert plan.tiles_per_block == 2 and plan.resident == 1 and not plan.r_resident
+    assert plan.smem_bytes <= H100["smem_per_block"]
+
+
+@pytest.mark.parametrize("heads,dh", [(4, 16), (1, 4), (2, 8), (4, 4)])
+def test_slstm_plan_gives_one_masked_tile_a_head_at_small_widths(heads, dh):
+    """The smoke config's dh 16 and the JAX kernel test's dh 4 and 8: one
+    tile of 16 columns a head (past dh masked), one block each, r resident."""
+    plan = tsl.slstm_plan(heads, dh, 8, **H100)
+    assert (plan.blocks, plan.tiles_per_block, plan.blocks_per_head) == (heads, 1, 1)
+    assert plan.r_resident
+
+
+def test_slstm_plan_covers_every_tile_with_at_most_one_block_an_sm():
+    for heads, dh, sms in [(200, 4, 132), (5, 512, 132), (3, 48, 2), (1, 8192, 132), (7, 100, 16)]:
+        plan = tsl.slstm_plan(heads, dh, 64, sms, H100["smem_per_block"])
+        tiles = heads * -(-dh // tsl.COLS)
+        assert plan.blocks <= sms and (plan.blocks - 1) * plan.tiles_per_block < tiles
+        assert plan.blocks * plan.tiles_per_block >= tiles
+        assert 0 <= plan.resident <= plan.tiles_per_block
+        assert plan.smem_bytes <= H100["smem_per_block"]
+    with pytest.raises(ValueError, match="shared memory"):
+        tsl.slstm_plan(1, 100_000, 64, **H100)
+
+
 # ------------------------------------------------------------------ mLSTM
 def _mlstm_streams(b, s, h, dk, dv):
     """q, k (B, S, H, dk), v (B, S, H, dv), i, f (B, S, H) and a carried state."""

@@ -203,7 +203,8 @@ def main() -> int:
     def run(name, a, b):
         out = torch.empty((a.shape[0], a.shape[1], b.shape[2]), dtype=a.dtype, device=a.device)
         err = libs[name].repro_batched_matmul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), _build.dtype_code(a, b), *a.shape, b.shape[2],
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), _build.dtype_code(a, b), _build.dtype_code(out),
+            *a.shape, b.shape[2],
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{name}: CUDA error {err}")
