@@ -18,14 +18,25 @@ is Stark's Strassen multiply:
    fp32 operands made from ``--seed`` with numpy (N = 16384, the paper's
    headline size, by default), for kinds strassen_fused (depth 1 and 2),
    strassen and winograd (depth 2) and naive, plus the staged pipeline at
-   depth 2 in fp32 and bf16 and strassen_fused at depth 2 in bf16. Each
+   depth 2 in fp32 and bf16, strassen_fused at depth 2 in bf16 and naive in
+   bf16. Each
    result is checked against an fp32 ``torch.matmul`` of the same operands
    by normwise relative error, and every kernel of the path must have been
    launched;
 4. times each kernel at the main path's shapes with CUDA events, beside its
    plain version, the matching PyTorch call and the card's bound (the tiled
-   matmul in bf16 too), and splits strassen_fused's device time by kernel
-   class.
+   matmul, divide and combine in bf16 too), and splits strassen_fused's
+   device time by kernel class;
+5. drives kind ``auto`` (``repro_torch.core.autotune``) on the same
+   operands: calibrates the cost model on the card, prints each candidate
+   of the N x N multiply in fp32 and bf16 (naive, Strassen and Winograd at
+   depths 1-2, strassen_fused at depths 1-2) with its predicted ms and cost
+   terms beside its measured ms (``execute``, median of 3), checks its error
+   and that the fused candidates launched strassen1, prints the predicted
+   decision and its time beside naive's at 2048 to N (the crossover table),
+   runs measured mode (top 3) at N in fp32, and checks that a tuning cache
+   saved to a file answers the same key from a fresh load with no
+   calibration.
 
 The second path serves phi4-mini-3.8B (random weights from ``--seed``, bf16,
 full width and depth) through the continuous-batching ``Engine``:
@@ -43,6 +54,11 @@ d. checks that prefill logits (flash kernel) agree with prefill + one decode
    step (plain decode attention) within a normwise bound;
 e. prefills through kind strassen_fused and checks the fused kernel ran and
    the logits stay within a normwise bound of the naive run;
+e2. serves 4 of the requests with ``matmul_autotune=True`` (kind auto on
+   every projection), prints the warm-up's resolutions and the decision
+   log's kinds, hits and misses, checks that every request ends by length
+   with no page leaked and that its tokens pass (c)'s near-tie rule against
+   the dense-cache route of the same config;
 f. prints TTFT, TPOT, tokens/s, prefill and decode-step times, peak memory,
    a breakdown of one prefill and each kernel's times against its bound.
 
@@ -89,6 +105,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -98,6 +115,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import autotune  # noqa: E402
 from repro_torch.core.backend import MatmulBackend, matmul  # noqa: E402
 from repro_torch.core.coefficients import get_scheme  # noqa: E402
 from repro_torch.core.strassen import (  # noqa: E402
@@ -132,8 +150,9 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 
 # Kernel against plain version: max|kernel - plain| <= TOL * max(1, max|plain|).
-# divide/combine sum in the same order in fp32 and round once, so they must
-# match bit for bit. The products accumulate in another order than cuBLAS:
+# divide/combine sum in the same order and round each add to the storage type
+# (the identity in fp32), as their plain versions do, so they must match bit
+# for bit. The products accumulate in another order than cuBLAS:
 # about sqrt(K) * 2^-24 relative in fp32, and at most a bf16 ulp or two of
 # the output (2^-8 relative) in bf16.
 # RMSNorm, flash attention and the sLSTM sequence take the JAX kernel tests'
@@ -228,6 +247,26 @@ SERVE = dict(max_seq=2048, slots=4, page_size=16, sync_interval=4, temperature=0
 # The recurrent model and its traffic (the same ServeConfig).
 XLSTM_ARCH = "xlstm_1_3b"
 XLSTM_PROMPT_LENS = (32, 64, 128, 256, 384, 512, 768, 1024)
+# Kind auto: the candidate set of the 16384^2 table (and of the crossover
+# table and measured mode, so that every timed candidate is in the table),
+# the crossover sizes, and the phi4 requests it serves (prompts of 64, 512,
+# 1024 and 1984 tokens).
+AUTO_TUNE = dict(max_depth=2, min_dim=1024)
+AUTO_SIZES = (2048, 4096, 8192, 16384)
+AUTO_PROMPTS = (0, 3, 5, 7)
+AUTO_REPS = 3
+# Kind auto's candidates are held to MAIN_LIMIT, but for one route that the
+# reference itself does not meet: Winograd at depth 2 in bf16 (einsum levels,
+# every level rounded to bf16) lies 2.10e-2 to 2.12e-2 from fp32 in the JAX
+# package from 512^2 to 4096^2, with no trend in the size, and in the port
+# within 1% of that
+# (tests/test_torch_autotune.py::test_winograd_depth2_bf16_error_is_the_references).
+# It is held to the largest of those errors plus 5%.
+ROUTE_LIMIT = {("winograd", 2, torch.bfloat16): 2.12e-2 * 1.05}
+
+
+def route_limit(cand, dtype: torch.dtype) -> float:
+    return ROUTE_LIMIT.get((cand.kind, cand.depth, dtype), MAIN_LIMIT[dtype])
 
 # Where every tensor of the run lives.
 DEVICE = "cuda"
@@ -469,6 +508,7 @@ def main_path_runs(a, b, a16, b16) -> list:
         ("stages depth=2 fp32", lambda x, w: strassen_matmul_stages(x, w, depth=2), a, b),
         ("strassen_fused depth=2 bf16", backend("strassen_fused", 2), a16, b16),
         ("stages depth=2 bf16", lambda x, w: strassen_matmul_stages(x, w, depth=2), a16, b16),
+        ("naive bf16", backend("naive"), a16, b16),
     ]
 
 
@@ -605,13 +645,20 @@ def phase_timing(a, b, reps: int, counts: dict) -> list:
         lambda: divide_ref(aq, s.a_coef), lambda: torch.einsum("pq,mqij->mpij", coef, aq),
         sum_ops(s.a_coef, 1, h * h), 11 * plane, torch.float32, "sum"))
     p = divide_cuda(aq, s.a_coef)  # (1, 7, N/2, N/2)
-    del aq, bq
     ccoef = torch.as_tensor(s.c_coef, dtype=torch.float32, device=DEVICE)
     add("combine_cuda", entry(
         f"combine fp32 {tuple(p.shape)}", lambda: combine_cuda(p, s.c_coef),
         lambda: combine_ref(p, s.c_coef), lambda: torch.einsum("kp,mpij->mkij", ccoef, p),
         sum_ops(s.c_coef, 1, h * h), 11 * plane, torch.float32, "sum"))
-    del p
+    # the same levels in bf16, on packed bf16x2 pairs (printed, not in the JSON line)
+    aq, p = aq.bfloat16(), p.bfloat16()
+    entry(f"divide bf16 {tuple(aq.shape)}", lambda: divide_cuda(aq, s.a_coef),
+          lambda: divide_ref(aq, s.a_coef), lambda: torch.einsum("pq,mqij->mpij", coef.bfloat16(), aq),
+          sum_ops(s.a_coef, 1, h * h), 11 * plane // 2, torch.bfloat16, "sum")
+    entry(f"combine bf16 {tuple(p.shape)}", lambda: combine_cuda(p, s.c_coef),
+          lambda: combine_ref(p, s.c_coef), lambda: torch.einsum("kp,mpij->mkij", ccoef.bfloat16(), p),
+          sum_ops(s.c_coef, 1, h * h), 11 * plane // 2, torch.bfloat16, "sum")
+    del aq, bq, p
 
     # Depth 2: the fused kernel on the depth-1 operand sums (printed, not in
     # the JSON line), and the staged pipeline's 49 leaves.
@@ -671,6 +718,140 @@ def phase_breakdown(a, b, reps: int) -> None:
         run = lambda: matmul(x, x, MatmulBackend(kind="strassen_fused", depth=2))  # noqa: E731
         wall, _ = timed(run)
         log_split(f"strassen_fused depth=2 {tag}", wall, device_split(run))
+
+
+# -------------------------------------------------------------- kind auto
+def cand_name(c) -> str:
+    return "naive" if c.is_naive else f"{c.kind} depth={c.depth}"
+
+
+def phase_auto(a, b, a16, b16, refs: dict) -> None:
+    """(5) Kind auto on the card: calibration, the candidate table, the
+    crossover table, measured mode and the tuning cache's round trip."""
+    t0 = t = time.perf_counter()
+    calib = autotune.calibrate(device=DEVICE)
+    log(f"auto calibrate ({calib.device_kind}, {calib.device_count} device): "
+        f"t_flop={calib.t_flop:.4e} s t_elem={calib.t_elem:.4e} s t_h2d={calib.t_h2d:.4e} s "
+        f"t_coll={calib.t_coll} in {time.perf_counter() - t:.3f} s")
+    if not (calib.t_flop > 0 and calib.t_elem > 0 and calib.t_h2d > 0 and calib.t_coll == 0.0
+            and calib.device_kind == "gpu" and calib.device_count == 1):
+        fail(f"auto calibrate: {calib}")
+    n = a.shape[0]
+    pairs = ((a, b), (a16, b16))
+    reset_counts()
+    for x, w in pairs:
+        tag = "fp32" if x.dtype == torch.float32 else "bf16"
+        for cand in autotune.enumerate_candidates(n, n, n, **AUTO_TUNE, device=DEVICE):
+            terms = autotune.predict_cost_terms(cand, n, n, n, calib)
+            before = strassen1_matmul_cuda.launches
+            err = rel_err(autotune.execute(cand, x, w), refs[x.dtype])
+            launched = strassen1_matmul_cuda.launches - before
+            ms = time_ms(lambda: autotune.execute(cand, x, w), AUTO_REPS)
+            limit = route_limit(cand, x.dtype)
+            ok = err <= limit and (launched > 0) == (cand.kind == "strassen_fused")
+            split = ", ".join(f"{k} {v * 1e3:.3f}" for k, v in terms.items() if v)
+            log(f"auto candidate {n}^2 {tag} {cand_name(cand)}: predicted "
+                f"{sum(terms.values()) * 1e3:.3f} ms ({split}), measured {ms:.3f} ms, "
+                f"rel_err={err:.3e} limit={limit:.3g}, strassen1 launches "
+                f"{launched} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"auto candidate {tag} {cand_name(cand)}: rel_err {err:.3e}, "
+                     f"{launched} strassen1 launches")
+    launches = strassen1_matmul_cuda.launches
+    log(f"auto candidates: strassen1 launches {launches}")
+    if launches <= 0:
+        fail("auto: strassen1 was not launched over the fused candidates")
+
+    tel = autotune.Telemetry()  # keeps the phase's resolutions out of the process log
+    for size in AUTO_SIZES:
+        for x, w in pairs:
+            tag = "fp32" if x.dtype == torch.float32 else "bf16"
+            xs, ws = x[:size, :size].contiguous(), w[:size, :size].contiguous()
+            ref = refs[x.dtype] if size == n else torch.matmul(xs.float(), ws.float())
+            d = autotune.autotune(size, size, size, x.dtype, calibration=calib, **AUTO_TUNE,
+                                  telemetry=tel, device=DEVICE)
+            err = rel_err(autotune.execute(d.candidate, xs, ws), ref)
+            ms = time_ms(lambda: autotune.execute(d.candidate, xs, ws), AUTO_REPS)
+            naive = time_ms(lambda: torch.matmul(xs, ws), AUTO_REPS)
+            ok = err <= route_limit(d.candidate, x.dtype)
+            log(f"auto crossover {size}^2 {tag}: decision {cand_name(d.candidate)}, predicted "
+                f"{d.predicted_s * 1e3:.3f} ms, measured {ms:.3f} ms, naive {naive:.3f} ms, "
+                f"decision/naive {ms / naive:.3f}, rel_err={err:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"auto crossover {size} {tag}: rel_err {err:.3e}")
+            del xs, ws, ref
+
+    cands = autotune.enumerate_candidates(n, n, n, **AUTO_TUNE, device=DEVICE)
+    top = sorted(cands, key=lambda c: autotune.predict_seconds(c, n, n, n, calib))[:3]
+    t = time.perf_counter()
+    d = autotune.autotune(n, n, n, torch.float32, calibration=calib, measure=True, top_k=3,
+                          **AUTO_TUNE, telemetry=tel, device=DEVICE)
+    ok = d.source == "measured" and d.candidate in top and d.measured_s > 0
+    log(f"auto measured mode {n}^2 fp32 (top_k=3): timed {[cand_name(c) for c in top]}, winner "
+        f"{cand_name(d.candidate)} at {d.measured_s * 1e3:.3f} ms (predicted "
+        f"{d.predicted_s * 1e3:.3f} ms), naive among the timed: "
+        f"{any(c.is_naive for c in top)}, {time.perf_counter() - t:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"auto measured mode: {d}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "tuning.json")
+        first = autotune.autotune(n, n, n, torch.float32, calibration=calib, **AUTO_TUNE,
+                                  cache=autotune.TuningCache(path), telemetry=tel, device=DEVICE)
+        before = autotune.calibration_snapshot(DEVICE)
+        fresh = autotune.Telemetry()
+        again = autotune.autotune(n, n, n, torch.float32, **AUTO_TUNE, telemetry=fresh,
+                                  cache=autotune.TuningCache(path), device=DEVICE)
+        ok = (again.source == "cache" and fresh.cache_hits == 1 and fresh.cache_misses == 0
+              and again.candidate == first.candidate
+              and autotune.calibration_snapshot(DEVICE) == before)
+        log(f"auto tuning cache: {cand_name(first.candidate)} saved, fresh load answers "
+            f"{cand_name(again.candidate)} from the {again.source}, hits {fresh.cache_hits}, "
+            f"no calibration {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"auto tuning cache round trip: {again}, {fresh.snapshot()}")
+    log(f"auto phase done in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_auto_serve(cfg, params, prompts: list) -> None:
+    """(e2) Serve 4 requests with kind auto on every projection."""
+    cfg_auto = dataclasses.replace(cfg, matmul_autotune=True)
+    t0 = t = time.perf_counter()
+    engine = Engine(cfg_auto, params, ServeConfig(**SERVE), device=DEVICE)
+    warm = engine.autotune_stats()
+    calib = warm["calibration"] or {}
+    log(f"auto serve {cfg.name}: warm_for_model {warm['cache_hits'] + warm['cache_misses']} "
+        f"resolutions ({warm['cache_misses']} decided, {warm['cache_hits']} from the cache), "
+        f"kinds {warm['kinds']}, t_flop={calib.get('t_flop', float('nan')):.4e} "
+        f"t_elem={calib.get('t_elem', float('nan')):.4e}, engine built in "
+        f"{time.perf_counter() - t:.2f} s")
+    picks = [prompts[i] for i in AUTO_PROMPTS]
+    reset_counts()
+    t = time.perf_counter()
+    handles = [engine.submit(p, 32 + i % 3) for i, p in enumerate(picks)]
+    n_events = sum(1 for _ in engine.stream(handles))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    st, ss = engine.autotune_stats(), engine.serve_stats()
+    log(f"auto serve {cfg.name}: {len(handles)} requests, {n_events} tokens in {wall:.3f} s; "
+        f"resolutions after the run: kinds {st['kinds']}, hits {st['cache_hits']}, misses "
+        f"{st['cache_misses']}; launches {({f.__name__: f.launches for f in ALL_KERNELS})}")
+    for h, p in zip(handles, picks):
+        if h.finish_reason != "length" or len(h.tokens()) != 32 + h.id % 3:
+            fail(f"auto serve request {h.id}: {h.finish_reason} after {len(h.tokens())} tokens")
+    if ss["pages_in_use"] != 0:
+        fail(f"auto serve: {ss['pages_in_use']} pages still in use after every request finished")
+    for h, p in zip(handles, picks):
+        argmaxes, gaps = forced_rollout(engine.cfg, params, p, h.tokens())
+        equal = sum(x == y for x, y in zip(argmaxes, h.tokens()))
+        ok = max(gaps) <= NEAR_TIE
+        log(f"auto serve vs dense route (same config), request {h.id} (prompt {len(p)}): "
+            f"{equal} of {len(argmaxes)} tokens are its argmax, largest gap {max(gaps):.3f} rms "
+            f"limit={NEAR_TIE} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"auto serve request {h.id}: gaps {[round(g, 3) for g in gaps]}")
+    del engine
+    log(f"auto serve phase done in {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------- serving path
@@ -1254,13 +1435,14 @@ def main() -> int:
     log(f"operands {n}x{n} from seed {args.seed}: {time.perf_counter() - t:.1f} s")
 
     runs = main_path_runs(a, b, a16, b16)
-    counts = phase_main_path(runs, {torch.float32: ref32, torch.bfloat16: ref16})
-    del ref32, ref16
+    refs = {torch.float32: ref32, torch.bfloat16: ref16}
+    counts = phase_main_path(runs, refs)
     phase_end_to_end(runs, args.reps)
-    del runs, a16, b16
+    del runs
     entries = phase_timing(a, b, args.reps, counts)
     phase_breakdown(a, b, args.reps)
-    del a, b
+    phase_auto(a, b, a16, b16, refs)
+    del a, b, a16, b16, ref32, ref16, refs
     torch.cuda.empty_cache()
     log(f"Strassen path done at {time.perf_counter() - t0:.1f} s")
 
@@ -1275,6 +1457,7 @@ def main() -> int:
     phase_engine_vs_model(cfg, params, prompts, served["handles"], args.seed)
     phase_prefill_vs_decode(cfg, params, serve_gen)
     phase_strassen_prefill(cfg, params, serve_gen)
+    phase_auto_serve(cfg, params, prompts)
     phase_serving_numbers(cfg, params, prompts, args.reps)
     entries += phase_serving_timing(cfg, args.reps, served["counts"])
     del params, served

@@ -8,19 +8,23 @@ level runs inside the fused CUDA kernel (``strassen_fused``). Below
 ``min_dim`` the call falls back to the plain matmul, like Stark's leaf
 threshold.
 
-Kinds ``strassen_oot`` and ``auto`` are not ported yet: they raise
-:class:`NotImplementedError` naming the ROADMAP item that ports them, and
-never route elsewhere. The sharding hook ``w_logical`` is accepted and
+Kind ``auto`` resolves each (M, K, N, dtype, call site) on the operands'
+device through :mod:`repro_torch.core.autotune` (:func:`resolve_auto`) to
+one of those kinds at a depth. Kind ``strassen_oot`` is not ported yet: it
+raises :class:`NotImplementedError` naming the ROADMAP item that ports it,
+and never routes elsewhere. The sharding hook ``w_logical`` is accepted and
 ignored: the port has no sharding context yet (ROADMAP.md queue 1 item 8),
 and with none the JAX package's ``constrain`` is the identity too.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import autotune
 from repro_torch.core.precision import PRECISIONS, matmul_precision
 from repro_torch.core.strassen import strassen_matmul
 from repro_torch.kernels.strassen.ops import strassen_matmul_fused
@@ -30,6 +34,8 @@ __all__ = [
     "MatmulBackend",
     "matmul",
     "NAIVE_BACKEND",
+    "AUTO_BACKEND",
+    "resolve_auto",
     "VALID_KINDS",
     "EAGER_ONLY_KINDS",
     "JIT_SAFE_KINDS",
@@ -55,7 +61,6 @@ JIT_SAFE_KINDS: Tuple[str, ...] = tuple(k for k in VALID_KINDS if k not in EAGER
 
 # Where each kind or option that this slice does not run gets ported.
 _NOT_PORTED = {
-    "auto": "ROADMAP.md queue 1 item 5 (core/cost_model.py and core/autotune.py)",
     "strassen_oot": "ROADMAP.md queue 1 item 6 (blocks/, the out-of-core runtime)",
 }
 
@@ -99,10 +104,15 @@ class MatmulBackend:
       precision: precision name of the leaf matmuls; None inherits the
         process default (:func:`set_default_matmul_precision`). "high" and
         "tensorfloat32" allow TF32; every other name runs full fp32.
-      tuning_cache, measure, schemes, device_budget, latency_hiding: the
-        settings of kinds 'auto' and 'strassen_oot', carried so that a JAX
-        backend converts field for field; nothing in this slice reads them
-        except ``schemes`` in :attr:`scheme_name`.
+      tuning_cache: path of the persistent autotune cache of kind 'auto'.
+      measure: kind 'auto' times its top candidates instead of trusting
+        the cost model.
+      schemes: the schemes kind 'auto' enumerates; a resolved
+        ``strassen_fused`` backend carries its decision's scheme here.
+      device_budget, latency_hiding: the settings of kind 'strassen_oot',
+        carried so that a JAX backend converts field for field. A
+        ``device_budget`` on kind 'auto' raises: the out-of-core family is
+        not ported.
     """
 
     kind: str = "naive"
@@ -150,6 +160,57 @@ class MatmulBackend:
 
 
 NAIVE_BACKEND = MatmulBackend(kind="naive")
+AUTO_BACKEND = MatmulBackend(kind="auto", depth=3)
+
+
+@functools.lru_cache(maxsize=4096)
+def resolve_auto(
+    m: int,
+    k: int,
+    n: int,
+    dtype_name: str,
+    backend: MatmulBackend,
+    site: Optional[str] = None,
+    device_type: str = "cuda",
+) -> MatmulBackend:
+    """Resolve kind='auto' to a concrete backend for one (M, K, N, dtype) on a device type.
+
+    The lru_cache makes every later call with the same shape, site and
+    device type free; decisions differ between the CPU and the card, so the
+    device type is part of the key. A persistent ``backend.tuning_cache``
+    survives process restarts. ``site`` keys the decision per call site
+    (e.g. "attn.wq" vs "mlp.up"), so equal-shape projections can diverge
+    under measured mode.
+    """
+    cache = autotune.process_cache(backend.tuning_cache)
+    decision = autotune.autotune(
+        m,
+        k,
+        n,
+        dtype_name,
+        min_dim=backend.min_dim,
+        max_depth=max(backend.depth, 1),
+        schemes=backend.schemes,
+        cache=cache,
+        measure=backend.measure,
+        site=site,
+        oot_budget=backend.device_budget,
+        device=device_type,
+    )
+    if decision.kind == "naive":
+        return dataclasses.replace(backend, kind="naive", measure=False)
+    if decision.kind == "strassen_fused":
+        # schemes pins scheme_name to the decision's scheme.
+        return dataclasses.replace(
+            backend,
+            kind=decision.kind,
+            depth=decision.depth,
+            schemes=(decision.scheme,),
+            measure=False,
+        )
+    return dataclasses.replace(
+        backend, kind=decision.scheme, depth=decision.depth, measure=False
+    )
 
 
 def matmul(
@@ -168,7 +229,9 @@ def matmul(
       w_logical: sharding names of w's dims, as the JAX package takes them.
         Ignored: with no sharding context (the port has none until ROADMAP.md
         queue 1 item 8) the JAX package ignores them too.
-      site: optional call-site tag, recorded on the span.
+      site: optional call-site tag ("attn.wq", "mlp.up", ...), recorded on
+        the span; for kind 'auto' it keys the decision (and its persistent
+        cache entry) per call site.
 
     Returns:
       (..., N) on x's device, in the promoted dtype of x and w.
@@ -190,10 +253,14 @@ def matmul(
         kind=backend.kind, site=site,
         traced=torch.compiler.is_compiling(),
     ):
-        return _matmul_routed(x, w, backend, lead, m, k, n)
+        return _matmul_routed(x, w, backend, lead, m, k, n, site)
 
 
-def _matmul_routed(x, w, backend, lead, m, k, n):
+def _matmul_routed(x, w, backend, lead, m, k, n, site):
+    if backend.kind == "auto":
+        backend = resolve_auto(
+            m, k, n, autotune.dtype_name(x.dtype), backend, site, x.device.type
+        )
     if backend.kind in _NOT_PORTED:
         raise NotImplementedError(
             f"kind {backend.kind!r} is not ported to repro_torch yet: "

@@ -1,12 +1,12 @@
 """Plain PyTorch versions of the fused Strassen kernels.
 
-They repeat the kernels' arithmetic: each signed sum runs in fp32 over q in
-ascending order and skips zero coefficients (so the divide and combine
-kernels match them bit for bit), the fused kernel's operand sums are formed
-as the Pallas kernel forms them, in the input dtype with one rounding per
-term and per add, products are fp32 with TF32 off, and each output is
-rounded once (to ``out_dtype``, the input dtype by default, where the
-function takes one). The wrappers use them for CPU tensors; ``chip_smoke.py``
+They repeat the kernels' arithmetic: each signed sum runs over q in
+ascending order, skips zero coefficients, and is formed as the Pallas
+kernels' ``_signed_sum`` forms it, in the input dtype with one rounding per
+term and per add (no rounding in fp32), so the divide and combine kernels
+match them bit for bit; products are fp32 with TF32 off, and the fused
+kernel's fp32 combine is rounded once (to ``out_dtype``, the input dtype by
+default). The wrappers use them for CPU tensors; ``chip_smoke.py``
 holds the kernels against them on the card.
 """
 from __future__ import annotations
@@ -22,17 +22,19 @@ from repro_torch.kernels.common import out_dtype_of
 
 
 def signed_sum_ref(x: torch.Tensor, coef: np.ndarray) -> torch.Tensor:
-    """(m, q, h, w) -> (m, p, h, w): out[:, i] = sum_j coef[i, j] * x[:, j] in fp32."""
-    coef = np.asarray(coef)
-    x32 = x.float()
+    """(m, q, h, w) -> (m, p, h, w) in fp32: out[:, i] = sum_j coef[i, j] * x[:, j].
+
+    Over j in ascending order, zeros skipped, each term and each partial sum
+    rounded to x's dtype (no rounding in fp32), as ``_signed_sum`` in
+    ``repro/kernels/strassen/strassen.py`` adds in the input dtype."""
     rows = []
-    for row in coef:
+    for row in np.asarray(coef):
         acc = None
         for j, c in enumerate(row):
             if c == 0:
                 continue
-            term = x32[:, j] * float(c)
-            acc = term if acc is None else acc + term
+            term = (x[:, j].float() * float(c)).to(x.dtype).float()
+            acc = term if acc is None else (acc + term).to(x.dtype).float()
         assert acc is not None, "coefficient row is all zero"
         rows.append(acc)
     return torch.stack(rows, dim=1)
@@ -48,24 +50,6 @@ def combine_ref(products: torch.Tensor, c_coef: np.ndarray) -> torch.Tensor:
     return signed_sum_ref(products, c_coef).to(products.dtype)
 
 
-def _operand_sums(x: torch.Tensor, coef: np.ndarray) -> torch.Tensor:
-    """(m, 4, h, w) -> (m, r, h, w) in fp32: the fused kernel's operand sums,
-    over q in ascending order, zeros skipped, each term and each partial sum
-    rounded to x's dtype (no rounding in fp32), as ``_signed_sum`` in
-    ``repro/kernels/strassen/strassen.py`` adds in the input dtype."""
-    rows = []
-    for row in np.asarray(coef):
-        acc = None
-        for q, c in enumerate(row):
-            if c == 0:
-                continue
-            term = (x[:, q].float() * float(c)).to(x.dtype).float()
-            acc = term if acc is None else (acc + term).to(x.dtype).float()
-        assert acc is not None, "coefficient row is all zero"
-        rows.append(acc)
-    return torch.stack(rows, dim=1)
-
-
 def strassen1_matmul_ref(
     aq: torch.Tensor,
     bq: torch.Tensor,
@@ -76,8 +60,8 @@ def strassen1_matmul_ref(
     if isinstance(scheme, str):
         scheme = get_scheme(scheme)
     dtype = out_dtype_of(out_dtype, aq)
-    left = _operand_sums(aq, scheme.a_coef)
-    right = _operand_sums(bq, scheme.b_coef)
+    left = signed_sum_ref(aq, scheme.a_coef)
+    right = signed_sum_ref(bq, scheme.b_coef)
     with matmul_precision("highest"):
         prods = torch.matmul(left, right)
     return signed_sum_ref(prods, scheme.c_coef).to(dtype)

@@ -6,13 +6,16 @@ on the card unless asked for the CPU:
   python -m repro_torch.launch.serve --arch phi4_mini_3_8b --full
   python -m repro_torch.launch.serve --arch xlstm_1_3b --full
   python -m repro_torch.launch.serve --arch xlstm_1_3b --device cpu --smoke
+  python -m repro_torch.launch.serve --backend auto --trace-out trace.json --device cpu
 
 The dense decoders and xlstm-1.3b are served; the other families raise
 NotImplementedError naming their ROADMAP item.
 
 Parameters are random, drawn on the device from ``--seed`` in the config's
-dtype. ``--mesh`` (ROADMAP.md queue 1 item 8) and ``--trace-out``
-(``obs/export.py``, queue 1 item 7) are not ported and exit with a message.
+dtype. ``--backend auto`` routes every projection through the autotune
+dispatcher; ``--trace-out`` writes a Chrome/Perfetto trace of the run's spans
+(the ``autotune.resolve`` and ``backend.matmul`` spans among them).
+``--mesh`` (ROADMAP.md queue 1 item 8) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -25,12 +28,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
-from repro_torch.core.backend import MatmulBackend
+from repro_torch import obs
+from repro_torch.core.backend import JIT_SAFE_KINDS, MatmulBackend
 from repro_torch.models import model as M
+from repro_torch.obs import export
 from repro_torch.serving.engine import Engine, ServeConfig
-
-# The backend kinds that run on the device in this port.
-ON_DEVICE_KINDS = ("naive", "strassen", "winograd", "strassen_fused")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,12 +63,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", action="store_true", help="not ported (ROADMAP.md queue 1 item 8)")
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--backend", choices=list(ON_DEVICE_KINDS), default=None,
-                    help="matmul routing of every projection")
+    ap.add_argument("--backend", choices=list(JIT_SAFE_KINDS), default=None,
+                    help="matmul routing of every projection; 'auto' turns on "
+                    "the autotune dispatcher")
     ap.add_argument("--strassen-depth", type=int, default=1)
     ap.add_argument("--strassen-min-dim", type=int, default=1024)
     ap.add_argument("--trace-out", default=None,
-                    help="not ported (obs/export.py, ROADMAP.md queue 1 item 7)")
+                    help="write a Chrome/Perfetto trace of the run here")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
 
@@ -75,15 +78,13 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.mesh:
         raise NotImplementedError("--mesh is not ported to repro_torch yet: see ROADMAP.md queue 1 item 8")
-    if args.trace_out:
-        raise NotImplementedError(
-            "--trace-out is not ported to repro_torch yet (obs/export.py): see ROADMAP.md queue 1 item 7"
-        )
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("repro_torch.launch.serve: no CUDA device; pass --device cpu to serve on the CPU",
               file=sys.stderr)
         return 2
+    if args.trace_out:
+        obs.configure(enabled=True)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.backend:
@@ -127,6 +128,11 @@ def main(argv=None) -> int:
     print(f"arch={cfg.name} served {len(handles)} requests / {n} tokens "
           f"in {dt:.2f}s ({n / dt:.1f} tok/s incl. first-call set-up)")
     print(f"serve_stats: {engine.serve_stats()}")
+    if args.trace_out:
+        export.write_trace(args.trace_out, metrics=engine.metrics)
+        st = engine.stats()["obs"]
+        print(f"wrote {args.trace_out} ({st['tracer']['spans']} spans, "
+              f"{len(st['metrics'])} metric series)")
     return 0
 
 

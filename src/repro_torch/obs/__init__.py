@@ -4,8 +4,10 @@ Copies of :mod:`repro.obs.tracer` and :mod:`repro.obs.metrics`. Tracing is
 disabled by default: ``get_tracer().span(...)`` returns a shared no-op
 context manager until ``obs.configure(enabled=True)``. With
 ``configure(profiler_annotations=True)`` each span also opens a
-``torch.profiler.record_function`` range. The Perfetto exporter
-(``repro.obs.export``) is not ported yet.
+``torch.profiler.record_function`` range. :mod:`repro_torch.obs.export`
+(a port of ``repro.obs.export``) writes the spans as a Chrome/Perfetto
+trace or JSONL, checks a trace with ``validate_trace``, and starts and stops
+a ``torch.profiler`` trace beside them.
 """
 from __future__ import annotations
 

@@ -35,11 +35,12 @@ request id), and temperature draws for that request consume it in order.
 Draws are deterministic per seed and independent of batch composition,
 like the JAX engine's per-slot keys, but not bit-equal to ``jax.random``.
 
-Not ported: kind ``auto`` (the autotune dispatcher; refused at
-construction, ROADMAP.md queue 1 item 5), the out-of-core stats ring
-(ROADMAP.md queue 1 item 6) and encoder-decoder serving (queue 1 item 9).
-``autotune_stats()`` reports what the JAX engine reports for a naive
-backend with no out-of-core run.
+A kind ``auto`` backend is warmed at construction (``warm_for_model``
+resolves every projection shape of the prefill and decode buckets on the
+engine's device) and ``autotune_stats()`` reports the process decision log
+and the calibration it ran on. Not ported: the out-of-core stats ring
+(ROADMAP.md queue 1 item 6; ``autotune_stats()["oot"]`` stays empty) and
+encoder-decoder serving (queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.blocks.recovery import FaultError, InjectedFault
+from repro_torch.core import autotune
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.frontends import make_stub_positions
@@ -61,8 +63,6 @@ from repro_torch.serving.kv_pool import CacheLayout, PagePool
 from repro_torch.serving.request import Request, RequestHandle, RequestState, TokenEvent
 
 __all__ = ["ServeConfig", "Engine"]
-
-_AUTO = "ROADMAP.md queue 1 item 5 (core/cost_model.py and core/autotune.py)"
 
 
 def _fold_seed(seed: int, index: int) -> int:
@@ -81,8 +81,7 @@ class ServeConfig:
     max_seq: int = 2048
     temperature: float = 0.0  # 0 -> greedy
     eos_id: int = -1  # -1 -> never stop early
-    # Persistent autotune cache for kind='auto' backends (kept so a JAX
-    # ServeConfig converts field for field; kind 'auto' is not ported).
+    # Persistent autotune cache for kind='auto' backends.
     tuning_cache: Optional[str] = None
 
     # --- continuous-batching surface
@@ -185,10 +184,6 @@ class Engine:
         device: str | torch.device = "cuda",
     ):
         """``params`` is the model (``models.model.init_params``), on ``device``."""
-        if cfg.matmul_backend.kind == "auto":
-            raise NotImplementedError(
-                f"matmul backend kind 'auto' is not ported to repro_torch yet: see {_AUTO}"
-            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda') needs a CUDA device; pass device='cpu' to run on the CPU")
@@ -198,7 +193,16 @@ class Engine:
         # Per-engine obs registry: request-latency histograms (TTFT /
         # TPOT), pool-page gauges, token counters; surfaced by stats()["obs"].
         self.metrics = obs_metrics.Metrics()
+        # Telemetry is process-scoped, so each engine zeroes it up front:
+        # autotune_stats()/generate() then report this engine's resolutions.
+        autotune.reset_telemetry()
         cfg = serve_cfg.apply_to(cfg)
+        if cfg.matmul_backend.kind == "auto":
+            # decode resolves at 1 token/seq; prefill at up to max_seq tokens
+            autotune.warm_for_model(
+                cfg, tokens=(1, min(128, serve_cfg.max_seq), serve_cfg.max_seq),
+                device=self.device,
+            )
         self.cfg = cfg
         self.params = params
         self.serve = serve_cfg
@@ -895,9 +899,11 @@ class Engine:
             "generated": float(tokens.shape[1]),
             "cache_pos": float(s + tokens.shape[1] - 1),
         }
-        # Autotune decision telemetry: no resolutions without kind 'auto'.
-        stats["autotune_cache_hits"] = 0.0
-        stats["autotune_cache_misses"] = 0.0
+        # Autotune decision telemetry: how many matmul resolutions this
+        # process served from the cache vs decided fresh.
+        tel = autotune.get_telemetry()
+        stats["autotune_cache_hits"] = float(tel.cache_hits)
+        stats["autotune_cache_misses"] = float(tel.cache_misses)
         return tokens, stats
 
     @torch.inference_mode()
@@ -947,9 +953,10 @@ class Engine:
             "prompt_len": float(s),
             "generated": float(tokens.shape[1]),
             "cache_pos": float(cache["pos"]),
-            "autotune_cache_hits": 0.0,
-            "autotune_cache_misses": 0.0,
         }
+        tel = autotune.get_telemetry()
+        stats["autotune_cache_hits"] = float(tel.cache_hits)
+        stats["autotune_cache_misses"] = float(tel.cache_misses)
         return tokens, stats
 
     # -------------------------------------------------------- telemetry
@@ -992,16 +999,21 @@ class Engine:
         return out
 
     def autotune_stats(self) -> Dict:
-        """The JAX engine's autotune snapshot keys, with the values it
-        reports for a naive backend and no out-of-core run: kind 'auto' and
-        the out-of-core runtime are not ported (ROADMAP.md queue 1 items 5
-        and 6)."""
+        """Full autotune telemetry snapshot plus the calibration it ran on.
+
+        Each fresh decision carries its per-constant cost split under
+        ``terms``; ``calibration`` reports the constants that cost this
+        engine's misses: the tuning cache's own where they were fitted on the
+        engine's platform, else the process calibration of its device (None
+        when every decision came from a warm cache and no calibration ran).
+        ``oot`` stays empty: the out-of-core runtime is not ported
+        (ROADMAP.md queue 1 item 6).
+        """
         return {
-            "cache_hits": 0,
-            "cache_misses": 0,
-            "kinds": {},
-            "decisions": [],
-            "calibration": None,
+            **autotune.get_telemetry().snapshot(),
+            "calibration": autotune.costing_calibration(
+                autotune.process_cache(self.cfg.matmul_backend.tuning_cache), self.device
+            ),
             "oot": [],
         }
 

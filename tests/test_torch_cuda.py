@@ -3,9 +3,10 @@
 These tests need an NVIDIA Hopper GPU and the CUDA toolkit, and skip with a
 reason elsewhere; they import no JAX, so they run where the port runs.
 Tolerances, as in chip_smoke.py: max|kernel - plain| <= tol * max(1,
-max|plain|); divide/combine are bit-exact (the same fp32 sums in the same
-order, one rounding); the products accumulate in another order than cuBLAS,
-hence 2e-5 in fp32 and 8e-3 (about two bf16 ulps) in bf16. RMSNorm and flash
+max|plain|); divide/combine are bit-exact (the same sums in the same
+order, each add rounded to the storage type); the products accumulate in
+another order than cuBLAS, hence 2e-5 in fp32 and 8e-3 (about two bf16
+ulps) in bf16. RMSNorm and flash
 attention use the JAX tests' tolerances in fp32 (1e-5 and 2e-5). In bf16
 they compute in fp32 and round once, as their plain versions do, so each
 element is held to 2^-7 x (|plain| + rms(plain)): one bf16 ulp of itself,
@@ -306,3 +307,34 @@ def test_cuda_engine_serves_xlstm_through_the_slstm_kernel(cuda):
     want = [cpu.submit(np.arange(5 + 3 * i) % cfg.vocab, 6) for i in range(3)]
     cpu.run()
     assert [h.tokens() for h in hs] == [h.tokens() for h in want]
+
+
+@pytest.mark.cuda
+def test_cuda_auto_gate_and_fused_candidates(cuda, monkeypatch):
+    """On the card the leaf-mode gate launches strassen1 ('compiled'); every
+    enumerated candidate executes within the autotune tests' 3e-3, the fused
+    ones through the kernel; a pinned calibration under which strassen_fused
+    wins routes kind 'auto' through it."""
+    from repro_torch.core import autotune, backend, compat
+
+    assert compat.fused_leaf_mode(cuda) == "compiled"
+    calib = autotune.Calibration(t_flop=1e-9, t_elem=1e-12, device_kind="gpu")
+    monkeypatch.setattr(autotune, "_CALIBRATIONS", {"cuda": calib})
+    monkeypatch.setattr(autotune, "_PROCESS_CACHES", {})
+    backend.resolve_auto.cache_clear()
+    x, w = _on(cuda, (256, 512), torch.float32), _on(cuda, (512, 384), torch.float32)
+    want = torch.matmul(x.double(), w.double()).float()
+    cands = autotune.enumerate_candidates(256, 512, 384, min_dim=64, max_depth=2, device=cuda)
+    assert {c.kind for c in cands} == {"naive", "strassen", "winograd", "strassen_fused"}
+    for cand in cands:
+        n = tst.strassen1_matmul_cuda.launches
+        got = autotune.execute(cand, x, w)
+        assert tst.strassen1_matmul_cuda.launches == n + (cand.kind == "strassen_fused")
+        torch.testing.assert_close(got, want, atol=3e-3, rtol=3e-3)
+    n = tst.strassen1_matmul_cuda.launches
+    be = backend.MatmulBackend(kind="auto", depth=2, min_dim=64)
+    got = backend.matmul(x, w, be)
+    assert backend.resolve_auto(256, 512, 384, "float32", be, None, "cuda").kind == "strassen_fused"
+    assert tst.strassen1_matmul_cuda.launches == n + 1
+    torch.testing.assert_close(got, want, atol=3e-3, rtol=3e-3)
+    backend.resolve_auto.cache_clear()

@@ -38,6 +38,7 @@ def test_port_files_exist():
         "serving/engine.py", "blocks/recovery.py", "launch/serve.py",
         "kernels/slstm/slstm.py", "kernels/slstm/ref.py", "kernels/slstm/ops.py",
         "models/xlstm.py", "configs/xlstm_1_3b.py",
+        "core/cost_model.py", "core/autotune.py", "core/compat.py", "obs/export.py",
     } <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"rmsnorm.cu", "flash_attention.cu", "matmul.cu", "signed_sum.cu",
@@ -69,6 +70,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.slstm.ops, repro_torch.models.xlstm\n"
         "import repro_torch.configs, repro_torch.models.model, repro_torch.models.frontends\n"
         "import repro_torch.serving.engine, repro_torch.launch.serve\n"
+        "import repro_torch.core.cost_model, repro_torch.core.autotune, repro_torch.core.compat\n"
+        "import repro_torch.obs.export\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

@@ -4,7 +4,8 @@ On the CPU every wrapper computes its kernel's plain version, so these tests
 hold the plain versions and the pipelines built on them against the Pallas
 functions, run in interpret mode as their own tests run them. Tolerances are
 the JAX tests' own (tests/test_kernels_matmul.py, test_kernels_strassen.py):
-divide/combine 1e-6, matmul 2e-4 (bf16 2e-1), strassen1 and the pipelines
+divide/combine 1e-6 (bf16 bit for bit: both round each add), matmul 2e-4
+(bf16 2e-1), strassen1 and the pipelines
 5e-4 (bf16 5e-1). tests/test_torch_cuda.py holds the CUDA kernels
 themselves against these plain versions on the card.
 """
@@ -57,25 +58,39 @@ def _close(got, want, tol):
 
 
 # ------------------------------------------------- plain versions vs Pallas
+def _sum_close(got, want, dtype):
+    """divide/combine against the Pallas kernels: fp32 within the JAX tests'
+    1e-6; bf16 bit for bit, since both add in bf16, one rounding per add."""
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(_f32(got), _f32(want))
+    else:
+        _close(got, want, 1e-6)
+
+
+# The bf16 cases are the repaired fault of ROADMAP queue 3 item 4: the plain
+# versions once summed bf16 in fp32 and rounded once, one bf16 ulp off the
+# Pallas kernels in every output of three or more terms.
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("scheme_name", SCHEMES)
 @pytest.mark.parametrize("m,h,w", [(1, 64, 64), (7, 32, 64), (4, 128, 128)])
-def test_divide_matches_pallas(scheme_name, m, h, w):
+def test_divide_matches_pallas(scheme_name, m, h, w, dtype):
     s = get_scheme(scheme_name)
-    jx, tx = _pair((m, 4, h, w))
+    jx, tx = _pair((m, 4, h, w), dtype)
     for coef in (s.a_coef, s.b_coef):
         got = tst.divide_cuda(tx, coef)
-        assert got.shape == (m, s.rank, h, w) and got.dtype == torch.float32
-        _close(got, jst.divide_pallas(jx, coef, block=64), 1e-6)
+        assert got.shape == (m, s.rank, h, w) and got.dtype == DTYPES[dtype][1]
+        _sum_close(got, jst.divide_pallas(jx, coef, block=64), dtype)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("scheme_name", SCHEMES)
 @pytest.mark.parametrize("m,h,w", [(1, 64, 64), (7, 32, 32)])
-def test_combine_matches_pallas(scheme_name, m, h, w):
+def test_combine_matches_pallas(scheme_name, m, h, w, dtype):
     s = get_scheme(scheme_name)
-    jx, tx = _pair((m, s.rank, h, w))
+    jx, tx = _pair((m, s.rank, h, w), dtype)
     got = tst.combine_cuda(tx, s.c_coef)
-    assert got.shape == (m, 4, h, w)
-    _close(got, jst.combine_pallas(jx, s.c_coef, block=32), 1e-6)
+    assert got.shape == (m, 4, h, w) and got.dtype == DTYPES[dtype][1]
+    _sum_close(got, jst.combine_pallas(jx, s.c_coef, block=32), dtype)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -275,11 +275,37 @@ def test_serve_config_apply_to_and_validation(setup):
     assert dataclasses.asdict(ServeConfig()) == dataclasses.asdict(JaxServeConfig())
 
 
-def test_engine_refuses_the_auto_kind(setup):
-    cfg, params, _ = setup
-    auto_cfg = dataclasses.replace(cfg, matmul_backend=dataclasses.replace(cfg.matmul_backend, kind="auto"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        Engine(auto_cfg, params, device="cpu")
+def test_engine_refuses_the_auto_kind(setup, monkeypatch):
+    """The engine once refused kind 'auto'; it now serves an auto config on
+    the CPU with the same greedy tokens as the naive one (the smoke widths
+    lie below min_dim, so every projection resolves to naive), and
+    autotune_stats() reports the resolutions of its warm-up and its run."""
+    from repro_torch.core import autotune, backend
+
+    calib = autotune.Calibration(t_flop=1e-11, t_elem=1e-9, device_kind="cpu")
+    monkeypatch.setattr(autotune, "_CALIBRATIONS", {"cpu": calib})
+    monkeypatch.setattr(autotune, "_PROCESS_CACHES", {})
+    backend.resolve_auto.cache_clear()
+    cfg, params, prompts = setup
+    auto_cfg = dataclasses.replace(cfg, matmul_autotune=True)
+    assert auto_cfg.matmul_backend.kind == "auto"
+    eng = _engine(auto_cfg, params)
+    warmed = eng.autotune_stats()
+    sites = autotune.model_call_sites(auto_cfg)
+    # max_seq 64: prefill and decode M of {1, 8} x {1, 64}, one resolution per site each
+    assert warmed["cache_hits"] + warmed["cache_misses"] == len(sites) * len({1, 8, 64, 512})
+    hs = [eng.submit(p, 5) for p in prompts]
+    eng.run()
+    st = eng.autotune_stats()  # before the next engine resets the process log
+    # the decode bucket (M = 3 slots) lies outside the warmed grid
+    assert len(st["decisions"]) > len(warmed["decisions"])
+    assert st["kinds"] == {"naive": len(st["decisions"])}
+    assert {d["site"] for d in st["decisions"]} >= {"attn.wq", "mlp.up"}
+    assert st["calibration"] == calib.to_dict() and st["oot"] == []
+    ref = _engine(cfg, params)
+    want = [ref.submit(p, 5) for p in prompts]
+    ref.run()
+    assert [h.tokens() for h in hs] == [h.tokens() for h in want]
 
 
 def test_engine_and_launcher_without_a_card_do_not_run_on_the_cpu(setup, capsys):

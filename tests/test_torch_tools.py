@@ -1,8 +1,9 @@
 """The port's tools that run on the card, checked here where they can be.
 
-``tools/matmul_variants.py``, ``tools/slstm_variants.py`` and
-``tools/rmsnorm_variants.py`` build design variants of the tiled matmul,
-sLSTM and RMSNorm kernels by replacing lines of their ``csrc/*.cu``; each
+``tools/matmul_variants.py``, ``tools/slstm_variants.py``,
+``tools/rmsnorm_variants.py`` and ``tools/signed_sum_variants.py`` build
+design variants of the tiled matmul, sLSTM, RMSNorm and divide/combine
+kernels by replacing lines of their ``csrc/*.cu``; each
 replacement must still find its line in the shipped source, or the tool
 stops on the card.
 """
@@ -62,4 +63,23 @@ def test_every_rmsnorm_variant_applies_and_refuses_without_a_gpu(monkeypatch):
     assert "constexpr int MAXV = 16;" in tool.variant_source("warp_rows")
     monkeypatch.setattr(tool.torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr("sys.argv", ["rmsnorm_variants.py"])
+    assert tool.main() == 2
+
+
+def test_every_signed_sum_variant_applies_and_refuses_without_a_gpu(monkeypatch):
+    tool = _tool("signed_sum_variants")
+    shipped = (tool.CSRC / "signed_sum.cu").read_text()
+    for name in tool.VARIANTS:
+        text = tool.variant_source(name)
+        assert text != shipped and "repro_signed_sum" in text, name
+    assert "round_to<T>(__fadd_rn" not in tool.variant_source("round_once")
+    assert "launch<__nv_bfloat16, 8>" in tool.variant_source("float_per_add")
+    # round_once computes the fp32 sums of the terms rounded once: one bf16
+    # ulp off the shipped (reference) rounding in some three-term sums
+    x = torch.randn(1, 4, 16, 16).bfloat16()
+    coef = tool.get_scheme("winograd").a_coef
+    assert torch.equal(tool.expected("round_once", x.float(), coef), tool.expected("shipped", x.float(), coef))
+    assert not torch.equal(tool.expected("round_once", x, coef), tool.expected("shipped", x, coef))
+    monkeypatch.setattr(tool.torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["signed_sum_variants.py"])
     assert tool.main() == 2
