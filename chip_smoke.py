@@ -38,6 +38,39 @@ is Stark's Strassen multiply:
    saved to a file answers the same key from a fresh load with no
    calibration.
 
+The out-of-core path (``repro_torch.blocks``, phases o1-o8) runs Stark's
+tagged-block recursion with the operands in host memory and the card's
+memory capped by a budget: N = 16384 fp32 from ``--seed`` under 1 GiB, where
+a dense multiply needs 3 GiB, so the budget picks depth 2 (49 leaves of
+4096^2 in 25 waves of 2):
+
+o1. leaf backend strassen_fused depth 1, pipelined (pinned ring, H2D copy
+    stream, D2H stream): the product against fp32 torch.matmul, waves >= 2,
+    the modeled peak within the budget, overlap efficiency > 0 and exactly
+    49 strassen1 launches; wall and phase seconds, H2D/D2H bytes, the
+    allocator's measured peak beside the modeled one, the host store peak;
+    then one torch.profiler trace of the same run: kernel and memcpy time,
+    the share of memcpy time that overlaps a kernel, the device idle share;
+    and the strassen1 kernel at the leaf's shape against its bound;
+o2. the same with prefetch off: bit-identical to o1;
+o3. ``backend.matmul(kind="strassen_oot", device_budget=1 GiB)`` with the
+    default kind-auto leaves (calibrated before the first wave), checked as
+    o1, with the leaf decisions logged;
+o4. bf16 operands staged in fp32 (the default), against fp32 torch.matmul
+    of the bf16 operands;
+o5. at 4096^2 under 64 MiB: the arena and memmap stores (a temporary spill
+    directory, removed after) bit-identical to the dict store, and a
+    ``--fault-rate 0.05`` chaos run bit-identical to the fault-free one with
+    blocks recovered and none unrecovered;
+o6. a real device OOM at 8192^2 under 256 MiB: the allocator capped below
+    the pipelined rung's need walks the degradation ladder;
+o7. SPIN at 8192^2 fp32 under 128 MiB: ``backend.inverse(kind="spin_oot")``
+    of g g^T / n + 2I against torch.linalg.inv, and
+    ``backend.solve_triangular(kind="spin_oot")`` lower and upper with 1024
+    right-hand sides, each to max|d| / max|want| < 1e-5;
+o8. kind auto with ``device_budget`` at 16384^2: each out-of-core candidate's
+    predicted against measured seconds, and the decision.
+
 The second path serves phi4-mini-3.8B (random weights from ``--seed``, bf16,
 full width and depth) through the continuous-batching ``Engine``:
 
@@ -92,7 +125,8 @@ rotating over more than 100 MB, past the 50 MB L2); the JSON line holds
 the cold time.
 
 It exits non-zero, before printing a result, on any failure or when no CUDA
-device is present. The last lines are the card's name and power limit, a
+device is present. The JSON line's launches are those of the first path's
+main-path run; the out-of-core path's launches are printed on its own lines. The last lines are the card's name and power limit, a
 JSON line with one entry per kernel, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -108,15 +142,28 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.blocks.recovery import ChaosConfig  # noqa: E402
+from repro_torch.blocks.scheduler import (  # noqa: E402
+    attach_stats_ring,
+    min_depth_for_budget,
+    strassen_oot_matmul,
+)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import autotune  # noqa: E402
-from repro_torch.core.backend import MatmulBackend, matmul  # noqa: E402
+from repro_torch.core.backend import (  # noqa: E402
+    MatmulBackend,
+    inverse,
+    is_oom_error,
+    matmul,
+    solve_triangular,
+)
 from repro_torch.core.coefficients import get_scheme  # noqa: E402
 from repro_torch.core.strassen import (  # noqa: E402
     combine_level,
@@ -255,6 +302,19 @@ AUTO_TUNE = dict(max_depth=2, min_dim=1024)
 AUTO_SIZES = (2048, 4096, 8192, 16384)
 AUTO_PROMPTS = (0, 3, 5, 7)
 AUTO_REPS = 3
+# The out-of-core path: the cell (N^2 fp32 under a 1 GiB budget, so the
+# budget picks depth 2), the stores-and-chaos size and budget (depth 2,
+# waves of 2), the OOM size and budget, and the SPIN cell. The bf16 run is
+# held to MAIN_LIMIT's bf16 2e-2; SPIN to spin_scaling's max|d| / max|want|.
+OOT_N = 16384
+OOT_BUDGET = 1 << 30
+OOT_LEAF = MatmulBackend(kind="strassen_fused", depth=1, min_dim=1)
+OOT_STORE_N, OOT_STORE_BUDGET = 4096, 64 << 20
+OOT_FAULT_RATE = 0.05
+OOM_N, OOM_BUDGET = 8192, 256 << 20
+OOM_CAP = 0.8  # of the uncapped pipelined run's allocator peak
+SPIN_N, SPIN_BUDGET, SPIN_NRHS = 8192, 128 << 20, 1024
+SPIN_LIMIT = 1e-5
 # Kind auto's candidates are held to MAIN_LIMIT, but for one route that the
 # reference itself does not meet: Winograd at depth 2 in bf16 (einsum levels,
 # every level rounded to bf16) lies 2.10e-2 to 2.12e-2 from fp32 in the JAX
@@ -854,6 +914,373 @@ def phase_auto_serve(cfg, params, prompts: list) -> None:
     log(f"auto serve phase done in {time.perf_counter() - t0:.1f} s")
 
 
+# -------------------------------------------------------- out-of-core path
+def host_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Normwise relative error of two host tensors, in fp32."""
+    return (torch.linalg.vector_norm(out.float() - ref) / torch.linalg.vector_norm(ref)).item()
+
+
+def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """spin_scaling's metric: max|got - want| / max|want|."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def gib(nbytes: float) -> str:
+    return f"{nbytes / 2**30:.4g} GiB"
+
+
+def log_oot(tag: str, st, wall: float) -> None:
+    log(f"{tag}: wall {wall:.3f} s (run {st.total_s:.3f} s: divide {st.divide_s:.3f} s, leaf "
+        f"{st.leaf_s:.3f} s, combine {st.combine_s:.3f} s), depth {st.depth}, {st.leaves} leaves "
+        f"in {st.waves} waves of {st.wave_size}, {'pipelined' if st.prefetch else 'synchronous'} "
+        f"(rung {st.rung}), H2D {gib(st.h2d_bytes)} staged in {st.stage_s:.3f} s, D2H "
+        f"{gib(st.d2h_bytes)} fetched in {st.fetch_s:.3f} s, overlap efficiency "
+        f"{st.overlap_efficiency:.3f}, modeled device peak {gib(st.peak_device_bytes)} of "
+        f"{gib(st.budget_bytes)}, host store peak {gib(st.host_store_peak_bytes)}")
+
+
+def oot_gates(tag: str, st, err: float, limit: float) -> None:
+    ok = (err <= limit and st.waves >= 2 and st.peak_device_bytes <= st.budget_bytes
+          and st.overlap_efficiency > 0.0)
+    log(f"{tag}: rel_err={err:.3e} limit={limit:.0e}, waves {st.waves} >= 2, modeled peak "
+        f"{st.peak_device_bytes} <= budget {st.budget_bytes}, overlap efficiency "
+        f"{st.overlap_efficiency:.3f} > 0 {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{tag}: rel_err {err:.3e}, waves {st.waves}, peak {st.peak_device_bytes}, "
+             f"overlap {st.overlap_efficiency}")
+
+
+def run_oot(fn) -> tuple:
+    """(result, stats, wall seconds, the allocator's peak above what was
+    allocated before, launches per kernel) of one out-of-core run."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    t = time.perf_counter()
+    out, st = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {f.__name__: f.launches for f in ALL_KERNELS if f.launches}
+    return out, st, wall, torch.cuda.max_memory_allocated() - before, launches
+
+
+def merged(intervals: list) -> list:
+    out: list = []
+    for start, end in sorted(intervals):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], end)
+        else:
+            out.append([start, end])
+    return out
+
+
+def covered(interval, union: list) -> float:
+    start, end = interval
+    return sum(max(0.0, min(end, e) - max(start, s)) for s, e in union)
+
+
+def trace_copies(fn) -> None:
+    """One torch.profiler trace of ``fn``: kernel time, HtoD and DtoH memcpy
+    time and rate, the share of memcpy time that overlaps a kernel, and the
+    device idle share over the run's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, st = fn()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t) * 1e6
+    groups: dict = {"kernel": [], "HtoD": [], "DtoH": [], "other": []}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        iv = (float(evt.time_range.start), float(evt.time_range.end))
+        name = evt.name
+        key = ("HtoD" if "HtoD" in name else "DtoH" if "DtoH" in name
+               else "other" if ("Memcpy" in name or "Memset" in name) else "kernel")
+        groups[key].append(iv)
+    if not groups["kernel"] or not groups["HtoD"]:
+        log(f"o1 trace: not measured (the profiler recorded {len(groups['kernel'])} kernels, "
+            f"{len(groups['HtoD'])} HtoD copies)")
+        return
+    kernels = merged(groups["kernel"])
+    busy = sum(e - s for s, e in merged([iv for ivs in groups.values() for iv in ivs]))
+    parts = []
+    copy_us = hidden_us = 0.0
+    for key, nbytes in (("HtoD", st.h2d_bytes), ("DtoH", st.d2h_bytes)):
+        us = sum(e - s for s, e in groups[key])
+        over = sum(covered(iv, kernels) for iv in groups[key])
+        copy_us, hidden_us = copy_us + us, hidden_us + over
+        parts.append(f"{key} {len(groups[key])} copies {us / 1e3:.3f} ms "
+                     f"({nbytes / us / 1e3:.2f} GB/s), {over / us:.1%} under a kernel")
+    kernel_us = sum(e - s for s, e in groups["kernel"])
+    log(f"o1 trace: wall {wall_us / 1e3:.1f} ms, kernels {len(groups['kernel'])} in "
+        f"{kernel_us / 1e3:.3f} ms; {'; '.join(parts)}; memcpy time overlapping a kernel "
+        f"{hidden_us / copy_us:.1%}; device busy {busy / 1e3:.3f} ms, idle share "
+        f"{1 - busy / wall_us:.1%}")
+
+
+def phase_oot(seed: int, reps: int) -> None:
+    """(o1)-(o5) The out-of-core multiply at the cell's size, then at 4096^2."""
+    t0 = time.perf_counter()
+    gen = np.random.default_rng([seed, 4])  # the out-of-core path's own stream
+    n, budget = OOT_N, OOT_BUDGET
+    a = torch.from_numpy(gen.standard_normal((n, n), dtype=np.float32))
+    b = torch.from_numpy(gen.standard_normal((n, n), dtype=np.float32))
+    a_dev, b_dev = a.to(DEVICE), b.to(DEVICE)
+    ref = torch.matmul(a_dev, b_dev).cpu()
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    ref16 = torch.matmul(a_dev.bfloat16().float(), b_dev.bfloat16().float()).cpu()
+    del a_dev, b_dev
+    torch.cuda.empty_cache()
+    depth = min_depth_for_budget(n, n, n, budget, torch.float32, pipelined=True)
+    log(f"o0 {n}^2 fp32 operands from seed {seed} on the host ({gib(a.numel() * 4)} each; a "
+        f"dense multiply needs {gib(3 * n * n * 4)}), budget {gib(budget)} -> depth {depth}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    kw = dict(depth=depth, budget_bytes=budget, device=DEVICE)
+
+    # (o1) strassen_fused leaves, pipelined.
+    t = time.perf_counter()
+    out1, st, wall, peak, launches = run_oot(
+        lambda: strassen_oot_matmul(a, b, backend=OOT_LEAF, **kw))
+    log_oot("o1 strassen_fused depth=1 leaves, pipelined", st, wall)
+    log(f"o1 allocator peak {gib(peak)} measured beside the modeled {gib(st.peak_device_bytes)}; "
+        f"launches {launches}")
+    oot_gates("o1", st, host_rel_err(out1, ref), MAIN_LIMIT[torch.float32])
+    if launches.get("strassen1_matmul_cuda", 0) != st.leaves:
+        fail(f"o1: strassen1 launched {launches.get('strassen1_matmul_cuda', 0)} times, "
+             f"want {st.leaves}")
+    trace_copies(lambda: strassen_oot_matmul(a, b, backend=OOT_LEAF, **kw))
+    h = n >> (depth + 1)
+    aq = torch.randn((1, 4, h, h), device=DEVICE)
+    bq = torch.randn((1, 4, h, h), device=DEVICE)
+    am, bm = merge_quadrants(aq)[0], merge_quadrants(bq)[0]
+    time_kernel(f"strassen1 fp32 {tuple(aq.shape)} (an out-of-core leaf)",
+                lambda: strassen1_matmul_cuda(aq, bq), lambda: strassen1_matmul_ref(aq, bq, "strassen"),
+                lambda: torch.matmul(am, bm), 2 * 7 * h**3, 3 * nbytes(aq), torch.float32, "mm",
+                reps)
+    del aq, bq, am, bm
+    log(f"o1 done in {time.perf_counter() - t:.1f} s")
+
+    # (o2) the same with prefetch off: bit-identical.
+    t = time.perf_counter()
+    out2, st, wall, _, _ = run_oot(
+        lambda: strassen_oot_matmul(a, b, backend=OOT_LEAF, prefetch=False, **kw))
+    log_oot("o2 strassen_fused depth=1 leaves, prefetch off", st, wall)
+    same = torch.equal(out1, out2)
+    log(f"o2 bit-identical to o1: {same} {'ok' if same else 'FAIL'}; "
+        f"{time.perf_counter() - t:.1f} s")
+    if not same:
+        fail("o2: the synchronous run differs from the pipelined one")
+    del out1, out2
+
+    # (o3) through backend.matmul, default kind-auto leaves.
+    t = time.perf_counter()
+    ring = attach_stats_ring()
+    tel = autotune.get_telemetry()
+    seen = len(tel.events)
+    a_dev, b_dev = a.to(DEVICE), b.to(DEVICE)
+    be = MatmulBackend(kind="strassen_oot", device_budget=budget)
+    out3, _, wall, _, launches = run_oot(lambda: (matmul(a_dev, b_dev, be), None))
+    st = SimpleNamespace(**ring.snapshot()[-1])
+    log_oot("o3 backend.matmul(kind=strassen_oot), auto leaves", st, wall)
+    leaf = [e for e in tel.events[seen:] if e.site == "blocks.leaf"]
+    log(f"o3 leaf decisions: {[(e.key.split('|')[0], e.kind, e.depth, e.source) for e in leaf]}; "
+        f"launches {launches}; result on {out3.device}")
+    oot_gates("o3", st, host_rel_err(out3.cpu(), ref), MAIN_LIMIT[torch.float32])
+    if out3.device.type != "cuda" or not leaf:
+        fail(f"o3: result on {out3.device}, {len(leaf)} leaf decisions")
+    del a_dev, b_dev, out3, ring
+    torch.cuda.empty_cache()
+    log(f"o3 done in {time.perf_counter() - t:.1f} s")
+
+    # (o4) bf16 operands, staged in fp32.
+    t = time.perf_counter()
+    out4, st, wall, _, _ = run_oot(lambda: strassen_oot_matmul(a16, b16, backend=OOT_LEAF, **kw))
+    log_oot("o4 bf16, fp32 staging, strassen_fused depth=1 leaves", st, wall)
+    err = host_rel_err(out4, ref16)
+    ok = out4.dtype == torch.bfloat16 and st.stage_dtype == "float32" and err <= MAIN_LIMIT[torch.bfloat16]
+    log(f"o4 rel_err={err:.3e} limit={MAIN_LIMIT[torch.bfloat16]:.0e} against fp32 torch.matmul "
+        f"of the bf16 operands, {out4.dtype}, staged in {st.stage_dtype} {'ok' if ok else 'FAIL'}; "
+        f"{time.perf_counter() - t:.1f} s")
+    if not ok:
+        fail(f"o4: rel_err {err:.3e}, {out4.dtype}, staging {st.stage_dtype}")
+    del a, b, a16, b16, ref, ref16, out4
+
+    # (o5) stores and chaos at 4096^2.
+    t = time.perf_counter()
+    sn = OOT_STORE_N
+    a = torch.from_numpy(gen.standard_normal((sn, sn), dtype=np.float32))
+    b = torch.from_numpy(gen.standard_normal((sn, sn), dtype=np.float32))
+    skw = dict(depth=min_depth_for_budget(sn, sn, sn, OOT_STORE_BUDGET, torch.float32,
+                                          pipelined=True),
+               budget_bytes=OOT_STORE_BUDGET, backend=OOT_LEAF, device=DEVICE)
+    base, st = strassen_oot_matmul(a, b, **skw)
+    results = {}
+    with tempfile.TemporaryDirectory() as spill:
+        for store in ("arena", "memmap"):
+            out, st_s = strassen_oot_matmul(a, b, store=store, store_root=spill, **skw)
+            results[store] = (torch.equal(out, base), st_s.host_store_peak_bytes)
+        left = len(list(Path(spill).iterdir()))
+    chaos = ChaosConfig(drop=OOT_FAULT_RATE, corrupt=OOT_FAULT_RATE * 0.4,
+                        leaf_fail_rate=OOT_FAULT_RATE * 0.5, seed=seed)
+    out, st_c = strassen_oot_matmul(a, b, chaos=chaos, retry_backoff_s=0.0, **skw)
+    chaos_same = torch.equal(out, base)
+    ok = (all(same for same, _ in results.values()) and left == 0 and chaos_same
+          and st_c.recovered_blocks > 0 and st_c.unrecovered_faults == 0)
+    log(f"o5 {sn}^2 under {gib(OOT_STORE_BUDGET)} (depth {st.depth}, {st.waves} waves of "
+        f"{st.wave_size}): dict store peak {gib(st.host_store_peak_bytes)}; "
+        + ", ".join(f"{k} bit-identical {same} (store peak {gib(p)})"
+                    for k, (same, p) in results.items())
+        + f", {left} spill files left; chaos --fault-rate {OOT_FAULT_RATE}: bit-identical "
+        f"{chaos_same}, {st_c.injected_faults} injected, {st_c.lost_blocks} lost, "
+        f"{st_c.corrupt_blocks} corrupt, {st_c.recovered_blocks} recovered, {st_c.leaf_retries} "
+        f"leaf retries, {st_c.unrecovered_faults} unrecovered, rung {st_c.rung} "
+        f"{'ok' if ok else 'FAIL'}; {time.perf_counter() - t:.1f} s")
+    if not ok:
+        fail(f"o5: stores {results}, {left} spill files left, chaos bit-identical {chaos_same}, "
+             f"recovered {st_c.recovered_blocks}, unrecovered {st_c.unrecovered_faults}")
+    log(f"out-of-core phases o1-o5 done in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_oot_oom(seed: int) -> None:
+    """(o6) A real device OOM: the allocator capped below the pipelined
+    rung's need walks the degradation ladder."""
+    t = time.perf_counter()
+    gen = np.random.default_rng([seed, 5])
+    n, budget = OOM_N, OOM_BUDGET
+    a = torch.from_numpy(gen.standard_normal((n, n), dtype=np.float32))
+    b = torch.from_numpy(gen.standard_normal((n, n), dtype=np.float32))
+    kw = dict(depth=min_depth_for_budget(n, n, n, budget, torch.float32, pipelined=True),
+              budget_bytes=budget, backend=MatmulBackend(kind="naive"), device=DEVICE)
+    clean, st0, _, peak, _ = run_oot(lambda: strassen_oot_matmul(a, b, **kw))
+    ref = torch.matmul(a.to(DEVICE), b.to(DEVICE)).cpu()
+    total = torch.cuda.get_device_properties(0).total_memory
+    try:
+        torch.empty(2 * total, dtype=torch.uint8, device=DEVICE)
+        caught = None
+    except torch.cuda.OutOfMemoryError as e:
+        caught = e
+    classified = caught is not None and is_oom_error(caught)
+    # The pipelined rung's measured peak holds two waves of operands and one of
+    # products; the halved-wave rung's needs about 3/5 of that. Cap between.
+    torch.cuda.empty_cache()
+    cap = torch.cuda.memory_reserved() + int(peak * OOM_CAP)
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        out, st = strassen_oot_matmul(a, b, **kw)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    err = host_rel_err(out, ref)
+    causes = [e["cause"] for e in st.degrade_events]
+    ok = (classified and st.degrades >= 1 and causes[0].startswith("OutOfMemoryError")
+          and err <= MAIN_LIMIT[torch.float32])
+    same = torch.equal(out, clean)
+    log(f"o6 {n}^2 under {gib(budget)} (depth {st0.depth}, waves of {st0.wave_size}, allocator "
+        f"peak {gib(peak)} uncapped) with the allocator capped at {gib(cap)} reserved: a {gib(2 * total)} allocation raises "
+        f"{type(caught).__name__} classified as OOM {classified}; the run completed on rung "
+        f"{st.rung} (depth {st.depth}, waves of {st.wave_size}) after {st.degrades} degrades "
+        f"{[(e['from'], e['to'], e['cause'][:40]) for e in st.degrade_events]}, rel_err="
+        f"{err:.3e}, bit-identical to the uncapped run {same} {'ok' if ok else 'FAIL'}; "
+        f"{time.perf_counter() - t:.1f} s")
+    if not ok:
+        fail(f"o6: classified {classified}, degrades {st.degrades}, causes {causes}, "
+             f"rel_err {err:.3e}")
+
+
+def phase_spin(seed: int) -> None:
+    """(o7) SPIN inversion and triangular solves under a 128 MiB budget."""
+    t0 = time.perf_counter()
+    gen = np.random.default_rng([seed, 6])
+    n, budget = SPIN_N, SPIN_BUDGET
+    g = torch.from_numpy(gen.standard_normal((n, n), dtype=np.float32)).to(DEVICE)
+    eye = torch.eye(n, device=DEVICE)
+    a = g @ g.T / n + 2.0 * eye
+    be = MatmulBackend(kind="auto", depth=2, device_budget=budget)
+    ring = attach_stats_ring()
+    t = time.perf_counter()
+    got = inverse(a, be, kind="spin_oot")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    want = torch.linalg.inv(a)
+    err = max_rel(got, want)
+    runs = ring.snapshot()
+    agg = [r for r in runs if r["op"] == "inverse"][-1]
+    nested = [r for r in runs if r["op"] == "matmul"]
+    ok = err < SPIN_LIMIT and got.device.type == "cuda"
+    log(f"o7 spin inverse {n}^2 fp32 under {gib(budget)} (dense needs {gib(2 * n * n * 4)}): "
+        f"{wall:.3f} s, solver depth {agg['depth']}, {agg['leaves']} dense leaves and matmul "
+        f"leaves, {agg['oot_runs']} nested out-of-core multiplies "
+        f"(waves {[r['waves'] for r in nested]}, depths {sorted({r['depth'] for r in nested})}), "
+        f"H2D {gib(agg['h2d_bytes'])}, modeled peak {gib(agg['peak_device_bytes'])}, "
+        f"max|d|/max|want|={err:.3e} limit={SPIN_LIMIT:.0e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"o7 inverse: max_rel {err:.3e}")
+    del got, want, a
+    rhs = torch.from_numpy(gen.standard_normal((n, SPIN_NRHS), dtype=np.float32)).to(DEVICE)
+    for lower in (True, False):
+        tri = (torch.tril(g) if lower else torch.triu(g)) / np.sqrt(n) + 2.0 * eye
+        ring.clear()
+        t = time.perf_counter()
+        got = solve_triangular(tri, rhs, be, lower=lower, kind="spin_oot")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        want = torch.linalg.solve_triangular(tri, rhs, upper=not lower)
+        err = max_rel(got, want)
+        agg = [r for r in ring.snapshot() if r["op"] == "solve"][-1]
+        ok = err < SPIN_LIMIT
+        log(f"o7 spin solve_triangular {'lower' if lower else 'upper'} {n}^2, {SPIN_NRHS} rhs: "
+            f"{wall:.3f} s, solver depth {agg['depth']}, {agg['oot_runs']} nested out-of-core "
+            f"multiplies, max|d|/max|want|={err:.3e} limit={SPIN_LIMIT:.0e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"o7 solve lower={lower}: max_rel {err:.3e}")
+    log(f"o7 done in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_oot_auto(seed: int) -> None:
+    """(o8) Kind auto under a device budget at the cell's size: each
+    out-of-core candidate predicted against measured, and the decision."""
+    t0 = time.perf_counter()
+    gen = np.random.default_rng([seed, 4])
+    n, budget = OOT_N, OOT_BUDGET
+    a = torch.from_numpy(gen.standard_normal((n, n), dtype=np.float32))
+    b = torch.from_numpy(gen.standard_normal((n, n), dtype=np.float32))
+    ref = torch.matmul(a.to(DEVICE), b.to(DEVICE)).cpu()
+    torch.cuda.empty_cache()
+    calib = autotune.get_calibration(DEVICE)
+    cands = autotune.enumerate_candidates(n, n, n, **AUTO_TUNE, oot_budget=budget,
+                                          dtype=torch.float32, device=DEVICE)
+    for cand in cands:
+        fits = autotune._oot_pipeline_fits(n, n, n, cand.depth, torch.float32, budget)
+        terms = autotune.predict_cost_terms(cand, n, n, n, calib, oot_overlap=fits)
+        t = time.perf_counter()
+        out = autotune.execute(cand, a, b, oot_budget=budget, device=DEVICE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        err = host_rel_err(out.cpu(), ref)
+        ok = cand.kind == "strassen_oot" and err <= MAIN_LIMIT[torch.float32]
+        split = ", ".join(f"{k} {v:.3f}" for k, v in terms.items() if v)
+        log(f"o8 candidate {n}^2 fp32 {cand.kind} {cand.scheme} depth={cand.depth} "
+            f"({'pipelined' if fits else 'synchronous'}): predicted {sum(terms.values()):.3f} s "
+            f"({split}), measured {secs:.3f} s, rel_err={err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"o8 candidate {cand}: rel_err {err:.3e}")
+        del out
+    d = autotune.autotune(n, n, n, torch.float32, calibration=calib, **AUTO_TUNE,
+                          oot_budget=budget, telemetry=autotune.Telemetry(), device=DEVICE)
+    ok = d.kind == "strassen_oot"
+    log(f"o8 decision under {gib(budget)}: {d.kind} {d.scheme} depth={d.depth}, predicted "
+        f"{d.predicted_s:.3f} s {'ok' if ok else 'FAIL'}; {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        fail(f"o8 decision {d}")
+
+
 # ---------------------------------------------------------- serving path
 def flash_ops(b: int, hq: int, s: int, d: int) -> int:
     """4 * D flops per live (query, key) pair and head (QK^T and PV); causal
@@ -1445,6 +1872,13 @@ def main() -> int:
     del a, b, a16, b16, ref32, ref16, refs
     torch.cuda.empty_cache()
     log(f"Strassen path done at {time.perf_counter() - t0:.1f} s")
+
+    phase_oot(args.seed, args.reps)
+    phase_oot_oom(args.seed)
+    phase_spin(args.seed)
+    phase_oot_auto(args.seed)
+    torch.cuda.empty_cache()
+    log(f"out-of-core path done at {time.perf_counter() - t0:.1f} s")
 
     t = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(args.seed))

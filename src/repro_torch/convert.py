@@ -31,7 +31,12 @@ def tensor_from_numpy(arr: np.ndarray, device: torch.device | str = "cuda") -> t
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Inverse of :func:`tensor_from_numpy`: a host copy, bf16 as ml_dtypes.bfloat16."""
+    """Inverse of :func:`tensor_from_numpy`: a host copy, bf16 as ml_dtypes.bfloat16.
+
+    A bf16 tensor needs ml_dtypes, which the port's runtime neither imports
+    nor needs (its host blocks stay torch tensors): this is a helper for the
+    tests that hand results to the JAX package.
+    """
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         import ml_dtypes

@@ -23,12 +23,13 @@ calibration and prediction loop into a dispatcher:
    the other's lookups on the same platform.
 
 The model, its constants' meaning and every decision rule are the
-reference's. Not ported yet, and refused with :class:`NotImplementedError`
-rather than answered by another candidate: the mesh strategies and
-``calibrate_collective`` (``mesh=``; ROADMAP.md queue 1 item 8) and the
-out-of-core and solver families (``oot_budget``; queue 1 item 6). On one
-device the reference's ``t_coll`` is 0.0 and its device count 1, and so are
-the port's.
+reference's, the out-of-core ``strassen_oot`` family under ``oot_budget``
+(priced with ``t_h2d``, discounted for the wave pipeline's overlap) and the
+solver families (:func:`autotune_solver`) included. Not ported yet, and
+refused with :class:`NotImplementedError` rather than answered by another
+candidate: the mesh strategies and ``calibrate_collective`` (``mesh=``;
+ROADMAP.md queue 1 item 8). On one device the reference's ``t_coll`` is 0.0
+and its device count 1, and so are the port's.
 """
 from __future__ import annotations
 
@@ -75,6 +76,9 @@ __all__ = [
     "process_cache",
     "model_call_sites",
     "warm_for_model",
+    "autotune_solver",
+    "predict_solver_terms",
+    "predict_solver_seconds",
 ]
 
 # Local (single-program) strategies the backend can dispatch without a mesh.
@@ -82,25 +86,49 @@ LOCAL_SCHEMES: Tuple[str, ...] = ("strassen", "winograd")
 # The fused-kernel pipeline: local, but gated on the kernel running
 # (compat.fused_leaf_mode) rather than always-legal like the einsum BFS.
 FUSED_KIND = "strassen_fused"
+# The out-of-core tagged-block pipeline (repro_torch.blocks): host-resident
+# operands staged through device memory in budgeted waves. Enumerated only
+# when the caller supplies a device-memory budget (``oot_budget``).
+OOT_KIND = "strassen_oot"
+
+# Fraction of the overlappable h2d traffic the async wave pipeline still
+# exposes: the pipeline fill (first wave's stage has nothing to hide
+# behind) and drain (last fetch) bubbles, roughly one wave each way out of
+# the ~8 the scheduler needs before fill/drain amortizes. Used by
+# predict_cost_terms when ``oot_overlap`` is on.
+OOT_OVERLAP_EXPOSED_FRACTION = 0.125
 _MESH_ITEM = "ROADMAP.md queue 1 item 8 (core/distributed.py, the mesh strategies)"
-_OOT_ITEM = "ROADMAP.md queue 1 item 6 (blocks/, the out-of-core runtime)"
 
 
-def _refuse_unported(mesh, oot_budget: Optional[int]) -> None:
+def _oot_pipeline_fits(
+    m: int, k: int, n: int, depth: int, dtype, oot_budget: Optional[int]
+) -> bool:
+    """Whether the oot scheduler can actually run its async pipeline.
+
+    The 2-deep wave pipeline needs one pipelined wave slot
+    (:func:`repro_torch.blocks.scheduler.pipelined_leaf_bytes`) inside the
+    budget at this depth; with less room the scheduler silently degrades
+    to synchronous staging, so predictions must not take the overlap
+    discount. A ``None``/0 budget means :func:`execute` will default the
+    budget to exactly one pipelined slot, so the pipeline runs.
+    """
+    if not oot_budget:
+        return True
+    from repro_torch.blocks.scheduler import pipelined_leaf_bytes
+
+    return pipelined_leaf_bytes(m, k, n, depth, dtype_name(dtype)) <= oot_budget
+
+
+def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(f"autotune over a mesh is not ported to repro_torch yet: see {_MESH_ITEM}")
-    if oot_budget is not None:
-        raise NotImplementedError(
-            f"the strassen_oot family (oot_budget) is not ported to repro_torch yet: see {_OOT_ITEM}"
-        )
 
 
 def _refuse_kind(cand: "Candidate") -> None:
-    """The mesh and out-of-core kinds are neither priced nor run here."""
-    if not cand.is_local:
-        item = _OOT_ITEM if cand.kind == "strassen_oot" else _MESH_ITEM
+    """The mesh kinds are neither priced nor run here."""
+    if not cand.is_local and cand.kind != OOT_KIND:
         raise NotImplementedError(
-            f"candidate kind {cand.kind!r} is not ported to repro_torch yet: see {item}"
+            f"candidate kind {cand.kind!r} is not ported to repro_torch yet: see {_MESH_ITEM}"
         )
 
 
@@ -123,7 +151,7 @@ def dtype_name(dtype) -> str:
 class Candidate:
     """One executable strategy instance for a fixed (M, K, N)."""
 
-    kind: str  # 'naive' | scheme name (local BFS) | 'strassen_fused'
+    kind: str  # 'naive' | scheme name (local BFS) | 'strassen_fused' | 'strassen_oot'
     scheme: str = "strassen"
     depth: int = 0
 
@@ -330,16 +358,22 @@ def enumerate_candidates(
     min_dim: int = 1024,
     mesh=None,
     oot_budget: Optional[int] = None,
+    dtype=torch.float32,
     device: str | torch.device = "cuda",
 ) -> List[Candidate]:
     """All strategies that can legally run this shape (naive always can).
 
     ``strassen_fused`` enumerates whenever the fused kernel runs on
     ``device``, per :func:`repro_torch.core.compat.fused_leaf_mode` (which
-    raises if the kernel fails to build or launch on the card). ``mesh`` and
-    ``oot_budget`` raise :class:`NotImplementedError`.
+    raises if the kernel fails to build or launch on the card). ``mesh``
+    raises :class:`NotImplementedError`.
+
+    ``oot_budget`` (device bytes) enables the ``strassen_oot`` out-of-core
+    family: one candidate per scheme at every depth whose single leaf fits
+    the budget — including depths the in-core rules reject (odd dims: the
+    block runtime pads), which is the whole point of the pipeline.
     """
-    _refuse_unported(mesh, oot_budget)
+    _refuse_mesh(mesh)
     cands = [Candidate(kind="naive")]
     depths = [d for d in range(1, max_depth + 1) if _usable_depth(m, k, n, d, min_dim)]
     for scheme in schemes:
@@ -348,6 +382,38 @@ def enumerate_candidates(
     if depths and "strassen" in schemes and compat.fused_leaf_mode(device) != "none":
         for d in depths:
             cands.append(Candidate(kind=FUSED_KIND, scheme="strassen", depth=d))
+    if oot_budget:
+        from repro_torch.blocks.scheduler import leaf_bytes, min_depth_for_budget
+
+        name = dtype_name(dtype)
+        # A dense on-device multiply needs A + B + C resident at once.
+        dense_bytes = (m * k + k * n + m * n) * getattr(torch, name).itemsize
+        dense_fits = dense_bytes <= oot_budget
+        try:
+            d0 = min_depth_for_budget(m, k, n, oot_budget, name)
+        except ValueError:
+            d0 = None
+        # Crossover guard: below min_dim the divide/combine + staging
+        # overhead dominates exactly as it does for the in-core pipelines —
+        # unless the dense working set cannot fit the budget, where
+        # out-of-core is feasibility, not preference.
+        if d0 is not None and (min(m, k, n) >= min_dim or not dense_fits):
+            # Depths run from the shallowest that fits to max_depth — or
+            # deeper when the budget demands it.
+            for scheme in schemes:
+                for d in range(d0, max(max_depth, d0) + 1):
+                    if leaf_bytes(m, k, n, d, name) <= oot_budget and min(
+                        m, k, n
+                    ) >= 2**d:
+                        cands.append(Candidate(kind=OOT_KIND, scheme=scheme, depth=d))
+        # When the dense working set exceeds the budget every on-device
+        # candidate is infeasible, not merely slow — drop them so the
+        # planner cannot pick an impossible plan. (Falls back to the
+        # unfiltered list if no oot depth fits either, so callers still
+        # get a best-effort decision.)
+        if not dense_fits:
+            oot_only = [c for c in cands if c.kind == OOT_KIND]
+            cands = oot_only or cands
     return cands
 
 
@@ -357,17 +423,30 @@ def enumerate_candidates(
 
 
 def predict_cost_terms(
-    cand: Candidate, m: int, k: int, n: int, calib: Calibration
+    cand: Candidate,
+    m: int,
+    k: int,
+    n: int,
+    calib: Calibration,
+    *,
+    oot_overlap: bool = True,
 ) -> Dict[str, float]:
     """Per-constant cost decomposition of one candidate's predicted seconds.
 
     Returns ``{"t_flop": ..., "t_elem": ..., "t_coll": ..., "t_h2d": ...}``,
     the seconds attributed to each calibrated constant, summing to
     :func:`predict_seconds`. The reference's arithmetic on one device,
-    operation for operation, for the local kinds; the mesh and out-of-core
-    kinds raise :class:`NotImplementedError`. On one device no local kind
-    touches the interconnect or the host link, so ``t_coll`` and ``t_h2d``
-    stay 0.0.
+    operation for operation; the mesh kinds raise
+    :class:`NotImplementedError`. On one device no local kind touches the
+    interconnect or the host link, so their ``t_coll`` and ``t_h2d`` stay
+    0.0; the out-of-core kind prices its staging at ``t_h2d``.
+
+    ``oot_overlap`` models the scheduler's async wave pipeline (its
+    default): staging traffic that fits under the leaf compute is hidden,
+    so the ``t_h2d`` term only charges the *exposed* part — the traffic
+    exceeding compute plus the fill/drain bubble
+    (:data:`OOT_OVERLAP_EXPOSED_FRACTION` of the hidden portion). Pass
+    ``oot_overlap=False`` to price the synchronous loop (``prefetch=False``).
     """
     _refuse_kind(cand)
     flops_naive = 2.0 * m * k * n
@@ -396,13 +475,32 @@ def predict_cost_terms(
         # 7/4x M-term blowup never touches device memory.
         elem_cost += rank ** (l - 1) * (m * k + k * n + m * n) / 4.0 ** (l - 1)
     leaf_flops = flops_naive * (rank / 8.0) ** l
+
+    if cand.kind == OOT_KIND:
+        # Out-of-core: divide/combine adds are host-side element traffic;
+        # leaf waves run sequentially on one device and every leaf's
+        # operands cross the host<->device boundary once each way.
+        t_h2d = calib.t_h2d if calib.t_h2d > 0.0 else calib.t_elem
+        flop_s = leaf_flops * calib.t_flop
+        h2d_s = rank**l * (m * k + k * n + m * n) / 4.0**l * t_h2d
+        if oot_overlap:
+            # Async pipeline: staging overlaps leaf compute, so only the
+            # traffic exceeding compute is on the critical path — plus the
+            # fill/drain bubble, a fixed fraction of the hidden portion.
+            hidden = min(h2d_s, flop_s)
+            h2d_s = max(h2d_s - flop_s, 0.0) + OOT_OVERLAP_EXPOSED_FRACTION * hidden
+        terms["t_flop"] = flop_s
+        terms["t_elem"] = elem_cost * calib.t_elem
+        terms["t_h2d"] = h2d_s
+        return terms
+
     terms["t_flop"] = leaf_flops * calib.t_flop
     terms["t_elem"] = elem_cost * calib.t_elem
     return terms
 
 
 def predict_seconds(
-    cand: Candidate, m: int, k: int, n: int, calib: Calibration
+    cand: Candidate, m: int, k: int, n: int, calib: Calibration, *, oot_overlap: bool = True
 ) -> float:
     """Predicted seconds of one multiply under the calibrated model.
 
@@ -410,10 +508,12 @@ def predict_seconds(
     per-element constant; the leaf stage costs its flops times t_flop over
     the leaf parallelization factor, 1 on one device (where the library
     matmul already uses the whole device, which is what t_flop measures).
-    Fused candidates skip the last level's materialized traffic. See
-    :func:`predict_cost_terms` for the per-constant decomposition.
+    Fused candidates skip the last level's materialized traffic.
+    Out-of-core candidates add the host<->device staging term priced at
+    ``t_h2d`` — discounted to the exposed traffic when ``oot_overlap`` is
+    on. See :func:`predict_cost_terms` for the per-constant decomposition.
     """
-    return sum(predict_cost_terms(cand, m, k, n, calib).values())
+    return sum(predict_cost_terms(cand, m, k, n, calib, oot_overlap=oot_overlap).values())
 
 
 # --------------------------------------------------------------------------
@@ -429,17 +529,40 @@ def execute(
     precision=None,
     mesh=None,
     oot_budget: Optional[int] = None,
+    device: str | torch.device | None = None,
 ) -> torch.Tensor:
     """Run one candidate on a's device.
 
     ``strassen_fused`` runs the port's fused pipeline, whose last level is
-    the ``strassen1`` kernel on the card. The mesh and out-of-core kinds
-    raise :class:`NotImplementedError`.
+    the ``strassen1`` kernel on the card. ``strassen_oot`` candidates run
+    the host-resident block pipeline with their leaves on ``device``
+    (default: a's device) and return the product there; ``oot_budget`` caps
+    their device bytes, defaulting to one single-leaf pipelined wave slot.
+    The mesh kinds raise :class:`NotImplementedError`.
     """
-    _refuse_unported(mesh, oot_budget)
+    _refuse_mesh(mesh)
     if cand.is_naive:
         with matmul_precision(precision):
             return torch.matmul(a, b)
+    if cand.kind == OOT_KIND:
+        from repro_torch.blocks.scheduler import pipelined_leaf_bytes, strassen_oot_matmul
+        from repro_torch.core.backend import MatmulBackend
+
+        device = a.device if device is None else torch.device(device)
+        m, k = a.shape
+        n = b.shape[1]
+        dtype = torch.promote_types(a.dtype, b.dtype)
+        budget = oot_budget or pipelined_leaf_bytes(m, k, n, cand.depth, dtype)
+        leaf_backend = None
+        if precision is not None:
+            # Thread the caller's precision into the leaf waves — measured
+            # comparisons must price every candidate at the same precision.
+            leaf_backend = MatmulBackend(kind="auto", depth=2, precision=precision)
+        out, _ = strassen_oot_matmul(
+            a, b, depth=cand.depth, budget_bytes=budget, scheme=cand.scheme,
+            backend=leaf_backend, device=device,
+        )
+        return out.to(device)
     if cand.kind == FUSED_KIND:
         from repro_torch.kernels.strassen.ops import strassen_matmul_fused
 
@@ -465,13 +588,22 @@ def measure_seconds(
     oot_budget: Optional[int] = None,
     device: str | torch.device = "cuda",
 ) -> float:
-    """Time one candidate end to end on ``device`` (warm-up excluded)."""
-    _refuse_unported(mesh, oot_budget)
+    """Time one candidate end to end on ``device`` (warm-up excluded).
+
+    An out-of-core candidate's operands start on the host, as the
+    reference's do, and its leaves run on ``device``.
+    """
+    _refuse_mesh(mesh)
     gen = torch.Generator(device=device).manual_seed(0)
     dt = getattr(torch, dtype_name(dtype))
     a = torch.randn((m, k), generator=gen, device=device).to(dt)
     b = torch.randn((k, n), generator=gen, device=device).to(dt)
-    return _time_best(lambda: execute(cand, a, b, precision=precision), repeats, device)
+    if cand.kind == OOT_KIND:
+        a, b = a.cpu(), b.cpu()
+    return _time_best(
+        lambda: execute(cand, a, b, precision=precision, oot_budget=oot_budget, device=device),
+        repeats, device,
+    )
 
 
 # --------------------------------------------------------------------------
@@ -708,10 +840,11 @@ def autotune(
     ``site`` keys the decision per call site (see :func:`cache_key`). In
     predicted mode a tagged miss falls back to the shape-only entry, but
     measured mode never does. ``telemetry`` records the resolution to a
-    caller-owned log instead of the process one. ``mesh`` and ``oot_budget``
-    raise :class:`NotImplementedError`.
+    caller-owned log instead of the process one. ``oot_budget`` (device
+    bytes) adds the out-of-core family (:func:`enumerate_candidates`);
+    ``mesh`` raises :class:`NotImplementedError`.
     """
-    _refuse_unported(mesh, oot_budget)
+    _refuse_mesh(mesh)
     tel = telemetry if telemetry is not None else _TELEMETRY
     # Every resolution is a span: cache hits close immediately with
     # cache_hit=True; fresh decisions carry the predicted cost-term
@@ -765,22 +898,38 @@ def autotune(
 
     calib = calibration or _stored_calibration(cache, device) or get_calibration(device)
     cands = enumerate_candidates(
-        m, k, n, schemes=schemes, max_depth=max_depth, min_dim=min_dim, device=device,
+        m, k, n, schemes=schemes, max_depth=max_depth, min_dim=min_dim,
+        oot_budget=oot_budget, dtype=dtype, device=device,
     )
-    scored = sorted(cands, key=lambda c: predict_seconds(c, m, k, n, calib))
+
+    def _overlap(c: Candidate) -> bool:
+        # Price an oot candidate's overlap discount only when the budget
+        # actually leaves the scheduler its pipelined wave slot at that
+        # depth — otherwise it silently degrades to synchronous staging
+        # and every staged byte is on the critical path.
+        return c.kind != OOT_KIND or _oot_pipeline_fits(
+            m, k, n, c.depth, dtype, oot_budget
+        )
+
+    scored = sorted(
+        cands, key=lambda c: predict_seconds(c, m, k, n, calib, oot_overlap=_overlap(c))
+    )
     best = scored[0]
-    predicted = predict_seconds(best, m, k, n, calib)
+    predicted = predict_seconds(best, m, k, n, calib, oot_overlap=_overlap(best))
     measured = None
     if measure:
         timed = [
             (
-                measure_seconds(c, m, k, n, dtype, precision=precision, device=device),
+                measure_seconds(
+                    c, m, k, n, dtype, precision=precision, oot_budget=oot_budget,
+                    device=device,
+                ),
                 c,
             )
             for c in scored[: max(top_k, 1)]
         ]
         measured, best = min(timed, key=lambda t: t[0])
-        predicted = predict_seconds(best, m, k, n, calib)
+        predicted = predict_seconds(best, m, k, n, calib, oot_overlap=_overlap(best))
 
     decision = Decision(
         kind=best.kind,
@@ -800,7 +949,7 @@ def autotune(
         )
         cache.put(store_key, decision)
         cache.save()
-    terms = predict_cost_terms(best, m, k, n, calib)
+    terms = predict_cost_terms(best, m, k, n, calib, oot_overlap=_overlap(best))
     tel.record(
         TelemetryEvent(
             key=key,
@@ -820,6 +969,206 @@ def autotune(
         res_span, cache_hit=False, kind=decision.kind,
         scheme=decision.scheme, depth=decision.depth, source=decision.source,
         predicted_s=decision.predicted_s, measured_s=decision.measured_s,
+        **{f"terms.{t}": v for t, v in terms.items()},
+    )
+    return decision
+
+
+# --------------------------------------------------------------------------
+# Solver families (SPIN block-recursive inversion / triangular solve)
+# --------------------------------------------------------------------------
+
+# Candidate families of the solver ops. Priced with the same calibrated
+# constants as the matmul families: t_flop for dense-leaf and recursive
+# multiply flops, t_h2d for every staged byte (with the wave pipeline's
+# overlap discount), t_elem for the host-side axpy chains.
+INVERSE_OOT_KIND = "inverse_oot"
+SOLVE_OOT_KIND = "solve_oot"
+_SOLVER_FAMILIES = {"inverse": INVERSE_OOT_KIND, "solve": SOLVE_OOT_KIND}
+
+
+def predict_solver_terms(
+    op: str,
+    n: int,
+    depth: int,
+    calib: Calibration,
+    *,
+    nrhs: Optional[int] = None,
+    oot_budget: Optional[int] = None,
+    oot_overlap: bool = True,
+) -> Dict[str, float]:
+    """Per-constant cost decomposition of one solver run at a given depth.
+
+    The recursion does, per node at level i (2^i nodes, half-size h =
+    n / 2^(i+1)): for ``inverse`` six h-sized multiplies and two axpys
+    (SPIN's Schur-complement program); for ``solve`` one (h x h) @
+    (h x nrhs) multiply and one axpy. The 2^depth dense leaves run one
+    device inv (~2 s^3 flops) or trsm (~s^2 nrhs flops). Multiply staging
+    is priced at t_h2d with the wave pipeline's exposed-fraction discount
+    (:data:`OOT_OVERLAP_EXPOSED_FRACTION`) when ``oot_overlap``.
+    """
+    if op not in _SOLVER_FAMILIES:
+        raise ValueError(
+            f"unknown solver op {op!r}; have {sorted(_SOLVER_FAMILIES)}"
+        )
+    r = n if nrhs is None else nrhs
+    t_h2d = calib.t_h2d or calib.t_elem
+    flop_s = 0.0
+    h2d_elems = 0.0
+    elem_s = 0.0
+    s = max(1, n >> depth)
+    leaves = 1 << depth
+    if op == "inverse":
+        flop_s += leaves * 2.0 * s**3 * calib.t_flop
+        h2d_elems += leaves * 2.0 * s * s
+    else:
+        flop_s += leaves * float(s) * s * r * calib.t_flop
+        h2d_elems += leaves * (s * s + 2.0 * s * r)
+    mul_flop_s = 0.0
+    for level in range(depth):
+        nodes = 1 << level
+        h = max(1, n >> (level + 1))
+        if op == "inverse":
+            mul_flop_s += nodes * 6 * 2.0 * h**3 * calib.t_flop
+            h2d_elems += nodes * 6 * 3.0 * h * h
+            elem_s += nodes * 2.0 * h * h * calib.t_elem
+        else:
+            mul_flop_s += nodes * 2.0 * h * h * r * calib.t_flop
+            h2d_elems += nodes * (h * h + 2.0 * h * r)
+            elem_s += nodes * float(h) * r * calib.t_elem
+    flop_s += mul_flop_s
+    h2d_s = h2d_elems * t_h2d
+    if oot_overlap:
+        # The staged traffic rides the scheduler's async pipeline: only the
+        # non-overlappable remainder plus the fill/drain bubbles stay on
+        # the critical path (same shape as the strassen_oot discount).
+        h2d_s = max(h2d_s - mul_flop_s, 0.0) + OOT_OVERLAP_EXPOSED_FRACTION * min(
+            h2d_s, mul_flop_s
+        )
+    return {"flop_s": flop_s, "elem_s": elem_s, "h2d_s": h2d_s}
+
+
+def predict_solver_seconds(
+    op: str,
+    n: int,
+    depth: int,
+    calib: Calibration,
+    *,
+    nrhs: Optional[int] = None,
+    oot_budget: Optional[int] = None,
+    oot_overlap: bool = True,
+) -> float:
+    terms = predict_solver_terms(
+        op, n, depth, calib, nrhs=nrhs, oot_budget=oot_budget,
+        oot_overlap=oot_overlap,
+    )
+    return sum(terms.values())
+
+
+def autotune_solver(
+    op: str,
+    n: int,
+    dtype=torch.float32,
+    *,
+    nrhs: Optional[int] = None,
+    oot_budget: Optional[int] = None,
+    max_depth: int = 10,
+    scheme: str = "strassen",
+    cache: Optional[TuningCache] = None,
+    calibration: Optional[Calibration] = None,
+    site: Optional[str] = None,
+    telemetry: Optional[Telemetry] = None,
+    device: str | torch.device = "cuda",
+) -> Decision:
+    """Pick the predicted-fastest recursion depth for one solver shape on ``device``.
+
+    ``op`` is 'inverse' or 'solve'. Candidate depths run from the
+    smallest whose dense leaf fits ``oot_budget`` (every level halves the
+    leaf side) up a few levels — deeper trades dense-leaf cubic work for
+    more recursive-multiply traffic, and the calibrated terms arbitrate.
+    Decisions cache and telemetry exactly like matmul resolutions, with
+    ``topo`` set to the solver family so a solver entry can never answer
+    a matmul lookup.
+    """
+    from repro_torch.blocks.solve import solver_min_depth_for_budget
+
+    family = _SOLVER_FAMILIES.get(op)
+    if family is None:
+        raise ValueError(
+            f"unknown solver op {op!r}; have {sorted(_SOLVER_FAMILIES)}"
+        )
+    tel = telemetry if telemetry is not None else _TELEMETRY
+    tr = obs_tracer.get_tracer()
+    res_span = tr.begin(
+        "autotune.resolve", cat="autotune", site=site, family=family, n=n,
+    )
+    leaf_kind = "inv" if op == "inverse" else "trsm_lower"
+    key = cache_key(
+        n, n, n if nrhs is None else nrhs, dtype,
+        device_kind=device_platform(device), device_count=1,
+        schemes=(scheme,), min_dim=0, max_depth=max_depth,
+        topo=family, site=site, oot_budget=oot_budget,
+    )
+    if cache is not None:
+        hit = cache.get(key)
+        if hit is not None:
+            decision = dataclasses.replace(hit, source="cache")
+            tel.record(
+                TelemetryEvent(
+                    key=key, site=site, kind=decision.kind,
+                    scheme=decision.scheme, depth=decision.depth,
+                    source="cache", cache_hit=True,
+                    predicted_s=decision.predicted_s,
+                    measured_s=decision.measured_s,
+                )
+            )
+            obs_metrics.get_metrics().counter("autotune.cache_hit").inc()
+            tr.end(
+                res_span, cache_hit=True, kind=decision.kind,
+                depth=decision.depth, source="cache",
+            )
+            return decision
+
+    calib = calibration or _stored_calibration(cache, device) or get_calibration(device)
+    if oot_budget:
+        d_min = solver_min_depth_for_budget(
+            n, oot_budget, dtype_name(dtype), nrhs=nrhs, leaf_kind=leaf_kind,
+            max_depth=max_depth,
+        )
+    else:
+        d_min = 0
+    depths = range(d_min, min(d_min + 3, max_depth) + 1)
+    best_depth = min(
+        depths,
+        key=lambda d: predict_solver_seconds(
+            op, n, d, calib, nrhs=nrhs, oot_budget=oot_budget
+        ),
+    )
+    predicted = predict_solver_seconds(
+        op, n, best_depth, calib, nrhs=nrhs, oot_budget=oot_budget
+    )
+    decision = Decision(
+        kind=family, scheme=scheme, depth=best_depth,
+        predicted_s=float(predicted), source="predicted",
+    )
+    if cache is not None:
+        cache.calibration = cache.calibration or calib
+        cache.put(key, decision)
+        cache.save()
+    terms = predict_solver_terms(
+        op, n, best_depth, calib, nrhs=nrhs, oot_budget=oot_budget
+    )
+    tel.record(
+        TelemetryEvent(
+            key=key, site=site, kind=family, scheme=scheme, depth=best_depth,
+            source="predicted", cache_hit=False,
+            predicted_s=decision.predicted_s, terms=terms,
+        )
+    )
+    obs_metrics.get_metrics().counter("autotune.cache_miss").inc()
+    tr.end(
+        res_span, cache_hit=False, kind=family, depth=best_depth,
+        source="predicted", predicted_s=decision.predicted_s,
         **{f"terms.{t}": v for t, v in terms.items()},
     )
     return decision

@@ -37,10 +37,11 @@ like the JAX engine's per-slot keys, but not bit-equal to ``jax.random``.
 
 A kind ``auto`` backend is warmed at construction (``warm_for_model``
 resolves every projection shape of the prefill and decode buckets on the
-engine's device) and ``autotune_stats()`` reports the process decision log
-and the calibration it ran on. Not ported: the out-of-core stats ring
-(ROADMAP.md queue 1 item 6; ``autotune_stats()["oot"]`` stays empty) and
-encoder-decoder serving (queue 1 item 9).
+engine's device) and ``autotune_stats()`` reports the process decision log,
+the calibration it ran on, and under ``oot`` the stats of every out-of-core
+run since the engine was built (an engine-owned ring of
+:mod:`repro_torch.blocks.scheduler`). Not ported: encoder-decoder serving
+(ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.blocks.recovery import FaultError, InjectedFault
+from repro_torch.blocks.scheduler import attach_stats_ring
 from repro_torch.core import autotune
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -196,6 +198,10 @@ class Engine:
         # Telemetry is process-scoped, so each engine zeroes it up front:
         # autotune_stats()/generate() then report this engine's resolutions.
         autotune.reset_telemetry()
+        # Out-of-core run stats, by contrast, are read through an
+        # engine-OWNED ring: every run since this engine was built lands here
+        # however many other engines run concurrently.
+        self._oot_ring = attach_stats_ring()
         cfg = serve_cfg.apply_to(cfg)
         if cfg.matmul_backend.kind == "auto":
             # decode resolves at 1 token/seq; prefill at up to max_seq tokens
@@ -1006,15 +1012,16 @@ class Engine:
         engine's misses: the tuning cache's own where they were fitted on the
         engine's platform, else the process calibration of its device (None
         when every decision came from a warm cache and no calibration ran).
-        ``oot`` stays empty: the out-of-core runtime is not ported
-        (ROADMAP.md queue 1 item 6).
+        ``oot`` carries the out-of-core scheduler's recent run stats (waves,
+        peak device bytes, overlap telemetry) for every ``strassen_oot`` or
+        solver run this process executed since the engine was built.
         """
         return {
             **autotune.get_telemetry().snapshot(),
             "calibration": autotune.costing_calibration(
                 autotune.process_cache(self.cfg.matmul_backend.tuning_cache), self.device
             ),
-            "oot": [],
+            "oot": self._oot_ring.snapshot(),
         }
 
     def stats(self) -> Dict[str, Any]:

@@ -11,7 +11,11 @@ Two parts, on the CPU:
 * The reference's own tests (``tests/test_autotune.py``) mirrored on the
   port, except those that need a mesh (``test_mesh_*``,
   ``test_fused_sharded_*``, ``test_calibrate_collective_*``): the mesh
-  strategies and the out-of-core family are not ported and must raise.
+  strategies are not ported and must raise.
+* The out-of-core ``strassen_oot`` family and the solver families: under a
+  pinned calibration their candidates, cost terms (``t_h2d`` with and
+  without the pipeline's overlap discount), decisions and cache keys equal
+  the reference's with ``==``, and their products agree.
 """
 import dataclasses
 import json
@@ -527,22 +531,28 @@ def test_t_coll_zero_falls_back_to_t_elem():
 
 
 def test_mesh_and_oot_raise_not_implemented():
-    """In place of the mesh tests: a mesh or an out-of-core budget names the
-    ROADMAP item that ports it, and no other candidate is picked instead."""
+    """In place of the mesh tests: a mesh names the ROADMAP item that ports
+    it, and no other candidate is picked instead. The out-of-core family
+    once raised here too (queue 1 item 6); it is ported now, and its
+    decision and product under a budget are the reference's."""
     for fn in (autotune.autotune, enumerate_candidates):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             fn(512, 512, 512, mesh=object(), **CPU)
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            fn(512, 512, 512, oot_budget=1 << 20, **CPU)
     x = _rand((64, 64))
-    for kind, item in (("strassen_bfs_sharded", "item 8"), ("strassen_fused_sharded", "item 8"),
-                       ("strassen_oot", "item 6")):
+    for kind in ("strassen_bfs_sharded", "strassen_fused_sharded"):
         for fn in (lambda c: autotune.execute(c, x, x),
                    lambda c: autotune.predict_cost_terms(c, 512, 512, 512, CALIB)):
-            with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
+            with pytest.raises(NotImplementedError, match="queue 1 item 8"):
                 fn(Candidate(kind=kind, depth=1))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        matmul(x, x, _auto_backend(min_dim=1, device_budget=1 << 20))
+    budget = 3 * 128 * 128 * 4  # the dense 512^2 working set does not fit
+    got = autotune.autotune(512, 512, 512, oot_budget=budget, calibration=CALIB, **CPU)
+    want = ja.autotune(512, 512, 512, oot_budget=budget, calibration=_jcal(CALIB))
+    assert got.to_dict() == want.to_dict() and got.kind == "strassen_oot"
+    a, b = _rand((512, 512)), _rand((512, 512))
+    out = matmul(a, b, _auto_backend(min_dim=1, device_budget=budget))
+    ref = jb.matmul(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()),
+                    jb.MatmulBackend(kind="auto", depth=2, min_dim=1, device_budget=budget))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=3e-3, rtol=3e-3)
 
 
 @pytest.mark.parametrize("first", ["cpu", "cuda"])
@@ -710,3 +720,156 @@ def test_reset_telemetry_and_caller_owned_log():
     )
     assert own.cache_misses == 1 and len(own.events) == 1
     assert tel.snapshot()["cache_misses"] == 0  # process log untouched
+
+
+# ------------------------------------------------- the out-of-core family
+OOT_BUDGETS = [1 << 20, 3 * 256 * 256 * 4, 16 << 20, 64 << 20, 1 << 30]
+
+
+@pytest.mark.parametrize("budget", OOT_BUDGETS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_oot_candidates_equal_reference(budget, dtype):
+    for m, k, n in SHAPES:
+        for min_dim, max_depth in ((1024, 2), (64, 2), (1, 3), (192, 2)):
+            kw = dict(min_dim=min_dim, max_depth=max_depth, oot_budget=budget)
+            got = enumerate_candidates(m, k, n, dtype=dtype, **kw, **CPU)
+            want = ja.enumerate_candidates(m, k, n, dtype=JDTYPES[dtype], **kw)
+            assert [_fields(c) for c in got] == [_fields(c) for c in want], (m, k, n, kw)
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+@pytest.mark.parametrize("calib", [
+    CALIB, Calibration(t_flop=3.1e-14, t_elem=7.7e-12, device_kind="gpu", t_h2d=4.4e-11),
+    Calibration(t_flop=1e-11, t_elem=1e-9, device_kind="gpu", t_h2d=2e-7),
+], ids=["default", "gpu_like", "transfer_bound"])
+def test_oot_cost_terms_equal_reference(overlap, calib):
+    jcal = _jcal(calib)
+    for m, k, n in SHAPES:
+        for scheme in ("strassen", "winograd"):
+            for depth in (1, 2, 3, 5):
+                c = Candidate(kind="strassen_oot", scheme=scheme, depth=depth)
+                got = autotune.predict_cost_terms(c, m, k, n, calib, oot_overlap=overlap)
+                want = ja.predict_cost_terms(ja.Candidate(*_fields(c)), m, k, n, jcal,
+                                             device_count=1, oot_overlap=overlap)
+                assert got == want, (c, m, k, n)
+                assert got["t_h2d"] > 0.0 and got["t_coll"] == 0.0
+                assert predict_seconds(c, m, k, n, calib, oot_overlap=overlap) == ja.predict_seconds(
+                    ja.Candidate(*_fields(c)), m, k, n, jcal, oot_overlap=overlap)
+    assert autotune.OOT_OVERLAP_EXPOSED_FRACTION == ja.OOT_OVERLAP_EXPOSED_FRACTION
+
+
+def test_oot_overlap_discount_hides_staged_transfer_cost():
+    cand = Candidate(kind="strassen_oot", scheme="strassen", depth=2)
+    calib = dataclasses.replace(CALIB, t_h2d=2e-9)
+    raw = autotune.predict_cost_terms(cand, 4096, 4096, 4096, calib, oot_overlap=False)
+    dft = autotune.predict_cost_terms(cand, 4096, 4096, 4096, calib)
+    assert dft["t_flop"] == raw["t_flop"] and 0.0 < dft["t_h2d"] < raw["t_h2d"]
+    hidden = min(raw["t_h2d"], raw["t_flop"])
+    assert dft["t_h2d"] == pytest.approx(
+        max(raw["t_h2d"] - raw["t_flop"], 0.0)
+        + autotune.OOT_OVERLAP_EXPOSED_FRACTION * hidden)
+    for other in (Candidate(kind="naive"), Candidate(kind="strassen", depth=2)):
+        assert autotune.predict_cost_terms(other, 4096, 4096, 4096, calib)["t_h2d"] == 0.0
+
+
+@pytest.mark.parametrize("budget", OOT_BUDGETS)
+def test_oot_decisions_equal_reference(budget):
+    """Decisions under a budget (the overlap discount priced only where the
+    pipelined slot fits) are the reference's, key and telemetry terms too."""
+    calib = dataclasses.replace(CALIB, t_h2d=2e-9)
+    tel = autotune.Telemetry()
+    jtel = ja.Telemetry()
+    for m, k, n in SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            kw = dict(min_dim=64, max_depth=2, oot_budget=budget)
+            got = autotune.autotune(m, k, n, dt, calibration=calib, telemetry=tel, **kw, **CPU)
+            want = ja.autotune(m, k, n, JDTYPES[dt], calibration=_jcal(calib), telemetry=jtel,
+                               **kw)
+            assert got.to_dict() == want.to_dict(), (m, k, n, dt)
+    assert [e.to_dict() for e in tel.events] == [
+        {**e.to_dict(), "key": e.key} for e in jtel.events]
+
+
+def test_oot_pipeline_fits_equals_reference():
+    for n in (512, 4096, 16384):
+        for depth in (1, 2, 3):
+            for budget in (None, 0, 1 << 20, 64 << 20, 1 << 30):
+                assert autotune._oot_pipeline_fits(n, n, n, depth, "float32", budget) == (
+                    ja._oot_pipeline_fits(n, n, n, depth, jnp.float32, budget))
+
+
+def test_oot_execute_and_measure_on_the_cpu():
+    cand = Candidate(kind="strassen_oot", scheme="winograd", depth=1)
+    a, b = _rand((96, 80)), _rand((80, 72))
+    got = autotune.execute(cand, a, b, oot_budget=1 << 20)
+    want = ja.execute(ja.Candidate(*_fields(cand)), jnp.asarray(a.numpy()), jnp.asarray(b.numpy()),
+                      oot_budget=1 << 20)
+    assert got.device.type == "cpu"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-4)
+    assert autotune.measure_seconds(cand, 96, 80, 72, repeats=1, oot_budget=1 << 20, **CPU) > 0
+
+
+def test_resolve_auto_routes_oot_decision_and_keeps_its_scheme(monkeypatch):
+    decision = Decision(kind="strassen_oot", scheme="winograd", depth=1, predicted_s=1e-3)
+    real = autotune.autotune
+
+    def fake(m, *args, **kwargs):  # only the outer shape resolves out of core
+        return decision if m == 2048 else real(m, *args, **kwargs)
+
+    monkeypatch.setattr(autotune, "autotune", fake)
+    be = _auto_backend(min_dim=1, device_budget=1 << 20)
+    resolved = resolve_auto(2048, 2048, 2048, "float32", be, None, "cpu")
+    assert resolved.kind == "strassen_oot" and resolved.scheme_name == "winograd"
+    assert resolved.depth == 1 and resolved.device_budget == 1 << 20
+    a, b = _rand((96, 96)), _rand((96, 96))
+    np.testing.assert_allclose(matmul(a, b, resolved).numpy(), (a @ b).numpy(), atol=2e-3,
+                               rtol=2e-3)
+
+
+def test_auto_with_budget_under_compile_never_picks_oot(monkeypatch):
+    """A compiling caller cannot run the host-resident family: kind 'auto'
+    resolves it without the budget, even where the eager resolution picks
+    strassen_oot."""
+    budget = 3 * 32 * 32 * 4
+    d = autotune.autotune(256, 256, 256, min_dim=1, max_depth=3, calibration=CALIB,
+                          oot_budget=budget, **CPU)
+    assert d.kind == "strassen_oot"
+    monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+    a, b = _rand((256, 256)), _rand((256, 256))
+    out = matmul(a, b, _auto_backend(depth=3, min_dim=1, device_budget=budget))
+    np.testing.assert_allclose(out.numpy(), (a @ b).numpy(), atol=3e-3, rtol=3e-3)
+    with pytest.raises(ValueError, match="torch.compile"):
+        matmul(a, b, MatmulBackend(kind="strassen_oot", depth=1, min_dim=1))
+
+
+# ------------------------------------------------------ the solver families
+@pytest.mark.parametrize("op,nrhs", [("inverse", None), ("solve", 128), ("solve", None)])
+def test_solver_terms_equal_reference(op, nrhs):
+    calib = dataclasses.replace(CALIB, t_h2d=2e-9)
+    for n in (256, 1000, 8192):
+        for depth in range(0, 5):
+            for overlap in (True, False):
+                got = autotune.predict_solver_terms(op, n, depth, calib, nrhs=nrhs,
+                                                    oot_overlap=overlap)
+                want = ja.predict_solver_terms(op, n, depth, _jcal(calib), nrhs=nrhs,
+                                               oot_overlap=overlap)
+                assert got == want, (n, depth, overlap)
+                assert autotune.predict_solver_seconds(op, n, depth, calib, nrhs=nrhs) == (
+                    ja.predict_solver_seconds(op, n, depth, _jcal(calib), nrhs=nrhs))
+
+
+@pytest.mark.parametrize("budget", [96 << 10, 1 << 20, 128 << 20, None])
+def test_autotune_solver_equals_reference_and_caches(budget):
+    cache, jcache = TuningCache(), ja.TuningCache()
+    for op, n, nrhs in (("inverse", 512, None), ("solve", 512, 128), ("inverse", 8192, None)):
+        kw = dict(nrhs=nrhs, oot_budget=budget, max_depth=10)
+        got = autotune.autotune_solver(op, n, torch.float32, cache=cache, calibration=CALIB,
+                                       **kw, **CPU)
+        want = ja.autotune_solver(op, n, jnp.float32, cache=jcache, calibration=_jcal(CALIB),
+                                  **kw)
+        assert got.to_dict() == want.to_dict()
+        assert autotune.autotune_solver(op, n, torch.float32, cache=cache, **kw,
+                                        **CPU).source == "cache"
+    assert set(cache.entries) == set(jcache.entries) and len(cache.entries) == 3
+    with pytest.raises(ValueError, match="unknown solver op"):
+        autotune.autotune_solver("lu", 256, **CPU)

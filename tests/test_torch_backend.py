@@ -119,37 +119,56 @@ def test_unknown_kind_and_bad_shapes_raise_value_error():
 
 @pytest.mark.parametrize("kind,item", [("auto", "item 5"), ("strassen_oot", "item 6")])
 def test_unported_kinds_raise_not_implemented(kind, item, monkeypatch):
-    """Kind 'auto' (queue 1 item 5) once raised here; it now routes as the JAX
-    package routes it (under one pinned calibration, the same resolved backend
-    and a product within 3e-3), and raises only where it would reach the
-    out-of-core family (a device_budget). 'strassen_oot' (item 6) still raises."""
-    if kind == "auto":
-        from repro.core import autotune as ja
-        from repro_torch.core import autotune as ta
+    """Kind 'auto' (queue 1 item 5) and kind 'strassen_oot' (item 6) once
+    raised here. Both are ported: under one pinned calibration 'auto' resolves
+    to the JAX package's backend, with or without a device_budget, and
+    'strassen_oot' runs the out-of-core runtime; each product is within 3e-3
+    of the JAX package's, and the out-of-core result comes back on the
+    operands' device with the operands' leading dims."""
+    from repro.core import autotune as ja
+    from repro_torch.core import autotune as ta
 
-        # Constants under which Strassen wins at 128 (cheap element traffic).
-        calib = dict(t_flop=1e-9, t_elem=1e-12, device_kind="cpu", device_count=1)
-        monkeypatch.setattr(ja, "_CALIBRATION", ja.Calibration(**calib))
-        monkeypatch.setattr(ta, "_CALIBRATIONS", {"cpu": ta.Calibration(**calib)})
-        monkeypatch.setattr(ja, "_PROCESS_CACHES", {})
-        monkeypatch.setattr(ta, "_PROCESS_CACHES", {})
-        jb.resolve_auto.cache_clear()
-        tb.resolve_auto.cache_clear()
-        x, w = _np((128, 128)), _np((128, 128))
+    # Constants under which Strassen wins at 128 (cheap element traffic).
+    calib = dict(t_flop=1e-9, t_elem=1e-12, device_kind="cpu", device_count=1)
+    monkeypatch.setattr(ja, "_CALIBRATION", ja.Calibration(**calib))
+    monkeypatch.setattr(ta, "_CALIBRATIONS", {"cpu": ta.Calibration(**calib)})
+    monkeypatch.setattr(ja, "_PROCESS_CACHES", {})
+    monkeypatch.setattr(ta, "_PROCESS_CACHES", {})
+    jb.resolve_auto.cache_clear()
+    tb.resolve_auto.cache_clear()
+    x, w = _np((128, 128)), _np((128, 128))
+    if kind == "auto":
         be = dict(kind="auto", depth=2, min_dim=32)
-        got = tb.matmul(torch.from_numpy(x), torch.from_numpy(w), tb.MatmulBackend(**be))
-        want = jb.matmul(jnp.asarray(x), jnp.asarray(w), jb.MatmulBackend(**be))
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-3, rtol=3e-3)
         t_res = tb.resolve_auto(128, 128, 128, "float32", tb.MatmulBackend(**be), None, "cpu")
         j_res = jb.resolve_auto(128, 128, 128, "float32", jb.MatmulBackend(**be))
         assert t_res.kind != "naive"
         assert dataclasses.asdict(t_res) == dataclasses.asdict(j_res)
-        backend, item = tb.MatmulBackend(kind="auto", device_budget=1 << 20), "item 6"
-        tb.resolve_auto.cache_clear()
+        configs = [be, dict(be, device_budget=3 * 32 * 32 * 4)]
     else:
-        backend = tb.MatmulBackend(kind=kind)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        tb.matmul(torch.zeros(4, 4), torch.zeros(4, 4), backend)
+        configs = [dict(kind="strassen_oot", depth=2, min_dim=1, device_budget=x.nbytes),
+                   dict(kind="strassen_oot", depth=1, min_dim=1, device_budget=3 * 32 * 32 * 4 + 1)]
+    for be in configs:
+        got = tb.matmul(torch.from_numpy(x), torch.from_numpy(w), tb.MatmulBackend(**be))
+        want = jb.matmul(jnp.asarray(x), jnp.asarray(w), jb.MatmulBackend(**be))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-3, rtol=3e-3)
+        tb.resolve_auto.cache_clear()
+        jb.resolve_auto.cache_clear()
+    if kind == "strassen_oot":
+        x3 = _np((2, 4, 128))
+        got = tb.matmul(torch.from_numpy(x3), torch.from_numpy(w), tb.MatmulBackend(**configs[0]))
+        assert tuple(got.shape) == (2, 4, 128) and got.device.type == "cpu"
+        np.testing.assert_allclose(got.numpy(), x3 @ w, atol=3e-3, rtol=3e-3)
+
+
+def test_is_oom_error_classifies_allocator_failures():
+    """The ladder's OOM test: the caching allocator's error and MemoryError
+    by type, allocator messages on a RuntimeError; nothing else."""
+    assert tb.is_oom_error(torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 2 GiB"))
+    assert tb.is_oom_error(MemoryError("host allocator exhausted"))
+    assert tb.is_oom_error(RuntimeError("CUDA error: CUBLAS_STATUS_ALLOC_FAILED when calling cublasCreate"))
+    assert tb.is_oom_error(RuntimeError("RESOURCE_EXHAUSTED: out of memory"))
+    assert not tb.is_oom_error(RuntimeError("not a fault, a bug"))
+    assert not tb.is_oom_error(ValueError("out of memory"))
 
 
 @pytest.mark.parametrize("kind", RUNNABLE)

@@ -338,3 +338,41 @@ def test_cuda_auto_gate_and_fused_candidates(cuda, monkeypatch):
     assert tst.strassen1_matmul_cuda.launches == n + 1
     torch.testing.assert_close(got, want, atol=3e-3, rtol=3e-3)
     backend.resolve_auto.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf", ["naive", "strassen_fused"])
+def test_cuda_oot_pipelined_and_sync_are_bit_identical(cuda, leaf):
+    """2048^2 at depth 2 with waves of 2: the copy-stream pipeline gives the
+    synchronous loop's bits (the leaves run on one stream in both), in at
+    least 4 waves, with the fused leaf launching strassen1 once per leaf."""
+    from repro_torch.blocks.scheduler import pipelined_leaf_bytes, strassen_oot_matmul
+    from repro_torch.core.backend import MatmulBackend
+
+    n = 2048
+    a, b = _on("cpu", (n, n), torch.float32), _on("cpu", (n, n), torch.float32)
+    budget = 2 * pipelined_leaf_bytes(n, n, n, 2, torch.float32)
+    be = MatmulBackend(kind=leaf, depth=1, min_dim=1)
+    tst.strassen1_matmul_cuda.launches = 0
+    pipe, st_pipe = strassen_oot_matmul(a, b, depth=2, budget_bytes=budget, backend=be,
+                                        device=cuda)
+    launches = tst.strassen1_matmul_cuda.launches
+    sync, st_sync = strassen_oot_matmul(a, b, depth=2, budget_bytes=budget, backend=be,
+                                        prefetch=False, device=cuda)
+    assert st_pipe.prefetch and st_pipe.waves >= 4 and not st_sync.prefetch
+    assert torch.equal(pipe, sync)
+    assert launches == (49 if leaf == "strassen_fused" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = (a.to(cuda) @ b.to(cuda)).cpu()
+    assert ((pipe - ref).norm() / ref.norm()).item() < 1e-4
+    assert st_pipe.overlap_efficiency > 0.0 and st_pipe.peak_device_bytes <= budget
+
+
+@pytest.mark.cuda
+def test_cuda_is_oom_error_on_a_real_allocation(cuda):
+    from repro_torch.core.backend import is_oom_error
+
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    with pytest.raises(torch.cuda.OutOfMemoryError) as err:
+        torch.empty(2 * total, dtype=torch.uint8, device=cuda)
+    assert is_oom_error(err.value)

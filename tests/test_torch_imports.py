@@ -39,6 +39,9 @@ def test_port_files_exist():
         "kernels/slstm/slstm.py", "kernels/slstm/ref.py", "kernels/slstm/ops.py",
         "models/xlstm.py", "configs/xlstm_1_3b.py",
         "core/cost_model.py", "core/autotune.py", "core/compat.py", "obs/export.py",
+        "blocks/__init__.py", "blocks/tags.py", "blocks/plan.py", "blocks/blockmatrix.py",
+        "blocks/scheduler.py", "blocks/solve.py", "launch/blocks_demo.py",
+        "launch/solve_demo.py",
     } <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"rmsnorm.cu", "flash_attention.cu", "matmul.cu", "signed_sum.cu",
@@ -72,12 +75,36 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.serving.engine, repro_torch.launch.serve\n"
         "import repro_torch.core.cost_model, repro_torch.core.autotune, repro_torch.core.compat\n"
         "import repro_torch.obs.export\n"
+        "import repro_torch.blocks, repro_torch.launch.blocks_demo, repro_torch.launch.solve_demo\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS]\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# The out-of-core path: what the card's machine runs for kind strassen_oot and
+# the solvers. That machine has no ml_dtypes, so none of it may import it.
+OOT_PATH = ["blocks/__init__.py", "blocks/tags.py", "blocks/plan.py", "blocks/blockmatrix.py",
+            "blocks/recovery.py", "blocks/scheduler.py", "blocks/solve.py", "core/backend.py",
+            "core/autotune.py", "launch/blocks_demo.py", "launch/solve_demo.py"]
+
+
+@pytest.mark.parametrize("rel", OOT_PATH)
+def test_oot_path_imports_no_ml_dtypes(rel):
+    tree = ast.parse((PORT / rel).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(n.split(".")[0] == "ml_dtypes" for n in names), f"{rel}:{node.lineno}"
+        # nor a module of the port that does (convert.py's test-side helper)
+        assert not any(n == "repro_torch.convert" for n in names), f"{rel}:{node.lineno}"

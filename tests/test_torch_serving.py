@@ -248,6 +248,31 @@ def test_streaming_callback_and_event_ordering(setup):
                                 "decisions": [], "calibration": None, "oot": []}
 
 
+def test_autotune_stats_oot_is_the_engines_own_ring(setup):
+    """``autotune_stats()["oot"]`` holds every out-of-core run since the
+    engine was built — as the JAX engine's does — and each engine reads its
+    own ring: clearing one leaves the other's runs in place."""
+    import torch
+
+    from repro_torch.blocks.scheduler import strassen_oot_matmul
+    from repro_torch.core.backend import MatmulBackend
+
+    cfg, params, _ = setup
+    first = _engine(cfg, params)
+    assert first.autotune_stats()["oot"] == []
+    t = torch.randn(64, 64)
+    _, stats = strassen_oot_matmul(t, t, depth=1, budget_bytes=1 << 20,
+                                   backend=MatmulBackend(kind="naive"), device="cpu")
+    second = _engine(cfg, params)
+    strassen_oot_matmul(t, t, depth=2, budget_bytes=1 << 20, backend=MatmulBackend(kind="naive"),
+                        device="cpu")
+    runs = first.autotune_stats()["oot"]
+    assert [r["depth"] for r in runs] == [1, 2] and runs[0] == stats.to_dict()
+    assert [r["depth"] for r in second.autotune_stats()["oot"]] == [2]
+    second._oot_ring.clear()
+    assert len(first.autotune_stats()["oot"]) == 2
+
+
 def test_static_gang_batching_mode(setup):
     cfg, params, _ = setup
     prompts = [np.arange(4), np.arange(5), np.arange(6)]
