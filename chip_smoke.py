@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Builds the port's CUDA kernels and drives its three paths on one GPU.
+"""Builds the port's CUDA kernels and drives its paths on one GPU.
 
 Usage: ``python3 chip_smoke.py [--seed S] [--size N] [--reps R]`` from the root
 of a checkout, on a machine with an NVIDIA Hopper GPU (sm_90a) and the CUDA
@@ -37,6 +37,35 @@ is Stark's Strassen multiply:
    runs measured mode (top 3) at N in fp32, and checks that a tuning cache
    saved to a file answers the same key from a fresh load with no
    calibration.
+
+The mesh path (``repro_torch.core.distributed`` on ``repro_torch.core.mesh``,
+phases m1-m7) runs Stark's distributed strategies on the same N x N operands,
+on meshes of positions that all lie on the card (one process drives them, as
+one JAX controller drives its devices; on one card they run one after
+another, so a time is the work plus the movements' copies and adds, not an
+interconnect's). Each run is checked against fp32 ``torch.matmul`` by
+normwise error (MAIN_LIMIT), then timed, with the allocator's peak, the
+mesh's logical collective bytes (what a cluster would send between
+positions) and physical bytes (copied between cards), and the cards behind
+the mesh:
+
+m1. ``strassen_bfs_sharded`` at depth 2 on (4, 2) ("data", "model"),
+    Strassen and Winograd in fp32 and Strassen in bf16, and on (8,) with
+    ``batch_axes=("data",)``;
+m2. ``strassen_2d`` at depth 1 on (4, 2);
+m3. ``strassen_shardmap`` on (7,) ("mult",);
+m4. ``strassen_shardmap_2d`` on (2, 7) ("rows", "mult");
+m5. ``strassen_shardmap_3d`` on (2, 2, 7) ("rb", "cb", "mult"), merged and
+    in quadrant-block layout;
+m6. ``strassen_fused_sharded`` at depths 1 and 2 on (4, 2), fp32 and bf16:
+    exactly one strassen1 launch per position, and strassen1 timed at one
+    position's row stripe ((1,4,N/16,N/2) by (1,4,N/2,N/2) at depth 1,
+    (7,4,N/32,N/4) by (7,4,N/4,N/4) at depth 2) beside its plain version, its
+    bound and torch.matmul (depth 1) or torch.bmm (depth 2) of the same
+    stripe;
+m7. kind ``auto`` over the (4, 2) mesh at N^2 fp32: ``calibrate_collective``
+    (0.0 on one card), each mesh candidate's predicted ms and cost terms
+    beside its measured ms (median of 3), and the decision.
 
 The out-of-core path (``repro_torch.blocks``, phases o1-o8) runs Stark's
 tagged-block recursion with the operands in host memory and the card's
@@ -126,7 +155,9 @@ the cold time.
 
 It exits non-zero, before printing a result, on any failure or when no CUDA
 device is present. The JSON line's launches are those of the first path's
-main-path run; the out-of-core path's launches are printed on its own lines. The last lines are the card's name and power limit, a
+main-path run, and for the strassen1 stripe entries those of the mesh path's
+fused runs at that stripe; the out-of-core path's launches are printed on its
+own lines. The last lines are the card's name and power limit, a
 JSON line with one entry per kernel, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -156,7 +187,7 @@ from repro_torch.blocks.scheduler import (  # noqa: E402
     strassen_oot_matmul,
 )
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import autotune  # noqa: E402
+from repro_torch.core import autotune, distributed  # noqa: E402
 from repro_torch.core.backend import (  # noqa: E402
     MatmulBackend,
     inverse,
@@ -165,6 +196,7 @@ from repro_torch.core.backend import (  # noqa: E402
     solve_triangular,
 )
 from repro_torch.core.coefficients import get_scheme  # noqa: E402
+from repro_torch.core.mesh import make_mesh  # noqa: E402
 from repro_torch.core.strassen import (  # noqa: E402
     combine_level,
     divide_level,
@@ -785,9 +817,10 @@ def cand_name(c) -> str:
     return "naive" if c.is_naive else f"{c.kind} depth={c.depth}"
 
 
-def phase_auto(a, b, a16, b16, refs: dict) -> None:
+def phase_auto(a, b, a16, b16, refs: dict) -> autotune.Calibration:
     """(5) Kind auto on the card: calibration, the candidate table, the
-    crossover table, measured mode and the tuning cache's round trip."""
+    crossover table, measured mode and the tuning cache's round trip.
+    Returns the calibration."""
     t0 = t = time.perf_counter()
     calib = autotune.calibrate(device=DEVICE)
     log(f"auto calibrate ({calib.device_kind}, {calib.device_count} device): "
@@ -871,6 +904,177 @@ def phase_auto(a, b, a16, b16, refs: dict) -> None:
         if not ok:
             fail(f"auto tuning cache round trip: {again}, {fresh.snapshot()}")
     log(f"auto phase done in {time.perf_counter() - t0:.1f} s")
+    return calib
+
+
+# ------------------------------------------------------------ the mesh path
+def mesh_runs(a, b, a16, b16) -> list:
+    """(phase, strategy, mesh shape, axis names, keywords, operands) of each
+    mesh-path run, m1-m6."""
+    dm = ((4, 2), ("data", "model"))
+    grid = ((2, 2, 7), ("rb", "cb", "mult"))
+    return [
+        ("m1", "strassen_bfs_sharded", *dm, dict(depth=2), a, b),
+        ("m1", "strassen_bfs_sharded", *dm, dict(depth=2, scheme="winograd"), a, b),
+        ("m1", "strassen_bfs_sharded", *dm, dict(depth=2), a16, b16),
+        ("m1", "strassen_bfs_sharded", (8,), ("data",), dict(depth=2, batch_axes=("data",)), a, b),
+        ("m2", "strassen_2d", *dm, dict(depth=1), a, b),
+        ("m3", "strassen_shardmap", (7,), ("mult",), {}, a, b),
+        ("m4", "strassen_shardmap_2d", (2, 7), ("rows", "mult"), {}, a, b),
+        ("m5", "strassen_shardmap_3d", *grid, {}, a, b),
+        ("m5", "strassen_shardmap_3d", *grid, dict(merge=False), a, b),
+        ("m6", "strassen_fused_sharded", *dm, dict(depth=1), a, b),
+        ("m6", "strassen_fused_sharded", *dm, dict(depth=2), a, b),
+        ("m6", "strassen_fused_sharded", *dm, dict(depth=1), a16, b16),
+        ("m6", "strassen_fused_sharded", *dm, dict(depth=2), a16, b16),
+    ]
+
+
+def mesh_run_name(run) -> str:
+    phase, name, shape, names, kw, x, _ = run
+    opts = " ".join(f"{k}={v}" for k, v in kw.items() if k != "batch_axes")
+    tag = "fp32" if x.dtype == torch.float32 else "bf16"
+    return f"{phase} {name} {opts} {tag} on {shape} {','.join(names)}".replace("  ", " ")
+
+
+def phase_mesh(runs: list, refs: dict, reps: int) -> dict:
+    """(m1-m6) Each mesh strategy once at full size, checked against fp32
+    torch.matmul by normwise error, with its collective bytes and the
+    allocator's peak; strassen_fused_sharded must launch strassen1 exactly
+    once per position. Then each is timed (CUDA events, median of ``reps``).
+    Returns the strassen1 launches of each fused run, by (depth, dtype)."""
+    reset_counts()
+    stats, fused = [], {}
+    for run in runs:
+        phase, name, shape, names, kw, x, w = run
+        mesh = make_mesh(shape, names, device=DEVICE)
+        fn = distributed.get_strategy(name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = strassen1_matmul_cuda.launches
+        out = fn(x, w, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        launched = strassen1_matmul_cuda.launches - before
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if kw.get("merge") is False:
+            out = merge_quadrants(out)
+        err = rel_err(out, refs[x.dtype])
+        limit = MAIN_LIMIT[x.dtype]
+        n = x.shape[0]
+        want_launches = mesh.size if name == "strassen_fused_sharded" else 0
+        ok = (tuple(out.shape) == (n, n) and out.dtype == x.dtype
+              and bool(torch.isfinite(out).all()) and err <= limit and launched == want_launches)
+        if name == "strassen_fused_sharded":
+            fused[(kw["depth"], x.dtype)] = launched
+        stats.append(dict(run=run, err=err, limit=limit, peak=peak, launched=launched, ok=ok,
+                          logical=mesh.logical_bytes, physical=mesh.physical_bytes,
+                          positions=mesh.size, cards=mesh.physical_count(),
+                          psums=mesh.count("psum"), moves=mesh.count("reshard")))
+        if not ok:
+            fail(f"mesh {mesh_run_name(run)}: rel_err {err:.3e} (limit {limit:.0e}), "
+                 f"shape {tuple(out.shape)} {out.dtype}, strassen1 launches {launched} "
+                 f"(want {want_launches})")
+        del out, mesh
+    launches = strassen1_matmul_cuda.launches
+    log(f"mesh path launches: strassen1 {launches}")
+    if launches <= 0:
+        fail("strassen1 was not launched on the mesh path")
+    for st in stats:
+        run = st["run"]
+        _, name, shape, names, kw, x, w = run
+        mesh = make_mesh(shape, names, device=DEVICE)
+        fn = distributed.get_strategy(name)
+        ms = time_ms(lambda: fn(x, w, mesh=mesh, **kw), reps)
+        n = x.shape[0]
+        log(f"mesh {mesh_run_name(run)}: {ms:.3f} ms, {2 * n**3 / ms / 1e9:.2f} TFLOP/s-equivalent "
+            f"(2N^3), rel_err={st['err']:.3e} limit={st['limit']:.0e}, peak_mem={st['peak']:.2f} "
+            f"GiB, collective bytes logical {st['logical'] / 2**30:.4f} GiB physical "
+            f"{st['physical']} B ({st['psums']} psum, {st['moves']} reshards), "
+            f"{st['positions']} positions on {st['cards']} card(s), strassen1 launches "
+            f"{st['launched']} {'ok' if st['ok'] else 'FAIL'}")
+        del mesh
+    return fused
+
+
+def phase_mesh_stripes(a, b, reps: int, launches: dict) -> list:
+    """(m6) strassen1 at the row stripe of one position of the (4, 2) mesh,
+    against its plain version, torch.matmul of the same stripe and the bound;
+    returns the JSON entries."""
+    s = get_scheme("strassen")
+    rows = a.shape[0] // 8
+    entries = []
+    for depth in (1, 2):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = a[:rows].to(dtype), b.to(dtype)
+            if depth == 1:
+                ta, tb = x[None], w[None]
+                library = lambda: torch.matmul(x, w)  # noqa: E731
+            else:
+                ta, tb = divide_level(x[None], s.a_coef), divide_level(w[None], s.b_coef)
+                library = lambda: torch.bmm(ta, tb)  # noqa: E731
+            aq, bq = split_quadrants(ta), split_quadrants(tb)
+            mb, _, m2, k2 = aq.shape
+            n2 = bq.shape[3]
+            ops = 2 * s.n_mults * mb * m2 * k2 * n2
+            moved = nbytes(aq, bq) + mb * 4 * m2 * n2 * aq.element_size()
+            tag = str(dtype)[6:]
+            stats = time_kernel(
+                f"strassen1 {tag} {tuple(aq.shape)} x {tuple(bq.shape)} (mesh stripe, depth {depth})",
+                lambda: strassen1_matmul_cuda(aq, bq, scheme=s),
+                lambda: strassen1_matmul_ref(aq, bq, s), library, ops, moved, dtype, "mm", reps)
+            fname = "strassen1_matmul_cuda"
+            entries.append({"name": f"{fname} (mesh stripe {tuple(aq.shape)} {tag})",
+                            "route": "cuda", "source": SOURCES[fname], "replaces": REPLACES[fname],
+                            "launches": launches.get((depth, dtype), 0), **stats})
+            del x, w, ta, tb, aq, bq
+    return entries
+
+
+def phase_mesh_auto(a, b, ref, calib: autotune.Calibration) -> None:
+    """(m7) Kind auto over the (4, 2) mesh at N^2 fp32: calibrate_collective,
+    each mesh candidate's predicted ms and cost terms against its measured
+    ms, and the decision. The model counts the mesh as 8 devices, as the
+    reference's does; on one card its positions run one after another."""
+    mesh = make_mesh((4, 2), ("data", "model"), device=DEVICE)
+    t = time.perf_counter()
+    coll = autotune.calibrate_collective(device=DEVICE)
+    cards = torch.cuda.device_count()
+    log(f"mesh m7 calibrate_collective over {cards} card(s): t_coll={coll:.4e} s in "
+        f"{time.perf_counter() - t:.3f} s")
+    if (cards == 1) != (coll == 0.0):
+        fail(f"calibrate_collective: {coll} on {cards} card(s)")
+    n = a.shape[0]
+    measured = {}
+    for cand in autotune.enumerate_candidates(n, n, n, mesh=mesh, **AUTO_TUNE, device=DEVICE):
+        terms = autotune.predict_cost_terms(cand, n, n, n, calib, device_count=mesh.size)
+        split = ", ".join(f"{k} {v * 1e3:.3f}" for k, v in terms.items() if v)
+        predicted = sum(terms.values()) * 1e3
+        if cand.is_local:
+            log(f"mesh m7 local candidate {cand_name(cand)}: predicted {predicted:.3f} ms ({split})")
+            continue
+        before = strassen1_matmul_cuda.launches
+        err = rel_err(autotune.execute(cand, a, b, mesh=mesh), ref)
+        launched = strassen1_matmul_cuda.launches - before
+        ms = time_ms(lambda: autotune.execute(cand, a, b, mesh=mesh), AUTO_REPS)
+        measured[cand] = ms
+        limit = route_limit(cand, torch.float32)
+        want = mesh.size if cand.kind == "strassen_fused_sharded" else 0
+        ok = err <= limit and launched == want
+        log(f"mesh m7 candidate {n}^2 fp32 {cand.scheme} {cand_name(cand)}: predicted "
+            f"{predicted:.3f} ms ({split}), measured {ms:.3f} ms, rel_err={err:.3e} "
+            f"limit={limit:.3g}, strassen1 launches {launched} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"mesh m7 candidate {cand_name(cand)}: rel_err {err:.3e}, {launched} launches")
+    d = autotune.autotune(n, n, n, torch.float32, calibration=calib, mesh=mesh, **AUTO_TUNE,
+                          telemetry=autotune.Telemetry(), device=DEVICE)
+    ms = measured.get(d.candidate)
+    if ms is None:
+        ms = time_ms(lambda: autotune.execute(d.candidate, a, b, mesh=mesh), AUTO_REPS)
+    best = min(measured, key=measured.get)
+    log(f"mesh m7 decision {n}^2 fp32 on {dict(mesh.shape)} ({mesh.size} devices in the model): "
+        f"{d.scheme} {cand_name(d.candidate)}, predicted {d.predicted_s * 1e3:.3f} ms, measured "
+        f"{ms:.3f} ms; fastest measured mesh candidate {best.scheme} {cand_name(best)} at "
+        f"{measured[best]:.3f} ms")
 
 
 def phase_auto_serve(cfg, params, prompts: list) -> None:
@@ -1868,10 +2072,16 @@ def main() -> int:
     del runs
     entries = phase_timing(a, b, args.reps, counts)
     phase_breakdown(a, b, args.reps)
-    phase_auto(a, b, a16, b16, refs)
-    del a, b, a16, b16, ref32, ref16, refs
+    calib = phase_auto(a, b, a16, b16, refs)
     torch.cuda.empty_cache()
     log(f"Strassen path done at {time.perf_counter() - t0:.1f} s")
+
+    launches = phase_mesh(mesh_runs(a, b, a16, b16), refs, args.reps)
+    entries += phase_mesh_stripes(a, b, args.reps, launches)
+    phase_mesh_auto(a, b, ref32, calib)
+    del a, b, a16, b16, ref32, ref16, refs
+    torch.cuda.empty_cache()
+    log(f"mesh path done at {time.perf_counter() - t0:.1f} s")
 
     phase_oot(args.seed, args.reps)
     phase_oot_oom(args.seed)

@@ -1,6 +1,6 @@
 """Shape-aware autotuning dispatcher behind ``MatmulBackend(kind="auto")``.
 
-The port of :mod:`repro.core.autotune` for one device. The paper's core
+The port of :mod:`repro.core.autotune`. The paper's core
 empirical result (§V-C) is a *crossover*: Strassen's 7-multiplication scheme
 only beats the naive path once matrix dims are large relative to the leaf
 block, and the §IV stage-wise model predicts where. This module turns that
@@ -10,11 +10,16 @@ calibration and prediction loop into a dispatcher:
    ``bmm`` and one :func:`~repro_torch.core.strassen.divide_level`, and fits
    ``t_flop`` (seconds per scalar multiply-add) and ``t_elem`` (seconds per
    element through a divide/combine level); :func:`calibrate_h2d` fits
-   ``t_h2d`` from a host->device->host round trip.
+   ``t_h2d`` from a host->device->host round trip and
+   :func:`calibrate_collective` ``t_coll`` from an all-gather +
+   psum-scatter round trip over the physical devices (0.0 on one).
 2. :func:`enumerate_candidates` lists every strategy that can legally run a
    given (M, K, N): naive ``torch.matmul``, batched-BFS Strassen/Winograd at
-   each usable depth, and ``strassen_fused`` (the ``strassen1`` kernel)
-   where :func:`repro_torch.core.compat.fused_leaf_mode` says it runs.
+   each usable depth, ``strassen_fused`` (the ``strassen1`` kernel) where
+   :func:`repro_torch.core.compat.fused_leaf_mode` says it runs, and with a
+   ``mesh`` every registered strategy of
+   :data:`repro_torch.core.distributed.MESH_STRATEGIES` whose requirement
+   holds.
 3. :func:`predict_seconds` costs each candidate with the calibrated stage
    model; :func:`autotune` picks the argmin, or with ``measure=True`` times
    the top-k candidates on the device and records the measured winner.
@@ -23,19 +28,20 @@ calibration and prediction loop into a dispatcher:
    the other's lookups on the same platform.
 
 The model, its constants' meaning and every decision rule are the
-reference's, the out-of-core ``strassen_oot`` family under ``oot_budget``
-(priced with ``t_h2d``, discounted for the wave pipeline's overlap) and the
-solver families (:func:`autotune_solver`) included. Not ported yet, and
-refused with :class:`NotImplementedError` rather than answered by another
-candidate: the mesh strategies and ``calibrate_collective`` (``mesh=``;
-ROADMAP.md queue 1 item 8). On one device the reference's ``t_coll`` is 0.0
-and its device count 1, and so are the port's.
+reference's: the mesh family (a mesh counts as ``mesh.size`` devices, with
+the interconnect priced at ``t_coll``), the out-of-core ``strassen_oot``
+family under ``oot_budget`` (priced with ``t_h2d``, discounted for the wave
+pipeline's overlap) and the solver families (:func:`autotune_solver`)
+included. On one card a mesh's positions run one after another, so the
+model's leaf parallelism over the mesh is the reference's assumption, not
+the card's.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import tempfile
 import time
@@ -58,6 +64,7 @@ __all__ = [
     "Telemetry",
     "TelemetryEvent",
     "calibrate",
+    "calibrate_collective",
     "calibrate_h2d",
     "get_calibration",
     "calibration_snapshot",
@@ -97,7 +104,6 @@ OOT_KIND = "strassen_oot"
 # the ~8 the scheduler needs before fill/drain amortizes. Used by
 # predict_cost_terms when ``oot_overlap`` is on.
 OOT_OVERLAP_EXPOSED_FRACTION = 0.125
-_MESH_ITEM = "ROADMAP.md queue 1 item 8 (core/distributed.py, the mesh strategies)"
 
 
 def _oot_pipeline_fits(
@@ -119,17 +125,13 @@ def _oot_pipeline_fits(
     return pipelined_leaf_bytes(m, k, n, depth, dtype_name(dtype)) <= oot_budget
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"autotune over a mesh is not ported to repro_torch yet: see {_MESH_ITEM}")
-
-
-def _refuse_kind(cand: "Candidate") -> None:
-    """The mesh kinds are neither priced nor run here."""
-    if not cand.is_local and cand.kind != OOT_KIND:
-        raise NotImplementedError(
-            f"candidate kind {cand.kind!r} is not ported to repro_torch yet: see {_MESH_ITEM}"
-        )
+def _mesh_device(mesh, device) -> torch.device:
+    """The device a mesh's resolution runs on: its positions' type, which
+    ``device`` must share."""
+    dev = torch.device(device)
+    if mesh is not None and mesh.device.type != dev.type:
+        raise ValueError(f"mesh on {mesh.device.type} but device={dev}")
+    return dev
 
 
 def device_platform(device: str | torch.device) -> str:
@@ -151,7 +153,7 @@ def dtype_name(dtype) -> str:
 class Candidate:
     """One executable strategy instance for a fixed (M, K, N)."""
 
-    kind: str  # 'naive' | scheme name (local BFS) | 'strassen_fused' | 'strassen_oot'
+    kind: str  # 'naive' | scheme name (local BFS) | 'strassen_fused' | 'strassen_oot' | mesh strategy
     scheme: str = "strassen"
     depth: int = 0
 
@@ -251,15 +253,60 @@ def calibrate_h2d(
     return t / (2.0 * sample_dim * sample_dim)
 
 
+def _physical_count(device: str | torch.device) -> int:
+    """Visible devices of ``device``'s type (the CPU counts as one)."""
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+
+
+def calibrate_collective(
+    sample_dim: int = 512, repeats: int = 3, *, mesh=None, device: str | torch.device = "cuda"
+) -> float:
+    """Fit ``t_coll`` from an all-gather + psum-scatter micro-benchmark.
+
+    A row-sharded (positions * rows, sample_dim) fp32 tensor makes one
+    all-gather and one psum-scatter round trip over a 1-D mesh of the
+    physical devices of ``device``'s type (or over every axis of ``mesh``):
+    the two collectives the mesh strategies' reshards and psums are made
+    of. The fit is seconds per element through a collective. Returns 0.0
+    on a single device or position. A given mesh's traffic totals are
+    restored afterwards. The timing synchronizes position 0's device only;
+    copies queued on other cards are not awaited, and no run has tested
+    this on more than one card.
+    """
+    from repro_torch.core.mesh import P, make_mesh, shard
+
+    if mesh is None:
+        count = _physical_count(device)
+        if count < 2:
+            return 0.0
+        mesh = make_mesh((count,), ("coll",), device=device)
+    if mesh.size < 2:
+        return 0.0
+    axes = mesh.axis_names
+    rows = max(1, sample_dim // mesh.size) * mesh.size
+    traffic = dict(mesh.traffic)
+    x = shard(torch.ones((rows, sample_dim), device=mesh.device), mesh, P(axes, None))
+
+    def roundtrip():
+        g = mesh.all_gather(x.locals, axes)
+        return mesh.psum_scatter(g, axes)
+
+    t = _time_best(roundtrip, repeats, mesh.device)
+    mesh.traffic = traffic
+    # Two full passes of the tensor through the collectives (gather + scatter).
+    return t / (2.0 * rows * sample_dim)
+
+
 def calibrate(
     sample_dim: int = 256, repeats: int = 3, device: str | torch.device = "cuda"
 ) -> Calibration:
-    """Fit (t_flop, t_elem, t_h2d) from micro-benchmarks on ``device``.
+    """Fit (t_flop, t_elem, t_coll, t_h2d) from micro-benchmarks on ``device``.
 
     Leaf benchmark: a rank-7 ``bmm``, the shape of the BFS leaf stage.
     Divide benchmark: one :func:`divide_level`, the divide/combine stage.
-    Both mirror the paper's implicit calibration. ``t_coll`` is 0.0 and the
-    device count 1, as the reference computes them on one device.
+    Both mirror the paper's implicit calibration. The device count is the
+    number of visible devices of ``device``'s type, and ``t_coll``
+    (:func:`calibrate_collective`) is 0.0 on one.
     """
     d = sample_dim
     scheme = get_scheme("strassen")
@@ -280,8 +327,8 @@ def calibrate(
         t_flop=float(t_flop),
         t_elem=float(t_elem),
         device_kind=device_platform(device),
-        device_count=1,
-        t_coll=0.0,
+        device_count=_physical_count(device),
+        t_coll=float(calibrate_collective(repeats=repeats, device=device)),
         t_h2d=float(calibrate_h2d(repeats=repeats, device=device)),
     )
 
@@ -365,15 +412,18 @@ def enumerate_candidates(
 
     ``strassen_fused`` enumerates whenever the fused kernel runs on
     ``device``, per :func:`repro_torch.core.compat.fused_leaf_mode` (which
-    raises if the kernel fails to build or launch on the card). ``mesh``
-    raises :class:`NotImplementedError`.
+    raises if the kernel fails to build or launch on the card). With a
+    ``mesh`` (whose positions must lie on ``device``'s type) every
+    registered strategy whose requirement holds enumerates: the
+    ``strassen_shardmap*`` renditions at depth 1, the others at each usable
+    depth.
 
     ``oot_budget`` (device bytes) enables the ``strassen_oot`` out-of-core
     family: one candidate per scheme at every depth whose single leaf fits
     the budget — including depths the in-core rules reject (odd dims: the
     block runtime pads), which is the whole point of the pipeline.
     """
-    _refuse_mesh(mesh)
+    device = _mesh_device(mesh, device)
     cands = [Candidate(kind="naive")]
     depths = [d for d in range(1, max_depth + 1) if _usable_depth(m, k, n, d, min_dim)]
     for scheme in schemes:
@@ -382,6 +432,17 @@ def enumerate_candidates(
     if depths and "strassen" in schemes and compat.fused_leaf_mode(device) != "none":
         for d in depths:
             cands.append(Candidate(kind=FUSED_KIND, scheme="strassen", depth=d))
+    if mesh is not None and depths:
+        from repro_torch.core.distributed import available_strategies
+
+        for scheme in schemes:
+            for name in available_strategies(mesh, scheme):
+                if name.startswith("strassen_shardmap"):
+                    # explicit one-level renditions
+                    cands.append(Candidate(kind=name, scheme=scheme, depth=1))
+                else:
+                    for d in depths:
+                        cands.append(Candidate(kind=name, scheme=scheme, depth=d))
     if oot_budget:
         from repro_torch.blocks.scheduler import leaf_bytes, min_depth_for_budget
 
@@ -429,17 +490,18 @@ def predict_cost_terms(
     n: int,
     calib: Calibration,
     *,
+    device_count: int = 1,
     oot_overlap: bool = True,
 ) -> Dict[str, float]:
     """Per-constant cost decomposition of one candidate's predicted seconds.
 
     Returns ``{"t_flop": ..., "t_elem": ..., "t_coll": ..., "t_h2d": ...}``,
     the seconds attributed to each calibrated constant, summing to
-    :func:`predict_seconds`. The reference's arithmetic on one device,
-    operation for operation; the mesh kinds raise
-    :class:`NotImplementedError`. On one device no local kind touches the
-    interconnect or the host link, so their ``t_coll`` and ``t_h2d`` stay
-    0.0; the out-of-core kind prices its staging at ``t_h2d``.
+    :func:`predict_seconds`. The reference's arithmetic, operation for
+    operation. Local kinds never touch the interconnect; the mesh kinds
+    (and naive over ``device_count`` > 1) price their collective element
+    traffic at ``t_coll`` (``t_elem`` where it is 0.0); the out-of-core
+    kind prices its staging at ``t_h2d``.
 
     ``oot_overlap`` models the scheduler's async wave pipeline (its
     default): staging traffic that fits under the leaf compute is hidden,
@@ -448,16 +510,20 @@ def predict_cost_terms(
     (:data:`OOT_OVERLAP_EXPOSED_FRACTION` of the hidden portion). Pass
     ``oot_overlap=False`` to price the synchronous loop (``prefetch=False``).
     """
-    _refuse_kind(cand)
     flops_naive = 2.0 * m * k * n
+    t_coll = calib.t_coll if calib.t_coll > 0.0 else calib.t_elem
     terms = {"t_flop": 0.0, "t_elem": 0.0, "t_coll": 0.0, "t_h2d": 0.0}
     if cand.is_naive:
-        terms["t_flop"] = flops_naive * calib.t_flop
+        # On a mesh the naive matmul 2D-parallelizes fully, but pays the
+        # SUMMA panel broadcasts (MLLib's coGroup shuffle, paper Table I).
+        terms["t_flop"] = flops_naive * calib.t_flop / max(device_count, 1)
+        if device_count > 1:
+            terms["t_coll"] = k * (m + n) * math.sqrt(device_count) * t_coll
         return terms
 
     rank = get_scheme(cand.scheme).n_mults
     l = cand.depth
-    fused = cand.kind == FUSED_KIND
+    fused = cand.kind in (FUSED_KIND, "strassen_fused_sharded")
     # Levels whose intermediates are materialized: all l for the einsum
     # pipelines, l-1 when the last level runs inside the fused kernel.
     lm = l - 1 if fused else l
@@ -494,26 +560,73 @@ def predict_cost_terms(
         terms["t_h2d"] = h2d_s
         return terms
 
-    terms["t_flop"] = leaf_flops * calib.t_flop
-    terms["t_elem"] = elem_cost * calib.t_elem
+    coll_cost = 0.0
+    if cand.is_local:
+        leaf_pf = 1.0
+        elem_pf = 1.0
+        elem_key = "t_elem"
+        t_comm = calib.t_elem
+    elif cand.kind == "strassen_fused_sharded":
+        # Row-parallel over every mesh axis: every stage runs per position
+        # on local stripes; the only interconnect term is replicating B.
+        leaf_pf = float(device_count)
+        elem_pf = float(device_count)
+        elem_key = "t_elem"
+        t_comm = calib.t_elem
+        coll_cost = k * n * t_coll
+    elif cand.kind == "strassen_2d":
+        # 2D-parallel leaves spread each block product over the mesh; the
+        # leaf batch stays whole, and divide/combine traffic reshards.
+        leaf_pf = float(device_count)
+        elem_pf = 1.0
+        elem_key = "t_coll"
+        t_comm = t_coll
+    elif cand.kind.startswith("strassen_shardmap"):
+        # one explicit BFS level over the whole grid; combine is one psum of C.
+        leaf_pf = float(device_count)
+        elem_pf = 1.0
+        elem_key = "t_coll"
+        t_comm = t_coll
+    else:  # strassen_bfs_sharded and future BFS-batch strategies
+        leaf_pf = float(min(rank**l, device_count))
+        elem_pf = 1.0
+        elem_key = "t_coll"
+        t_comm = t_coll
+    terms["t_flop"] = leaf_flops * calib.t_flop / leaf_pf
+    terms[elem_key] += elem_cost * t_comm / elem_pf
+    terms["t_coll"] += coll_cost
     return terms
 
 
 def predict_seconds(
-    cand: Candidate, m: int, k: int, n: int, calib: Calibration, *, oot_overlap: bool = True
+    cand: Candidate,
+    m: int,
+    k: int,
+    n: int,
+    calib: Calibration,
+    *,
+    device_count: int = 1,
+    oot_overlap: bool = True,
 ) -> float:
     """Predicted seconds of one multiply under the calibrated model.
 
     Each divide/combine level costs its output-element traffic times a
     per-element constant; the leaf stage costs its flops times t_flop over
-    the leaf parallelization factor, 1 on one device (where the library
-    matmul already uses the whole device, which is what t_flop measures).
-    Fused candidates skip the last level's materialized traffic.
+    the leaf parallelization factor (the paper's PF, min'd with
+    ``device_count``), 1 for single-program candidates (the library matmul
+    already uses the whole device, which is what t_flop measures). Element
+    traffic that crosses the interconnect (mesh reshards, combine psums,
+    SUMMA panel broadcasts) is priced at ``t_coll`` (``t_elem`` where it
+    is 0.0). Fused candidates skip the last level's materialized traffic.
     Out-of-core candidates add the host<->device staging term priced at
-    ``t_h2d`` — discounted to the exposed traffic when ``oot_overlap`` is
+    ``t_h2d``, discounted to the exposed traffic when ``oot_overlap`` is
     on. See :func:`predict_cost_terms` for the per-constant decomposition.
     """
-    return sum(predict_cost_terms(cand, m, k, n, calib, oot_overlap=oot_overlap).values())
+    return sum(
+        predict_cost_terms(
+            cand, m, k, n, calib, device_count=device_count, oot_overlap=oot_overlap
+        ).values()
+    )
 
 
 # --------------------------------------------------------------------------
@@ -531,16 +644,16 @@ def execute(
     oot_budget: Optional[int] = None,
     device: str | torch.device | None = None,
 ) -> torch.Tensor:
-    """Run one candidate on a's device.
+    """Run one candidate on a's device. Raises KeyError for unknown mesh strategy names.
 
     ``strassen_fused`` runs the port's fused pipeline, whose last level is
     the ``strassen1`` kernel on the card. ``strassen_oot`` candidates run
     the host-resident block pipeline with their leaves on ``device``
     (default: a's device) and return the product there; ``oot_budget`` caps
     their device bytes, defaulting to one single-leaf pipelined wave slot.
-    The mesh kinds raise :class:`NotImplementedError`.
+    A mesh strategy runs on ``mesh`` (global operands in, global product on
+    the mesh's position 0).
     """
-    _refuse_mesh(mesh)
     if cand.is_naive:
         with matmul_precision(precision):
             return torch.matmul(a, b)
@@ -569,10 +682,17 @@ def execute(
         return strassen_matmul_fused(
             a, b, depth=cand.depth, scheme_name=cand.scheme, precision=precision
         )
-    _refuse_kind(cand)
-    return strassen_matmul(
-        a, b, depth=cand.depth, scheme=cand.scheme, precision=precision
-    )
+    if cand.kind in LOCAL_SCHEMES:
+        return strassen_matmul(
+            a, b, depth=cand.depth, scheme=cand.scheme, precision=precision
+        )
+    from repro_torch.core.distributed import get_strategy
+
+    fn = get_strategy(cand.kind)
+    kwargs = {"mesh": mesh, "scheme": cand.scheme, "precision": precision}
+    if not cand.kind.startswith("strassen_shardmap"):
+        kwargs["depth"] = cand.depth
+    return fn(a, b, **kwargs)
 
 
 def measure_seconds(
@@ -591,9 +711,10 @@ def measure_seconds(
     """Time one candidate end to end on ``device`` (warm-up excluded).
 
     An out-of-core candidate's operands start on the host, as the
-    reference's do, and its leaves run on ``device``.
+    reference's do, and its leaves run on ``device``; a mesh candidate runs
+    on ``mesh`` from operands on ``device``.
     """
-    _refuse_mesh(mesh)
+    device = _mesh_device(mesh, device)
     gen = torch.Generator(device=device).manual_seed(0)
     dt = getattr(torch, dtype_name(dtype))
     a = torch.randn((m, k), generator=gen, device=device).to(dt)
@@ -601,7 +722,8 @@ def measure_seconds(
     if cand.kind == OOT_KIND:
         a, b = a.cpu(), b.cpu()
     return _time_best(
-        lambda: execute(cand, a, b, precision=precision, oot_budget=oot_budget, device=device),
+        lambda: execute(cand, a, b, precision=precision, mesh=mesh, oot_budget=oot_budget,
+                        device=device),
         repeats, device,
     )
 
@@ -841,10 +963,18 @@ def autotune(
     predicted mode a tagged miss falls back to the shape-only entry, but
     measured mode never does. ``telemetry`` records the resolution to a
     caller-owned log instead of the process one. ``oot_budget`` (device
-    bytes) adds the out-of-core family (:func:`enumerate_candidates`);
-    ``mesh`` raises :class:`NotImplementedError`.
+    bytes) adds the out-of-core family (:func:`enumerate_candidates`).
+    A ``mesh`` adds its strategies and counts as ``mesh.size`` devices in
+    the model and the key (topo ``"mesh" + "x".join(shape)``); its positions
+    must lie on ``device``'s type.
     """
-    _refuse_mesh(mesh)
+    device = _mesh_device(mesh, device)
+    if mesh is not None:
+        device_count = mesh.size
+        topo = "mesh" + "x".join(str(s) for s in mesh.devices.shape)
+    else:
+        device_count = 1
+        topo = "local"
     tel = telemetry if telemetry is not None else _TELEMETRY
     # Every resolution is a span: cache hits close immediately with
     # cache_hit=True; fresh decisions carry the predicted cost-term
@@ -855,11 +985,11 @@ def autotune(
     )
     key_kwargs = dict(
         device_kind=device_platform(device),
-        device_count=1,
+        device_count=device_count,
         schemes=schemes,
         min_dim=min_dim,
         max_depth=max_depth,
-        topo="local",
+        topo=topo,
         oot_budget=oot_budget,
     )
     key = cache_key(m, k, n, dtype, site=site, **key_kwargs)
@@ -867,7 +997,7 @@ def autotune(
         hit = cache.get(key)
         if hit is None and site and not measure:
             hit = cache.get(cache_key(m, k, n, dtype, **key_kwargs))
-        if hit is not None and hit.kind == FUSED_KIND:
+        if hit is not None and hit.kind in (FUSED_KIND, "strassen_fused_sharded"):
             # Re-validate fused decisions against THIS device: a cache warmed
             # where the kernel ran must not route to it where it cannot.
             if compat.fused_leaf_mode(device) == "none":
@@ -898,7 +1028,7 @@ def autotune(
 
     calib = calibration or _stored_calibration(cache, device) or get_calibration(device)
     cands = enumerate_candidates(
-        m, k, n, schemes=schemes, max_depth=max_depth, min_dim=min_dim,
+        m, k, n, schemes=schemes, max_depth=max_depth, min_dim=min_dim, mesh=mesh,
         oot_budget=oot_budget, dtype=dtype, device=device,
     )
 
@@ -911,25 +1041,28 @@ def autotune(
             m, k, n, c.depth, dtype, oot_budget
         )
 
-    scored = sorted(
-        cands, key=lambda c: predict_seconds(c, m, k, n, calib, oot_overlap=_overlap(c))
-    )
+    def _predict(c: Candidate) -> float:
+        return predict_seconds(
+            c, m, k, n, calib, device_count=device_count, oot_overlap=_overlap(c)
+        )
+
+    scored = sorted(cands, key=_predict)
     best = scored[0]
-    predicted = predict_seconds(best, m, k, n, calib, oot_overlap=_overlap(best))
+    predicted = _predict(best)
     measured = None
     if measure:
         timed = [
             (
                 measure_seconds(
-                    c, m, k, n, dtype, precision=precision, oot_budget=oot_budget,
-                    device=device,
+                    c, m, k, n, dtype, mesh=mesh, precision=precision,
+                    oot_budget=oot_budget, device=device,
                 ),
                 c,
             )
             for c in scored[: max(top_k, 1)]
         ]
         measured, best = min(timed, key=lambda t: t[0])
-        predicted = predict_seconds(best, m, k, n, calib, oot_overlap=_overlap(best))
+        predicted = _predict(best)
 
     decision = Decision(
         kind=best.kind,
@@ -949,7 +1082,9 @@ def autotune(
         )
         cache.put(store_key, decision)
         cache.save()
-    terms = predict_cost_terms(best, m, k, n, calib, oot_overlap=_overlap(best))
+    terms = predict_cost_terms(
+        best, m, k, n, calib, device_count=device_count, oot_overlap=_overlap(best)
+    )
     tel.record(
         TelemetryEvent(
             key=key,

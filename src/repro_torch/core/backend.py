@@ -17,7 +17,7 @@ its leaf multiplies through the budget on the operands' device.
 :func:`inverse` and :func:`solve_triangular` route the solver ops: one dense
 library call, or the SPIN block-recursive pipeline over the same runtime.
 The sharding hook ``w_logical`` is accepted and ignored: the port has no
-sharding context yet (ROADMAP.md queue 1 item 8), and with none the JAX
+sharding context yet (ROADMAP.md queue 1 item 9.6), and with none the JAX
 package's ``constrain`` is the identity too.
 """
 from __future__ import annotations
@@ -263,7 +263,7 @@ def matmul(
       backend: routing config.
       w_logical: sharding names of w's dims, as the JAX package takes them.
         Ignored: with no sharding context (the port has none until ROADMAP.md
-        queue 1 item 8) the JAX package ignores them too.
+        queue 1 item 9.6) the JAX package ignores them too.
       site: optional call-site tag ("attn.wq", "mlp.up", ...), recorded on
         the span; for kind 'auto' it keys the decision (and its persistent
         cache entry) per call site.

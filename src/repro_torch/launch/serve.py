@@ -15,7 +15,9 @@ Parameters are random, drawn on the device from ``--seed`` in the config's
 dtype. ``--backend auto`` routes every projection through the autotune
 dispatcher; ``--trace-out`` writes a Chrome/Perfetto trace of the run's spans
 (the ``autotune.resolve`` and ``backend.matmul`` spans among them).
-``--mesh`` (ROADMAP.md queue 1 item 8) is not ported and raises.
+``--mesh`` (sharded model execution, ROADMAP.md queue 1 item 9.6) is not
+ported and raises; the mesh strategies themselves run in
+:mod:`repro_torch.core.distributed`.
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
                     "gang-schedules full batches (baseline)")
     ap.add_argument("--request-timeout", type=float, default=0.0,
                     help="per-request watchdog seconds; 0 disables")
-    ap.add_argument("--mesh", action="store_true", help="not ported (ROADMAP.md queue 1 item 8)")
+    ap.add_argument("--mesh", action="store_true", help="not ported (ROADMAP.md queue 1 item 9.6)")
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", choices=list(JIT_SAFE_KINDS), default=None,
@@ -77,7 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.mesh:
-        raise NotImplementedError("--mesh is not ported to repro_torch yet: see ROADMAP.md queue 1 item 8")
+        raise NotImplementedError(
+            "--mesh (sharded model execution) is not ported to repro_torch yet: "
+            "see ROADMAP.md queue 1 item 9.6")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("repro_torch.launch.serve: no CUDA device; pass --device cpu to serve on the CPU",

@@ -9,9 +9,9 @@ Two parts, on the CPU:
   package answers the other's lookups, and ``kind='auto'`` products agree
   within ``tests/test_autotune.py``'s tolerances (3e-3 fp32, 1.5e-1 bf16).
 * The reference's own tests (``tests/test_autotune.py``) mirrored on the
-  port, except those that need a mesh (``test_mesh_*``,
-  ``test_fused_sharded_*``, ``test_calibrate_collective_*``): the mesh
-  strategies are not ported and must raise.
+  port, its mesh tests included: on CPU meshes of positions against the
+  reference's meshes of conftest's host devices, the candidates, cost
+  terms, decisions and ``mesh4x2`` cache keys are equal with ``==``.
 * The out-of-core ``strassen_oot`` family and the solver families: under a
   pinned calibration their candidates, cost terms (``t_h2d`` with and
   without the pipeline's overlap discount), decisions and cache keys equal
@@ -502,48 +502,58 @@ def test_fused_predicted_cheaper_than_unfused_strassen():
 
 
 def test_t_coll_monotonicity():
-    """The candidates the port prices are the local ones of one device: none
-    touches the interconnect constant, so their predictions stay constant in
-    t_coll, as the reference's local predictions do. The mesh strategies,
-    whose predictions grow with t_coll, are refused (queue 1 item 8)."""
-    n = 4096
-    t_colls = [0.0, 1e-9, 4e-9, 1.6e-8, 6.4e-8]
-    for cand in enumerate_candidates(n, n, n, min_dim=1, max_depth=2, **CPU):
-        costs = {predict_seconds(cand, n, n, n, dataclasses.replace(CALIB, t_coll=tc))
-                 for tc in t_colls}
-        want = {ja.predict_seconds(ja.Candidate(*_fields(cand)), n, n, n,
-                                   dataclasses.replace(_jcal(CALIB), t_coll=tc)) for tc in t_colls}
-        assert costs == want and len(costs) == 1, (cand, costs, want)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        predict_seconds(Candidate(kind="strassen_2d", depth=2), n, n, n, CALIB)
+    """As the reference's: mesh-strategy predictions (and naive over a mesh)
+    strictly increase with t_coll, local candidates never touch it; every
+    prediction is the reference's with ==."""
+    n, dc = 4096, 8
+    mesh_kinds = [
+        Candidate(kind="strassen_bfs_sharded", scheme="strassen", depth=2),
+        Candidate(kind="strassen_2d", scheme="strassen", depth=2),
+        Candidate(kind="strassen_fused_sharded", scheme="strassen", depth=2),
+        Candidate(kind="strassen_shardmap_3d", scheme="strassen", depth=1),
+        Candidate(kind="naive"),
+    ]
+    local_kinds = [
+        Candidate(kind="strassen", scheme="strassen", depth=2),
+        Candidate(kind="strassen_fused", scheme="strassen", depth=2),
+    ]
+    t_colls = [1e-9, 4e-9, 1.6e-8, 6.4e-8]
+
+    def costs(cand):
+        got = [predict_seconds(cand, n, n, n, dataclasses.replace(CALIB, t_coll=tc, device_count=dc),
+                               device_count=dc) for tc in t_colls]
+        want = [ja.predict_seconds(ja.Candidate(*_fields(cand)), n, n, n,
+                                   dataclasses.replace(_jcal(CALIB), t_coll=tc, device_count=dc),
+                                   device_count=dc) for tc in t_colls]
+        assert got == want, cand
+        return got
+
+    for cand in mesh_kinds:
+        got = costs(cand)
+        assert all(a < b for a, b in zip(got, got[1:])), (cand.kind, got)
+    for cand in local_kinds:
+        assert len(set(costs(cand))) == 1, cand
 
 
 def test_t_coll_zero_falls_back_to_t_elem():
     """A calibration without t_coll (t_coll=0, what calibrate() gives on one
-    device) prices every candidate as one with t_coll = t_elem does, in the
-    port and in the reference alike."""
+    device) prices every candidate, a mesh's included, as one with t_coll =
+    t_elem does, in the port and in the reference alike."""
     explicit = dataclasses.replace(CALIB, t_coll=CALIB.t_elem)
-    for cand in enumerate_candidates(2048, 2048, 2048, min_dim=1, max_depth=3, **CPU):
-        base = predict_seconds(cand, 2048, 2048, 2048, CALIB)
-        assert base == predict_seconds(cand, 2048, 2048, 2048, explicit)
-        assert base == ja.predict_seconds(ja.Candidate(*_fields(cand)), 2048, 2048, 2048,
-                                          _jcal(explicit))
+    for dc in (1, 8):
+        for cand in enumerate_candidates(2048, 2048, 2048, min_dim=1, max_depth=3, **CPU) + [
+            Candidate(kind="strassen_bfs_sharded", scheme="strassen", depth=1),
+            Candidate(kind="strassen_shardmap", scheme="winograd", depth=1),
+        ]:
+            base = predict_seconds(cand, 2048, 2048, 2048, CALIB, device_count=dc)
+            assert base == predict_seconds(cand, 2048, 2048, 2048, explicit, device_count=dc)
+            assert base == ja.predict_seconds(ja.Candidate(*_fields(cand)), 2048, 2048, 2048,
+                                              _jcal(explicit), device_count=dc)
 
 
-def test_mesh_and_oot_raise_not_implemented():
-    """In place of the mesh tests: a mesh names the ROADMAP item that ports
-    it, and no other candidate is picked instead. The out-of-core family
-    once raised here too (queue 1 item 6); it is ported now, and its
-    decision and product under a budget are the reference's."""
-    for fn in (autotune.autotune, enumerate_candidates):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            fn(512, 512, 512, mesh=object(), **CPU)
-    x = _rand((64, 64))
-    for kind in ("strassen_bfs_sharded", "strassen_fused_sharded"):
-        for fn in (lambda c: autotune.execute(c, x, x),
-                   lambda c: autotune.predict_cost_terms(c, 512, 512, 512, CALIB)):
-            with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-                fn(Candidate(kind=kind, depth=1))
+def test_oot_decision_and_product_under_a_budget():
+    """The out-of-core family under a budget the dense working set does not
+    fit: the decision and the product are the reference's."""
     budget = 3 * 128 * 128 * 4  # the dense 512^2 working set does not fit
     got = autotune.autotune(512, 512, 512, oot_budget=budget, calibration=CALIB, **CPU)
     want = ja.autotune(512, 512, 512, oot_budget=budget, calibration=_jcal(CALIB))
@@ -553,6 +563,113 @@ def test_mesh_and_oot_raise_not_implemented():
     ref = jb.matmul(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()),
                     jb.MatmulBackend(kind="auto", depth=2, min_dim=1, device_budget=budget))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=3e-3, rtol=3e-3)
+
+
+# ---------------------------------------------------------- mesh candidates
+def _meshes(shape, names):
+    """The port's CPU mesh and the reference's on conftest's host devices."""
+    import jax
+
+    from repro.core.compat import make_mesh as jmake_mesh
+    from repro_torch.core.mesh import make_mesh
+
+    size = int(np.prod(shape))
+    if jax.device_count() < size:
+        pytest.skip("needs the conftest multi-device host platform")
+    jmesh = (jmake_mesh(shape, names) if size == jax.device_count()
+             else jax.sharding.Mesh(np.array(jax.devices()[:size]).reshape(shape), names))
+    return make_mesh(shape, names, device="cpu"), jmesh
+
+
+def test_calibrate_collective_positive_on_multidevice():
+    """An 8-position CPU mesh, as the reference's 8 host devices; 0.0 on one
+    device and on a mesh of one position."""
+    from repro_torch.core.mesh import make_mesh
+
+    mesh, _ = _meshes((8,), ("coll",))
+    assert autotune.calibrate_collective(sample_dim=64, repeats=1, mesh=mesh) > 0.0
+    assert mesh.traffic == {}  # the round trip leaves the caller's totals as they were
+    assert autotune.calibrate_collective(sample_dim=64, repeats=1, device="cpu") == 0.0
+    one = make_mesh((1,), ("coll",), device="cpu")
+    assert autotune.calibrate_collective(sample_dim=64, repeats=1, mesh=one) == 0.0
+
+
+@pytest.mark.parametrize("shape,names", [((4, 2), ("data", "model")), ((7,), ("mult",)),
+                                         ((1, 7), ("rows", "mult")),
+                                         ((1, 1, 7), ("rb", "cb", "mult"))])
+def test_mesh_candidates_and_terms_equal_reference(shape, names):
+    """On each mesh the candidate lists and every candidate's cost terms at
+    the mesh's device count are the reference's with ==."""
+    mesh, jmesh = _meshes(shape, names)
+    dc = mesh.size
+    calib = dataclasses.replace(CALIB, device_count=dc, t_coll=3e-9)
+    for schemes in (("strassen", "winograd"), ("winograd",)):
+        for m, k, n in [(512, 512, 512), (256, 128, 192), (2048, 1024, 4096)]:
+            kw = dict(min_dim=64, max_depth=2, schemes=schemes)
+            got = enumerate_candidates(m, k, n, mesh=mesh, **kw, **CPU)
+            want = ja.enumerate_candidates(m, k, n, mesh=jmesh, **kw)
+            assert [_fields(c) for c in got] == [_fields(c) for c in want], (shape, m, k, n)
+            for c, jc in zip(got, want):
+                assert autotune.predict_cost_terms(c, m, k, n, calib, device_count=dc) == (
+                    ja.predict_cost_terms(jc, m, k, n, _jcal(calib), device_count=dc)), c
+
+
+def test_mesh_enumeration_and_dispatch(tmp_path):
+    """On a (data, model) mesh the registered strategies become candidates;
+    the decision, its cache key (topo mesh4x2) and the stored entry are the
+    reference's, and the selected strategy matches the naive product."""
+    mesh, jmesh = _meshes((4, 2), ("data", "model"))
+    cands = enumerate_candidates(512, 512, 512, min_dim=64, max_depth=2, mesh=mesh, **CPU)
+    assert {"naive", "strassen", "strassen_bfs_sharded", "strassen_2d",
+            "strassen_fused_sharded"} <= {c.kind for c in cands}
+    calib = dataclasses.replace(CALIB, device_count=8)
+    cache, jcache = TuningCache(str(tmp_path / "t.json")), ja.TuningCache(str(tmp_path / "j.json"))
+    d = autotune.autotune(512, 512, 512, min_dim=64, max_depth=1, mesh=mesh,
+                          calibration=calib, cache=cache, **CPU)
+    jd = ja.autotune(512, 512, 512, min_dim=64, max_depth=1, mesh=jmesh,
+                     calibration=_jcal(calib), cache=jcache)
+    assert d.to_dict() == jd.to_dict() and d.kind != "naive"
+    assert list(cache.entries) == list(jcache.entries)
+    assert "|cpu:8|mesh4x2|" in next(iter(cache.entries))
+    x, w = _rand((512, 512)), _rand((512, 512))
+    got = autotune.execute(d.candidate, x, w, mesh=mesh)
+    np.testing.assert_allclose(got.numpy(), (x @ w).numpy(), atol=3e-3, rtol=3e-3)
+    again = autotune.autotune(512, 512, 512, min_dim=64, max_depth=1, mesh=mesh, cache=cache, **CPU)
+    assert again.source == "cache" and again.candidate == d.candidate
+    with pytest.raises(ValueError, match="mesh on cpu"):
+        enumerate_candidates(512, 512, 512, mesh=mesh, device="cuda")
+
+
+def test_fused_sharded_strategy_matches_matmul():
+    """The fused-leaf strategy (strassen1's plain version on CPU positions)
+    computes the product on the (4, 2) mesh, including shapes that need the
+    M-stripe padding, and through execute."""
+    from repro_torch.core.distributed import strassen_fused_sharded
+
+    mesh, _ = _meshes((4, 2), ("data", "model"))
+    for (m, k, n) in [(256, 128, 192), (200, 200, 200)]:
+        x, w = _rand((m, k)), _rand((k, n))
+        for depth in (1, 2):
+            got = strassen_fused_sharded(x, w, mesh=mesh, depth=depth)
+            assert got.shape == (m, n)
+            np.testing.assert_allclose(got.numpy(), (x @ w).numpy(), atol=3e-3, rtol=3e-3)
+    cand = Candidate(kind="strassen_fused_sharded", scheme="strassen", depth=1)
+    x, w = _rand((256, 128)), _rand((128, 192))
+    got = autotune.execute(cand, x, w, mesh=mesh)
+    np.testing.assert_allclose(got.numpy(), (x @ w).numpy(), atol=3e-3, rtol=3e-3)
+
+
+def test_mesh_selected_candidate_executes_on_awkward_shape():
+    """A mesh decision at a shape divisible by 2**depth but not by (row
+    shards * 2**depth) executes, and is the reference's decision."""
+    mesh, jmesh = _meshes((4, 2), ("data", "model"))
+    calib = dataclasses.replace(CALIB, t_flop=1e-9, t_elem=1e-12, t_coll=1e-12, device_count=8)
+    d = autotune.autotune(200, 200, 200, min_dim=1, max_depth=2, mesh=mesh, calibration=calib, **CPU)
+    jd = ja.autotune(200, 200, 200, min_dim=1, max_depth=2, mesh=jmesh, calibration=_jcal(calib))
+    assert d.to_dict() == jd.to_dict()
+    x, w = _rand((200, 200)), _rand((200, 200))
+    got = autotune.execute(d.candidate, x, w, mesh=mesh)
+    np.testing.assert_allclose(got.numpy(), (x @ w).numpy(), atol=3e-3, rtol=3e-3)
 
 
 @pytest.mark.parametrize("first", ["cpu", "cuda"])

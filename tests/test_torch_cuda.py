@@ -376,3 +376,42 @@ def test_cuda_is_oom_error_on_a_real_allocation(cuda):
     with pytest.raises(torch.cuda.OutOfMemoryError) as err:
         torch.empty(2 * total, dtype=torch.uint8, device=cuda)
     assert is_oom_error(err.value)
+
+
+MESH_RUNS = [
+    ("strassen_bfs_sharded", (4, 2), ("data", "model"), dict(depth=2)),
+    ("strassen_bfs_sharded", (8,), ("data",), dict(depth=2, batch_axes=("data",))),
+    ("strassen_2d", (4, 2), ("data", "model"), dict(depth=1)),
+    ("strassen_shardmap", (7,), ("mult",), {}),
+    ("strassen_shardmap_2d", (2, 7), ("rows", "mult"), {}),
+    ("strassen_shardmap_3d", (2, 2, 7), ("rb", "cb", "mult"), dict(merge=False)),
+    ("strassen_fused_sharded", (4, 2), ("data", "model"), dict(depth=2)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,names,kw", MESH_RUNS, ids=lambda v: str(v))
+def test_cuda_mesh_strategy_matches_its_cpu_run(cuda, name, shape, names, kw):
+    """Each strategy on a mesh of CUDA positions against the same strategy
+    on CPU positions, within the fused-sharded parity bound 3e-3; the same
+    collectives and logical bytes, no physical bytes on one card, and
+    strassen_fused_sharded launches strassen1 once per position."""
+    from repro_torch.core import distributed as td
+    from repro_torch.core.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b = _on("cpu", (256, 256), torch.float32), _on("cpu", (256, 256), torch.float32)
+    cpu_mesh = make_mesh(shape, names, device="cpu")
+    want = td.get_strategy(name)(a, b, mesh=cpu_mesh, **kw)
+    mesh = make_mesh(shape, names, device=cuda)
+    n = tst.strassen1_matmul_cuda.launches
+    got = td.get_strategy(name)(a.to(cuda), b.to(cuda), mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    launched = tst.strassen1_matmul_cuda.launches - n
+    assert launched == (mesh.size if name == "strassen_fused_sharded" else 0)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, atol=3e-3, rtol=3e-3)
+    assert {k: (t.count, t.logical_bytes) for k, t in mesh.traffic.items()} == {
+        k: (t.count, t.logical_bytes) for k, t in cpu_mesh.traffic.items()}
+    if torch.cuda.device_count() == 1:
+        assert mesh.physical_bytes == 0

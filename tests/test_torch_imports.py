@@ -41,7 +41,8 @@ def test_port_files_exist():
         "core/cost_model.py", "core/autotune.py", "core/compat.py", "obs/export.py",
         "blocks/__init__.py", "blocks/tags.py", "blocks/plan.py", "blocks/blockmatrix.py",
         "blocks/scheduler.py", "blocks/solve.py", "launch/blocks_demo.py",
-        "launch/solve_demo.py",
+        "launch/solve_demo.py", "core/mesh.py", "core/distributed.py",
+        "launch/strassen_distributed.py",
     } <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"rmsnorm.cu", "flash_attention.cu", "matmul.cu", "signed_sum.cu",
@@ -76,6 +77,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.core.cost_model, repro_torch.core.autotune, repro_torch.core.compat\n"
         "import repro_torch.obs.export\n"
         "import repro_torch.blocks, repro_torch.launch.blocks_demo, repro_torch.launch.solve_demo\n"
+        "import repro_torch.core.mesh, repro_torch.core.distributed\n"
+        "import repro_torch.launch.strassen_distributed\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules\n"
