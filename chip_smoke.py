@@ -149,15 +149,73 @@ l. prints TTFT, TPOT, tokens/s, prefill ms at 128, 512 and 1024 tokens,
    decode step, and the RMSNorm and sLSTM kernels' times against their
    bounds (sLSTM also per step).
 
+The fourth path serves the MoE models (random bf16 weights from ``--seed``)
+through the same ``Engine``: olmoe-1b-7b at full width and depth (16
+layers, 64 experts top-8), and qwen2-moe-a2.7b at full width and 4 of its 24
+layers (the depth is cut for time only):
+
+p1. holds RMSNorm at (R, 2048) and flash attention at q (1, 16, S, 128), kv
+    (1, 16, S, 128), causal, against their plain versions;
+p2. serves 8 requests of 64 to 1984 prompt tokens: every one ends by length
+    with no page leaked, each forward launches RMSNorm 33 times and each
+    prefill flash 16 times; prints the share of dropped assignments per
+    layer in the 1984-token prefill (from the port's ``_route`` and
+    ``_capacity`` on each layer's input; printed, not gated);
+p3. as (c): two requests' served tokens against the dense-cache route, in
+    bf16 and in an fp32 engine (with 4 slots a decode step's capacity is at
+    least the bucket's tokens, so the two routes drop nothing);
+p4. as (d), on a copy of the config with capacity_factor = n_experts /
+    top_k, which drops nothing: with drops, a prefill of S tokens and one of
+    S - 1 plus a decode step are different computations (the served runs
+    keep the shipped 1.25);
+p5. as (e): a prefill under kind strassen_fused launches strassen1, stays
+    within (e)'s bound of the naive run, and every router call (traced) is a
+    naive fp32 product;
+p6. qwen2-moe-a2.7b (shared experts, qkv bias, 60 experts top-4): 4
+    requests, checked as p2 and p3;
+p7. prints prefill ms at 128, 512, 1024 and 1984 tokens, the decode step
+    beside its bound (the bytes of the weights a step reads: every routed
+    expert's), the allocator's peak, and the device split of one prefill and
+    one decode step into the tracer's ``moe.route``, ``moe.dispatch``,
+    ``moe.experts`` and ``moe.combine`` spans, the RMSNorm and flash
+    kernels, cuBLAS and the rest; and flash at the 1024-token prefill beside
+    SDPA and its bound.
+
+The fifth path serves recurrentgemma-9b (random bf16 weights from
+``--seed``, full width and depth: 26 RG-LRU and 12 local-attention layers,
+MQA with 16 query heads on 1 KV head, head dim 256, window 2048):
+
+r1. holds RMSNorm at (R, 4096) and flash attention at q (1, 16, S, 256), kv
+    (1, 1, S, 256), causal, window 2048, for S = 1024 and 3000 (where the
+    window bites), against their plain versions;
+r2. serves 8 requests of 64 to 3000 prompt tokens with max_seq 4096 (the
+    ring of the longer ones wraps in decode): every one ends by length,
+    nothing is paged, each forward launches RMSNorm 77 times and each
+    prefill flash 12 times;
+r3. as (c), in bf16 (requests of 64 and 3000 tokens), and in an fp32 engine
+    at full width and 6 layers (an fp32 copy at full depth does not fit
+    beside the bf16 model);
+r4. as (d), at 2500 tokens (past the window); and layer 0's RG-LRU block
+    over 3000 tokens in two halves with the carried {h, conv} state against
+    one pass (HALVES_LIMIT);
+r5. prints prefill ms at 128, 512, 1024, 2048 and 3000 tokens, the decode
+    step beside its bound, the allocator's peak, the device split of one
+    prefill and one decode step (the ``rglru.scan`` span: the fp32 gate
+    projections and the scan), and flash at its shape beside SDPA (K and V
+    repeated to 16 heads, the window as a mask) and its bound, with RMSNorm
+    at (1024, 4096).
+
 RMSNorm is timed with its rows in L2 (the same x again) and cold (x and out
 rotating over more than 100 MB, past the 50 MB L2); the JSON line holds
 the cold time.
 
 It exits non-zero, before printing a result, on any failure or when no CUDA
 device is present. The JSON line's launches are those of the first path's
-main-path run, and for the strassen1 stripe entries those of the mesh path's
-fused runs at that stripe; the out-of-core path's launches are printed on its
-own lines. The last lines are the card's name and power limit, a
+main-path run, for the strassen1 stripe entries those of the mesh path's
+fused runs at that stripe, and for the later entries of a serving kernel
+those of the serving run of its model (xLSTM's sLSTM, olmoe's flash,
+recurrentgemma's RMSNorm and flash); the out-of-core path's launches are
+printed on its own lines. The last lines are the card's name and power limit, a
 JSON line with one entry per kernel, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -219,7 +277,11 @@ from repro_torch.kernels.strassen.strassen import (  # noqa: E402
     divide_cuda,
     strassen1_matmul_cuda,
 )
+from repro_torch import obs  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer as transformer_mod  # noqa: E402
+from repro_torch.models.rglru import init_rglru_state, rglru_block  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 
 # Dense peaks of one H100 SXM at its full 700 W (NVIDIA data sheet): fp32 on
@@ -326,6 +388,32 @@ SERVE = dict(max_seq=2048, slots=4, page_size=16, sync_interval=4, temperature=0
 # The recurrent model and its traffic (the same ServeConfig).
 XLSTM_ARCH = "xlstm_1_3b"
 XLSTM_PROMPT_LENS = (32, 64, 128, 256, 384, 512, 768, 1024)
+# The MoE models: olmoe at full depth with phi4's traffic; qwen2-moe at full
+# width and 4 of its 24 layers (cut for the run's time only), serving 4 of
+# those prompts (128, 512, 1024 and 1984 tokens).
+MOE_ARCH = "olmoe_1b_7b"
+QWEN_MOE_ARCH = "qwen2_moe_a2_7b"
+QWEN_MOE_LAYERS = 4
+QWEN_MOE_PROMPTS = (1, 3, 5, 7)
+MOE_PREFILL_LENS = (128, 512, 1024, 1984)
+MOE_SPANS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+# The RG-LRU model: prompts past its 2048-token window, so the ring wraps
+# in decode; max_seq 4096 holds the longest prompt and its new tokens. Its fp32
+# engine check runs at 6 of its 38 layers (two pattern periods): an fp32
+# copy at full depth does not fit beside the bf16 model.
+RG_ARCH = "recurrentgemma_9b"
+RG_PROMPT_LENS = (64, 128, 512, 1024, 1500, 2048, 2500, 3000)
+RG_SERVE = dict(SERVE, max_seq=4096)
+RG_PICKS = (0, 7)
+RG_FP32_LAYERS = 6
+RG_PREFILL_LENS = (128, 512, 1024, 2048, 3000)
+RG_FLASH_LENS = (1024, 3000)
+# One RG-LRU layer over a sequence in two halves with the carried {h, conv}
+# state against one pass, bf16. The two differ only in how the fp32 scan
+# associates the second half's steps (about 1e-6 relative in h), which can
+# move the bf16 rounding of h by one ulp (2^-8) here and there: the output
+# is held to 2^-8 normwise, h to 1e-5 and the conv tail must be equal.
+HALVES_LIMIT, HALVES_H_LIMIT = 2.0**-8, 1e-5
 # Kind auto: the candidate set of the 16384^2 table (and of the crossover
 # table and measured mode, so that every timed candidate is in the table),
 # the crossover sizes, and the phi4 requests it serves (prompts of 64, 512,
@@ -1486,27 +1574,25 @@ def phase_oot_auto(seed: int) -> None:
 
 
 # ---------------------------------------------------------- serving path
-def flash_ops(b: int, hq: int, s: int, d: int) -> int:
+def flash_ops(b: int, hq: int, s: int, d: int, window=None) -> int:
     """4 * D flops per live (query, key) pair and head (QK^T and PV); causal
-    attention of s queries over s keys has s * (s + 1) / 2 live pairs."""
-    return 4 * b * hq * d * (s * (s + 1) // 2)
+    attention of s queries over s keys has s * (s + 1) / 2 live pairs, and
+    with a window of w < s keys w * (w + 1) / 2 + (s - w) * w."""
+    if window is None or window >= s:
+        pairs = s * (s + 1) // 2
+    else:
+        pairs = window * (window + 1) // 2 + (s - window) * window
+    return 4 * b * hq * d * pairs
 
 
 def phase_serving_kernels(gen: np.random.Generator, cfg) -> None:
     """(a) RMSNorm and flash attention against their plain versions at the model's shapes."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    phase_model_kernels(gen, cfg, (1000, 2048))
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
-        for r in (1, 4, 1000, 4096):
-            x, w = randn(gen, (r, d), dtype), 1.0 + randn(gen, (d,), torch.float32)
-            compare(f"rmsnorm {tag} {(r, d)} w fp32", rmsnorm_cuda(x, w), rmsnorm_ref(x, w), "norm")
         x, w = randn(gen, (1000, d), dtype), randn(gen, (d,), dtype)
         compare(f"rmsnorm {tag} {(1000, d)} w {tag}", rmsnorm_cuda(x, w), rmsnorm_ref(x, w), "norm")
-        for sq in (1000, 2048):
-            q = randn(gen, (1, hq, sq, hd), dtype)
-            k, v = randn(gen, (1, hkv, sq, hd), dtype), randn(gen, (1, hkv, sq, hd), dtype)
-            compare(f"flash {tag} q{tuple(q.shape)} kv{tuple(k.shape)} causal",
-                    flash_attention_cuda(q, k, v), attention_ref(q, k, v), "flash")
     q = randn(gen, (1, hq, 1000, hd), torch.bfloat16)
     k, v = (randn(gen, (1, hkv, 1000, hd), torch.bfloat16) for _ in range(2))
     compare("flash bf16 window=256", flash_attention_cuda(q, k, v, window=256),
@@ -1550,15 +1636,15 @@ def per_forward(cfg) -> dict:
     prefill (flash) of ``cfg``: one RMSNorm per norm, one flash launch per
     attention layer, one sLSTM launch per sLSTM layer."""
     kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
-    return {"rmsnorm_cuda": cfg.n_layers * (2 if cfg.d_ff > 0 else 1) + 1,
+    return {"rmsnorm_cuda": cfg.n_layers * (2 if transformer_mod._has_ffn(cfg) else 1) + 1,
             "flash_attention_cuda": sum(k in ("attn", "local_attn") for k in kinds),
             "slstm_seq_cuda": kinds.count("slstm")}
 
 
-def phase_serve(cfg, params, prompts: list) -> dict:
-    """(b), (h) Serve the requests at full width; returns the launch counts,
-    the handles, the wall time and the peak memory."""
-    engine = Engine(cfg, params, ServeConfig(**SERVE), device=DEVICE)
+def phase_serve(cfg, params, prompts: list, serve: dict = SERVE) -> dict:
+    """(b), (h), (p2), (p6), (r2) Serve the requests at full width; returns the
+    launch counts, the handles, the wall time and the peak memory."""
+    engine = Engine(cfg, params, ServeConfig(**serve), device=DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1599,15 +1685,15 @@ def phase_serve(cfg, params, prompts: list) -> dict:
         if counts[name] <= 0:
             fail(f"serve: {name} was not launched on the {cfg.name} path")
     return {"counts": counts, "handles": handles, "wall": wall, "peak": peak,
-            "tokens": n_events}
+            "tokens": n_events, "stats": st}
 
 
 @torch.inference_mode()
-def forced_rollout(cfg, params, prompt: np.ndarray, tokens: list) -> tuple:
+def forced_rollout(cfg, params, prompt: np.ndarray, tokens: list, max_seq: int = SERVE["max_seq"]) -> tuple:
     """The dense-cache route (apply_prefill, then apply_decode) fed the prompt
     and then ``tokens``. Returns its argmax at each step, and how far below its
     top logit the token of ``tokens`` lies there, in units of the logits' rms."""
-    cache = M.init_cache(cfg, 1, SERVE["max_seq"], device=DEVICE)
+    cache = M.init_cache(cfg, 1, max_seq, device=DEVICE)
     batch = {"tokens": torch.as_tensor(prompt[None], device=DEVICE)}
     logits, cache = M.apply_prefill(params, batch, cache, cfg)
     argmaxes, gaps = [], []
@@ -1621,19 +1707,22 @@ def forced_rollout(cfg, params, prompt: np.ndarray, tokens: list) -> tuple:
     return argmaxes, gaps
 
 
-def phase_engine_vs_model(cfg, params, prompts: list, served: list, seed: int) -> None:
-    """(c), (i) The engine's greedy tokens against the dense-cache route fed the same tokens.
+def phase_engine_vs_model(cfg, params, prompts: list, served: list, seed: int,
+                          serve: dict = SERVE, picks=(0, 1), fp32_layers=None) -> None:
+    """(c), (i), (p3), (p6), (r3) The engine's greedy tokens against the
+    dense-cache route fed the same tokens.
 
     The bf16 engine of (b) or (h): every served token must be the dense
     route's argmax or within NEAR_TIE of its top logit, since near-ties among
     the vocabulary's logits can flip on one bf16 rounding. A second engine in
-    fp32 (the same config and seed): every token must be the argmax, which
+    fp32 (the same config and seed, cut to ``fp32_layers`` where an fp32 copy
+    does not fit beside the bf16 model): every token must be the argmax, which
     makes its tokens equal to a free greedy rollout on the dense cache.
     """
-    picks = [0, 1]
+    max_seq = serve["max_seq"]
     for i in picks:
         toks = served[i].tokens()
-        argmaxes, gaps = forced_rollout(cfg, params, prompts[i], toks)
+        argmaxes, gaps = forced_rollout(cfg, params, prompts[i], toks, max_seq)
         equal = sum(a == t for a, t in zip(argmaxes, toks))
         ok = max(gaps) <= NEAR_TIE
         log(f"{cfg.name} engine vs dense route bf16, request {i} (prompt {len(prompts[i])}): "
@@ -1641,16 +1730,17 @@ def phase_engine_vs_model(cfg, params, prompts: list, served: list, seed: int) -
             f"limit={NEAR_TIE} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{cfg.name} engine vs dense route bf16, request {i}: gaps {[round(g, 3) for g in gaps]}")
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=fp32_layers or cfg.n_layers)
     params32 = M.init_params(cfg32, torch.Generator(device=DEVICE).manual_seed(seed))
-    engine = Engine(cfg32, params32, ServeConfig(**SERVE), device=DEVICE)
+    engine = Engine(cfg32, params32, ServeConfig(**serve), device=DEVICE)
     handles = [engine.submit(prompts[i], 32 + i % 3) for i in picks]
     engine.run()
+    depth = f", {cfg32.n_layers} of {cfg.n_layers} layers" if fp32_layers else ""
     for i, h in zip(picks, handles):
-        argmaxes, _ = forced_rollout(cfg32, params32, prompts[i], h.tokens())
+        argmaxes, _ = forced_rollout(cfg32, params32, prompts[i], h.tokens(), max_seq)
         ok = h.tokens() == argmaxes
-        log(f"{cfg.name} engine vs dense rollout fp32, request {i} (prompt {len(prompts[i])}): "
-            f"{len(argmaxes)} tokens {'equal' if ok else 'DIFFER'}")
+        log(f"{cfg.name} engine vs dense rollout fp32{depth}, request {i} (prompt "
+            f"{len(prompts[i])}): {len(argmaxes)} tokens {'equal' if ok else 'DIFFER'}")
         if not ok:
             fail(f"{cfg.name} engine vs dense rollout fp32, request {i}: {h.tokens()} != {argmaxes}")
     del engine, params32
@@ -1708,40 +1798,77 @@ def phase_strassen_prefill(cfg, params, gen: np.random.Generator) -> None:
         fail(f"strassen_fused prefill: {launches} strassen1 launches, rel_err {err:.3e}")
 
 
-def device_kernels(fn) -> list:
-    """(name, device ms) of each kernel one call of ``fn`` runs, from
-    torch.profiler's CUDA activity, after one call to warm up."""
-    from torch.autograd import DeviceType
+def profile_events(fn) -> list:
+    """torch.profiler's events of one call of ``fn`` (after one call to warm
+    up), with the tracer on and its profiler annotations, so that each
+    tracer span is a CPU event over the kernels it launched."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [(evt.name, evt.device_time_total / 1e3) for evt in prof.events()
-            if evt.device_type == DeviceType.CUDA]
+    obs.configure(enabled=True, profiler_annotations=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        obs.configure(enabled=False, profiler_annotations=False)
+        obs.reset_tracing()
+    return prof.events()
 
 
-def device_split(fn) -> dict:
-    """Device time (ms) of the kernels one call of ``fn`` runs, by class;
-    empty when the profiler saw no kernel."""
+def device_kernels(events) -> list:
+    """The device kernels among profiler ``events``."""
+    from torch.autograd import DeviceType
+
+    return [evt for evt in events
+            if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False)]
+
+
+def kernel_class(name: str) -> str:
+    """The class of a device kernel, by its name."""
+    name = name.lower()
+    if "flash_kernel" in name or "flash_mma_kernel" in name:
+        return "flash kernel"
+    if "strassen1_" in name:
+        return "strassen1 kernel"
+    if "rmsnorm_kernel" in name:
+        return "rmsnorm kernel"
+    if "slstm_seq_kernel" in name:
+        return "sLSTM kernel"
+    if any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "matmul (cuBLAS)"
+    return "other kernels"
+
+
+def _kernels_under(evt) -> list:
+    """The device kernels that a CPU event and its children launched."""
+    out = list(evt.kernels)
+    for child in evt.cpu_children:
+        out += _kernels_under(child)
+    return out
+
+
+def device_split(fn, spans: tuple = ()) -> dict:
+    """Device time (ms) of one call of ``fn`` (after one to warm up): the
+    kernels launched inside each tracer span of ``spans``, then the other
+    kernels by class. Empty when the profiler saw no kernel."""
+    from torch.autograd import DeviceType
+
+    events = profile_events(fn)
     split: dict = {}
-    for name, ms in device_kernels(fn):
-        name = name.lower()
-        if "flash_kernel" in name or "flash_mma_kernel" in name:
-            key = "flash kernel"
-        elif "strassen1_" in name:
-            key = "strassen1 kernel"
-        elif "rmsnorm_kernel" in name:
-            key = "rmsnorm kernel"
-        elif "slstm_seq_kernel" in name:
-            key = "sLSTM kernel"
-        elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
-            key = "matmul (cuBLAS)"
-        else:
-            key = "other kernels"
-        split[key] = split.get(key, 0.0) + ms
+    for evt in device_kernels(events):
+        key = kernel_class(evt.name)
+        split[key] = split.get(key, 0.0) + evt.device_time_total / 1e3
+    if not split:
+        return {}
+    for name in spans:
+        split[name] = 0.0
+    for evt in events:
+        if evt.device_type == DeviceType.CPU and evt.name in spans:
+            for k in _kernels_under(evt):
+                split[evt.name] += k.duration / 1e3
+                split[kernel_class(k.name)] -= k.duration / 1e3
     return split
 
 
@@ -1762,22 +1889,7 @@ def phase_serving_numbers(cfg, params, prompts: list, reps: int) -> None:
         ms = time_ms(lambda: last_logits(params, cfg, tokens, False), reps)
         log(f"prefill {len(p)} tokens bf16: {ms:.3f} ms")
 
-    engine = Engine(cfg, params, ServeConfig(**SERVE), device=DEVICE)
-    hs = [engine.submit(prompts[4], 24) for _ in range(SERVE["slots"])]
-    while any(h.state.value != "decoding" for h in hs):
-        engine.step()
-    times = []
-    for _ in range(16):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.step()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    step_ms = statistics.median(times)
-    log(f"decode step, {SERVE['slots']} live slots at ~{len(prompts[4])} tokens: median "
-        f"{step_ms:.3f} ms (host clock around a synchronized step)")
-    log_split(f"decode step, {SERVE['slots']} live slots", step_ms, device_split(engine.step))
-    engine.run()
+    decode_step_numbers(cfg, params, prompts[4], SERVE)
 
     # One 1024-token prefill, and its parts timed alone with CUDA events.
     s, d, f = 1024, cfg.d_model, cfg.d_ff
@@ -1883,7 +1995,7 @@ def phase_xlstm_kernels(gen: np.random.Generator, cfg) -> None:
             full, "slstm")
     for k in ("c", "n", "m", "h"):
         compare(f"slstm two halves vs one pass: {k}", end[k], full_st[k], "slstm")
-    names = [name for name, _ in device_kernels(lambda: slstm_seq_cuda(wx, r, state))]
+    names = [evt.name for evt in device_kernels(profile_events(lambda: slstm_seq_cuda(wx, r, state)))]
     found = [name for name in names if "slstm" in name.lower()]
     ok = len(found) == 1
     log(f"slstm device kernels in one call of {tuple(wx.shape)}: {len(found)} ({found}) "
@@ -1950,16 +2062,7 @@ def phase_xlstm_numbers(cfg, params, prompts: list, ms_1024: float) -> None:
 
     # The recurrent state is O(1) in the position, so short prompts give the
     # decode step of any length.
-    engine = Engine(cfg, params, ServeConfig(**SERVE), device=DEVICE)
-    hs = [engine.submit(prompts[0], 24) for _ in range(SERVE["slots"])]
-    while any(h.state.value != "decoding" for h in hs):
-        engine.step()
-    times = [timed(engine.step)[0] for _ in range(16)]
-    step_ms = statistics.median(times)
-    log(f"decode step, {SERVE['slots']} live slots: median {step_ms:.3f} ms (host clock around a "
-        f"synchronized step)")
-    log_split(f"decode step, {SERVE['slots']} live slots", step_ms, device_split(engine.step))
-    engine.run()
+    decode_step_numbers(cfg, params, prompts[0], SERVE)
 
     tokens = torch.as_tensor(prompts[1][None], device=DEVICE)
     wall, _ = timed(lambda: last_logits(params, cfg, tokens, False))
@@ -2015,6 +2118,266 @@ def run_xlstm(seed: int, reps: int, gen: np.random.Generator) -> list:
     return phase_slstm_timing(cfg, reps, served["counts"])
 
 
+# --------------------------------------------------------------- MoE path
+def phase_model_kernels(gen: np.random.Generator, cfg, seqs: tuple, window=None) -> None:
+    """(a), (p1), (r1) RMSNorm at the model's width and flash attention at its heads,
+    causal (and windowed where the model's attention is), against their
+    plain versions in fp32 and bf16."""
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for r in (1, SERVE["slots"], 1000, 4096):
+            x, w = randn(gen, (r, d), dtype), 1.0 + randn(gen, (d,), torch.float32)
+            compare(f"rmsnorm {tag} {(r, d)} w fp32", rmsnorm_cuda(x, w), rmsnorm_ref(x, w), "norm")
+        for sq in seqs:
+            q = randn(gen, (1, hq, sq, hd), dtype)
+            k, v = randn(gen, (1, hkv, sq, hd), dtype), randn(gen, (1, hkv, sq, hd), dtype)
+            compare(f"flash {tag} q{tuple(q.shape)} kv{tuple(k.shape)} causal window={window}",
+                    flash_attention_cuda(q, k, v, window=window),
+                    attention_ref(q, k, v, window=window), "flash")
+
+
+def moe_drop_shares(cfg, params, tokens: torch.Tensor) -> list:
+    """The share of dropped assignments in each MoE layer of one prefill, from
+    the port's ``_route`` and ``_capacity`` on that layer's FFN input."""
+    shares = []
+    real = transformer_mod.moe_block
+
+    def spy(p, x, c):
+        t = x.shape[0] * x.shape[1]
+        _, idx, _ = moe_mod._route(p, x.reshape(t, -1), c)
+        keep, _ = moe_mod._slots(idx.reshape(-1), c, moe_mod._capacity(t, c))
+        shares.append(1.0 - keep.float().mean().item())
+        return real(p, x, c)
+
+    transformer_mod.moe_block = spy
+    try:
+        last_logits(params, cfg, tokens, False)
+    finally:
+        transformer_mod.moe_block = real
+    return shares
+
+
+def phase_moe_strassen_prefill(cfg, params, gen: np.random.Generator) -> None:
+    """(p5) Phase (e) on the MoE model with the tracer on: strassen1 ran, the
+    logits lie within (e)'s bound of the naive run, and every router call
+    stayed a naive fp32 product."""
+    obs.reset_tracing()
+    obs.configure(enabled=True)
+    try:
+        phase_strassen_prefill(cfg, params, gen)
+        spans = obs.get_tracer().find("backend.matmul")
+    finally:
+        obs.configure(enabled=False)
+        obs.reset_tracing()
+    kinds: dict = {}
+    for sp in spans:
+        kinds.setdefault(sp.attrs["site"], set()).add(sp.attrs["kind"])
+    router = [sp.attrs for sp in spans if sp.attrs["site"] == "moe.router"]
+    ok = (len(router) == 2 * cfg.n_layers and kinds.get("moe.router") == {"naive"}
+          and all((a["k"], a["n"]) == (cfg.d_model, cfg.n_experts) for a in router))
+    log(f"{cfg.name} strassen_fused prefill: backend kinds by call site "
+        f"{ {k: sorted(v) for k, v in kinds.items()} }; {len(router)} router calls (want "
+        f"{2 * cfg.n_layers}: the naive and the fused prefill), all naive {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{cfg.name}: router calls under strassen_fused: {len(router)}, kinds {kinds.get('moe.router')}")
+
+
+def weight_bytes(params, cfg) -> int:
+    """Bytes of the weights one decode step reads: every parameter but the
+    embedding table, whose rows are gathered (a tied table is read whole as
+    the unembedding)."""
+    total = sum(nbytes(p) for p in params.parameters())
+    return total if cfg.tie_embeddings else total - nbytes(params.embed.embedding)
+
+
+def decode_step_numbers(cfg, params, prompt: np.ndarray, serve: dict, spans: tuple = ()) -> None:
+    """Median decode-step time over 16 steps with every slot live, its device
+    split, and its bound (the weights a step reads, over the card's rate)."""
+    engine = Engine(cfg, params, ServeConfig(**serve), device=DEVICE)
+    hs = [engine.submit(prompt, 24) for _ in range(serve["slots"])]
+    while any(h.state.value != "decoding" for h in hs):
+        engine.step()
+    step_ms = statistics.median([timed(engine.step)[0] for _ in range(16)])
+    moved = weight_bytes(params, cfg)
+    log(f"decode step, {serve['slots']} live slots at ~{len(prompt)} tokens: median {step_ms:.3f} ms "
+        f"(host clock around a synchronized step); bound {moved / PEAK_BYTES * 1e3:.3f} ms "
+        f"(bytes: the {moved / 1e9:.2f} GB of weights a step reads)")
+    log_split(f"decode step, {serve['slots']} live slots", step_ms,
+              device_split(engine.step, spans))
+    engine.run()
+
+
+def phase_moe_numbers(cfg, params, prompts: list, reps: int) -> None:
+    """(p7) Prefill ms per length, the decode step, the device split of one
+    prefill and one decode step, and the allocator's peak."""
+    torch.cuda.reset_peak_memory_stats()
+    for n in MOE_PREFILL_LENS:
+        p = next(q for q in prompts if len(q) == n)
+        tokens = torch.as_tensor(p[None], device=DEVICE)
+        log(f"prefill {n} tokens bf16: {time_ms(lambda: last_logits(params, cfg, tokens, False), reps):.3f} ms")
+    decode_step_numbers(cfg, params, prompts[4], SERVE, MOE_SPANS)
+    tokens = torch.as_tensor(prompts[5][None], device=DEVICE)
+    wall = time_ms(lambda: last_logits(params, cfg, tokens, False), reps)
+    log_split(f"prefill {tokens.shape[1]} tokens bf16", wall,
+              device_split(lambda: last_logits(params, cfg, tokens, False), MOE_SPANS))
+    log(f"{cfg.name} peak memory over (p7): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def phase_moe_flash_timing(cfg, reps: int, counts: dict) -> list:
+    """Flash attention at the MoE model's 1024-token prefill shape beside SDPA
+    and its bound; a JSON entry with the MoE path's launches."""
+    gen = np.random.default_rng(4)
+    s, hq, hkv, hd = 1024, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = randn(gen, (1, hq, s, hd), torch.bfloat16)
+    k, v = (randn(gen, (1, hkv, s, hd), torch.bfloat16) for _ in range(2))
+    stats = time_kernel(
+        f"flash bf16 q{tuple(q.shape)} kv{tuple(k.shape)} causal ({cfg.name})",
+        lambda: flash_attention_cuda(q, k, v), lambda: attention_ref(q, k, v),
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True),
+        flash_ops(1, hq, s, hd), 2 * nbytes(q) + nbytes(k, v), torch.bfloat16, "flash", reps)
+    return [json_row("flash_attention_cuda", counts, stats)]
+
+
+def run_moe(seed: int, reps: int, gen: np.random.Generator) -> list:
+    """(p2)-(p7) Serve olmoe-1b-7b at full width and depth and qwen2-moe-a2.7b
+    at full width and 4 layers; returns the JSON entries."""
+    cfg = get_config(MOE_ARCH)
+    t = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed))
+    torch.cuda.synchronize()
+    log(f"{cfg.name}: {sum(p.numel() for p in params.parameters()) / 1e9:.3f} B parameters "
+        f"({cfg.dtype}, {cfg.n_layers} layers, {cfg.n_experts} experts top-{cfg.top_k}, "
+        f"d_model {cfg.d_model}) from seed {seed} in {time.perf_counter() - t:.1f} s")
+    prompts = make_prompts(gen, cfg.vocab)
+    served = phase_serve(cfg, params, prompts)
+    longest = torch.as_tensor(prompts[-1][None], device=DEVICE)
+    shares = moe_drop_shares(cfg, params, longest)
+    log(f"{cfg.name} dropped share of assignments per layer, {longest.shape[1]}-token prefill "
+        f"(capacity {moe_mod._capacity(longest.shape[1], cfg)} per expert): "
+        f"{[round(x, 4) for x in shares]} (printed, not gated)")
+    phase_engine_vs_model(cfg, params, prompts, served["handles"], seed)
+    # With capacity >= T nothing is dropped, so a prefill of S tokens and a
+    # prefill of S - 1 plus one decode step are the same computation (with
+    # drops they are not: the reference's own consistency test leaves MoE out).
+    nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    log(f"{cfg.name} (p4) on a copy with capacity_factor {nodrop.capacity_factor} "
+        f"(capacity = tokens: nothing dropped); the served runs keep {cfg.capacity_factor}")
+    phase_prefill_vs_decode(nodrop, params, gen)
+    phase_moe_strassen_prefill(cfg, params, gen)
+    phase_moe_numbers(cfg, params, prompts, reps)
+    entries = phase_moe_flash_timing(cfg, reps, served["counts"])
+    del params, served
+    torch.cuda.empty_cache()
+
+    qcfg = get_config(QWEN_MOE_ARCH, n_layers=QWEN_MOE_LAYERS)
+    qparams = M.init_params(qcfg, torch.Generator(device=DEVICE).manual_seed(seed))
+    log(f"{qcfg.name}: {sum(p.numel() for p in qparams.parameters()) / 1e9:.3f} B parameters "
+        f"(full width, {qcfg.n_layers} of 24 layers: the depth is cut for time only; "
+        f"{qcfg.n_experts} experts top-{qcfg.top_k}, {qcfg.n_shared_experts} shared)")
+    qprompts = [prompts[i] for i in QWEN_MOE_PROMPTS]
+    qserved = phase_serve(qcfg, qparams, qprompts)
+    phase_engine_vs_model(qcfg, qparams, qprompts, qserved["handles"], seed)
+    del qparams, qserved
+    torch.cuda.empty_cache()
+    return entries
+
+
+# ------------------------------------------------------------ RG-LRU path
+def phase_rglru_halves(cfg, params, gen: np.random.Generator, n: int = 3000) -> None:
+    """(r4) Layer 0's RG-LRU block over n tokens in two halves with the
+    carried {h, conv} state, against one pass."""
+    layer = params.layers[0].mixer
+    x = randn(gen, (1, n, cfg.d_model), torch.bfloat16)
+    zero = init_rglru_state(cfg, 1, DEVICE)
+    with torch.inference_mode():
+        full, fst = rglru_block(layer, x, cfg, state=zero)
+        first, mid = rglru_block(layer, x[:, : n // 2], cfg, state=zero)
+        second, end = rglru_block(layer, x[:, n // 2:], cfg, state=mid)
+    err = rel_norm(torch.cat([first, second], 1).float(), full.float())
+    err_h = rel_norm(end["h"], fst["h"])
+    same_tail = torch.equal(end["conv"], fst["conv"])
+    ok = bool(torch.isfinite(full.float()).all()) and err <= HALVES_LIMIT and err_h <= HALVES_H_LIMIT and same_tail
+    log(f"{cfg.name} RG-LRU layer 0, {n} tokens bf16, two halves with the carried state vs one "
+        f"pass: out rel_err={err:.3e} limit={HALVES_LIMIT:.3e}, h rel_err={err_h:.3e} "
+        f"limit={HALVES_H_LIMIT:.0e}, conv tail equal {same_tail} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{cfg.name} RG-LRU halves: out {err:.3e}, h {err_h:.3e}, conv equal {same_tail}")
+
+
+def phase_rglru_numbers(cfg, params, prompts: list, reps: int) -> None:
+    """(r5) Prefill ms per length, the decode step, the device split of one
+    prefill and one decode step (the gates and scan beside the projections and
+    kernels), and the allocator's peak."""
+    torch.cuda.reset_peak_memory_stats()
+    gen = np.random.default_rng(5)
+    for n in RG_PREFILL_LENS:
+        tokens = torch.as_tensor(gen.integers(0, cfg.vocab, (1, n)), device=DEVICE)
+        log(f"prefill {n} tokens bf16: {time_ms(lambda: last_logits(params, cfg, tokens, False), reps):.3f} ms")
+    decode_step_numbers(cfg, params, prompts[3], RG_SERVE, ("rglru.scan",))
+    tokens = torch.as_tensor(prompts[3][None], device=DEVICE)
+    wall = time_ms(lambda: last_logits(params, cfg, tokens, False), reps)
+    log_split(f"prefill {tokens.shape[1]} tokens bf16", wall,
+              device_split(lambda: last_logits(params, cfg, tokens, False), ("rglru.scan",)))
+    log(f"{cfg.name} peak memory over (r5): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def phase_rglru_kernel_timing(cfg, reps: int, counts: dict) -> list:
+    """Flash attention at recurrentgemma's shape (head dim 256, 16 query heads
+    on 1 KV head, window 2048) at 1024 and 3000 tokens beside SDPA (K and V
+    repeated to 16 heads, the causal window as a boolean mask) and its bound
+    (the live pairs of the window), and RMSNorm at (1024, 4096) warm and
+    cold; JSON entries with the RG-LRU path's launches."""
+    gen = np.random.default_rng(6)
+    hq, hkv, hd, win = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.local_window
+    rows = [json_row("rmsnorm_cuda", counts, time_rmsnorm(gen, 1024, cfg.d_model, reps))]
+    for s in RG_FLASH_LENS:
+        q = randn(gen, (1, hq, s, hd), torch.bfloat16)
+        k, v = (randn(gen, (1, hkv, s, hd), torch.bfloat16) for _ in range(2))
+        kr, vr = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
+        i = torch.arange(s, device=DEVICE)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < win)
+        stats = time_kernel(
+            f"flash bf16 q{tuple(q.shape)} kv{tuple(k.shape)} causal window={win} ({cfg.name})",
+            lambda: flash_attention_cuda(q, k, v, window=win),
+            lambda: attention_ref(q, k, v, window=win),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, kr, vr, attn_mask=mask),
+            flash_ops(1, hq, s, hd, win), 2 * nbytes(q) + nbytes(k, v), torch.bfloat16,
+            "flash", reps)
+        if s == max(RG_FLASH_LENS):
+            rows.append(json_row("flash_attention_cuda", counts, stats))
+    return rows
+
+
+def run_rglru(seed: int, reps: int, gen: np.random.Generator) -> list:
+    """(r2)-(r5) Serve recurrentgemma-9b at full width and depth; returns its JSON entries."""
+    cfg = get_config(RG_ARCH)
+    t = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed))
+    torch.cuda.synchronize()
+    kinds = cfg.layer_kinds()
+    log(f"{cfg.name}: {sum(p.numel() for p in params.parameters()) / 1e9:.3f} B parameters "
+        f"({cfg.dtype}, {cfg.n_layers} layers: {kinds.count('rglru')} RG-LRU, "
+        f"{kinds.count('local_attn')} local attention, window {cfg.local_window}, d_model "
+        f"{cfg.d_model}) from seed {seed} in {time.perf_counter() - t:.1f} s")
+    prompts = [gen.integers(0, cfg.vocab, n) for n in RG_PROMPT_LENS]
+    served = phase_serve(cfg, params, prompts, RG_SERVE)
+    budget = served["stats"]["page_budget"]
+    log(f"{cfg.name}: page budget {budget} (every attention layer is a {cfg.local_window}-token "
+        f"ring, so nothing is paged) {'ok' if budget == 0 else 'FAIL'}")
+    if budget:
+        fail(f"{cfg.name}: {budget} KV pages allocated where no layer is paged")
+    phase_engine_vs_model(cfg, params, prompts, served["handles"], seed, RG_SERVE, RG_PICKS,
+                          RG_FP32_LAYERS)
+    phase_prefill_vs_decode(cfg, params, gen, 2500)
+    phase_rglru_halves(cfg, params, gen)
+    phase_rglru_numbers(cfg, params, prompts, reps)
+    entries = phase_rglru_kernel_timing(cfg, reps, served["counts"])
+    del params, served
+    torch.cuda.empty_cache()
+    return entries
+
+
 def report_failures() -> int:
     print(f"chip_smoke: {len(FAILURES)} failure(s):", file=sys.stderr)
     for f in FAILURES:
@@ -2052,6 +2415,11 @@ def main() -> int:
     phase_serving_kernels(serve_gen, cfg)
     xlstm_gen = np.random.default_rng([args.seed, 3])  # the xLSTM path's own stream
     phase_xlstm_kernels(xlstm_gen, get_config(XLSTM_ARCH))
+    moe_gen = np.random.default_rng([args.seed, 4])  # the MoE path's own stream
+    phase_model_kernels(moe_gen, get_config(MOE_ARCH), (1000, 2048))
+    rg_gen = np.random.default_rng([args.seed, 5])  # the RG-LRU path's own stream
+    rg_cfg = get_config(RG_ARCH)
+    phase_model_kernels(rg_gen, rg_cfg, RG_FLASH_LENS, rg_cfg.local_window)
     if FAILURES:  # no point driving the main path through a wrong kernel
         return report_failures()
 
@@ -2109,6 +2477,10 @@ def main() -> int:
     log(f"{cfg.name} path done at {time.perf_counter() - t0:.1f} s")
 
     entries += run_xlstm(args.seed, args.reps, xlstm_gen)
+    log(f"{XLSTM_ARCH} path done at {time.perf_counter() - t0:.1f} s")
+    entries += run_moe(args.seed, args.reps, moe_gen)
+    log(f"MoE path done at {time.perf_counter() - t0:.1f} s")
+    entries += run_rglru(args.seed, args.reps, rg_gen)
     log(f"total {time.perf_counter() - t0:.1f} s")
 
     if FAILURES:

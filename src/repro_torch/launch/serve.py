@@ -6,10 +6,13 @@ on the card unless asked for the CPU:
   python -m repro_torch.launch.serve --arch phi4_mini_3_8b --full
   python -m repro_torch.launch.serve --arch xlstm_1_3b --full
   python -m repro_torch.launch.serve --arch xlstm_1_3b --device cpu --smoke
+  python -m repro_torch.launch.serve --arch olmoe_1b_7b --full
+  python -m repro_torch.launch.serve --arch recurrentgemma_9b --device cpu --smoke
   python -m repro_torch.launch.serve --backend auto --trace-out trace.json --device cpu
 
-The dense decoders and xlstm-1.3b are served; the other families raise
-NotImplementedError naming their ROADMAP item.
+Every decoder-only family is served: the dense decoders, the MoE models
+(olmoe-1b-7b, qwen2-moe-a2.7b), xlstm-1.3b and recurrentgemma-9b. The
+encoder-decoder whisper raises NotImplementedError naming its ROADMAP item.
 
 Parameters are random, drawn on the device from ``--seed`` in the config's
 dtype. ``--backend auto`` routes every projection through the autotune

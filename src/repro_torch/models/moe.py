@@ -1,0 +1,188 @@
+"""Mixture-of-Experts FFN: top-k routing with capacity, shared experts.
+
+The port of ``repro.models.moe``: the Switch/MaxText-style "dropping"
+implementation. Token->expert assignments get a position-in-expert from a
+cumulative sum over the one-hot assignment matrix; assignments past the
+expert capacity are dropped (their tokens pass through the residual
+unchanged). Dispatch and return are an indexed write and a gather, and the
+expert FFN is one batched product over each group's (E, C, D) buffer. Names
+are the JAX package's, so ``convert.params_from_jax`` maps them by name.
+
+qwen2-moe also has shared experts that see every token; olmoe does not. The
+router's aux (load-balancing) loss follows Switch: E * sum_e f_e * p_e.
+
+Precision and order follow the JAX code, so that the same inputs pick the
+same experts and drop the same assignments:
+
+* the router is an fp32 product with TF32 off, through the naive backend
+  whatever ``cfg.matmul_backend`` says, so kind ``auto`` never sees it as a
+  call site (a flipped top-k pick changes the output discontinuously);
+* the top-k gates are renormalized to sum to 1;
+* each dispatch slot below capacity receives exactly one token, so the
+  dispatch is a plain indexed write; the overflow slot is never read;
+* the combine adds a token's k weighted expert outputs in ascending k from
+  zero, one rounding to the activation dtype per add, as the JAX scatter-add
+  does on the CPU (``index_add_`` on the card adds in no fixed order), and
+  the gate is cast to the activation dtype before it multiplies.
+
+The JAX code's sharding constraints are GSPMD layout hints: on one card they
+are the identity and are left out (ROADMAP.md queue 1 item 9.6 ports the
+sharding layer).
+
+With the tracer on (``repro_torch.obs``) the block records the spans
+``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``; with
+its profiler annotations on, a ``torch.profiler`` trace attributes each
+span's device time to it.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from repro_torch.core.precision import matmul_precision
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Linear, init_linear, linear
+from repro_torch.models.mlp import _ACTS, MLP, init_mlp, mlp_block
+from repro_torch.obs.tracer import get_tracer
+
+__all__ = ["MoE", "init_moe", "moe_block"]
+
+_F32 = torch.float32
+
+
+class MoE(nn.Module):
+    """``router`` (d, E) in fp32 without bias, batched expert weights
+    ``w_gate``, ``w_up`` (E, D, F) and ``w_down`` (E, F, D), and ``shared``
+    (an MLP of width d_expert * n_shared_experts) when the config has shared
+    experts."""
+
+    def __init__(self, router: Linear, w_gate: torch.Tensor, w_up: torch.Tensor,
+                 w_down: torch.Tensor, shared: Optional[MLP] = None):
+        super().__init__()
+        self.router = router
+        self.w_gate = nn.Parameter(w_gate, requires_grad=False)
+        self.w_up = nn.Parameter(w_up, requires_grad=False)
+        self.w_down = nn.Parameter(w_down, requires_grad=False)
+        self.shared = shared
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> MoE:
+    """Normal draws in fp32, scaled, then cast, as the JAX package does."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_expert
+
+    def draw(shape, scale):
+        w = torch.randn(shape, generator=gen, device=gen.device, dtype=_F32)
+        return (w * scale).to(dtype)
+
+    router = init_linear(gen, d, (e,), _F32)
+    w_gate, w_up = draw((e, d, f), d**-0.5), draw((e, d, f), d**-0.5)
+    w_down = draw((e, f, d), f**-0.5)
+    shared = None
+    if cfg.n_shared_experts:
+        shared = init_mlp(gen, cfg, dtype, d_ff=cfg.d_expert * cfg.n_shared_experts)
+    return MoE(router, w_gate, w_up, w_down, shared)
+
+
+def _capacity(tokens: int, cfg: ModelConfig) -> int:
+    cap = int(tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return max(cap, cfg.top_k)
+
+
+def _route(params: MoE, xt: torch.Tensor, cfg: ModelConfig):
+    """Router top-k (fp32): returns (gates (T, k), experts (T, k), aux)."""
+    e, k = cfg.n_experts, cfg.top_k
+    with matmul_precision("highest"):  # TF32 off
+        logits = linear(params.router, xt.to(_F32), site="moe.router")  # (T, E), naive backend
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, k, dim=-1)  # descending, as lax.top_k
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    # aux load-balance loss (Switch eq. 4)
+    me = probs.mean(dim=0)
+    frac = F.one_hot(expert_idx, e).to(_F32).sum(dim=1).mean(dim=0)
+    aux = e * (me * frac).sum() * cfg.router_aux_coef
+    return gate_vals, expert_idx, aux
+
+
+def _slots(expert_idx: torch.Tensor, cfg: ModelConfig, cap: int):
+    """Position-in-expert of each assignment, over the flattened (t, k) order
+    of the last dim: (keep, slot) with dropped assignments in slot ``cap``.
+    The one-hot matrix is scanned along its last dim, (E, T*k): on the card
+    PyTorch scans an outer dim with one thread per column walking all T*k
+    rows, which took most of a prefill's MoE time; an integer cumsum is
+    exact in either layout."""
+    onehot = F.one_hot(expert_idx, cfg.n_experts).transpose(-1, -2).contiguous()  # (..., E, T*k)
+    counts = onehot.cumsum(dim=-1)
+    pos_in_e = torch.gather(counts, -2, expert_idx.unsqueeze(-2)).squeeze(-2) - 1
+    keep = pos_in_e < cap
+    return keep, torch.where(keep, pos_in_e, cap)
+
+
+def _expert_ffn(params: MoE, expert_in: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(..., E, C, D) -> (..., E, C, D): the three batched expert products."""
+    act = _ACTS[cfg.act]
+    gate = torch.einsum("...ecd,edf->...ecf", expert_in, params.w_gate)
+    up = torch.einsum("...ecd,edf->...ecf", expert_in, params.w_up)
+    return torch.einsum("...ecf,efd->...ecd", act(gate) * up, params.w_down)
+
+
+def _combine(weighted: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., T*k, D) -> (..., T, D): each token's k terms added in ascending k
+    from zero, rounding to the dtype after each add."""
+    w = weighted.unflatten(-2, (-1, k))
+    out = torch.zeros_like(w[..., 0, :])
+    for j in range(k):
+        out = out + w[..., j, :]
+    return out
+
+
+def _grouped_moe(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity dispatch -> batched expert FFN -> weighted combine over
+    (G, S, D): G dispatch groups of S tokens, threaded through every op as a
+    leading axis. Indices are group-local and capacity is enforced per group;
+    the router and its aux loss see all G*S tokens."""
+    g, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = _capacity(s, cfg)
+    tracer = get_tracer()
+
+    with tracer.span("moe.route", cat="moe"):
+        gate_vals, expert_idx, aux = _route(params, x.reshape(g * s, d), cfg)
+    with tracer.span("moe.dispatch", cat="moe"):
+        gv = gate_vals.reshape(g, s * k)  # fp32
+        ei = expert_idx.reshape(g, s * k)
+        keep, slot = _slots(ei, cfg, cap)  # position-in-expert WITHIN each group
+        # flat buffer (G*E*(C+1), D); index = ((g*E)+e)*(C+1)+slot. Kept slots
+        # are unique; the overflow slot is never read.
+        token_of = torch.arange(s, device=x.device).repeat_interleave(k)
+        flat_idx = ((torch.arange(g, device=x.device)[:, None] * e + ei) * (cap + 1) + slot).reshape(-1)
+        buf = torch.zeros((g * e * (cap + 1), d), dtype=x.dtype, device=x.device)
+        buf[flat_idx] = x[:, token_of].reshape(-1, d)
+    with tracer.span("moe.experts", cat="moe"):
+        expert_out = _expert_ffn(params, buf.reshape(g, e, cap + 1, d)[:, :, :cap], cfg)
+    with tracer.span("moe.combine", cat="moe"):
+        padded = torch.cat([expert_out, expert_out.new_zeros((g, e, 1, d))], dim=2).reshape(-1, d)  # overflow reads 0
+        gathered = padded[flat_idx].reshape(g, s * k, d)
+        weighted = gathered * (gv * keep.to(_F32)).to(x.dtype)[..., None]
+        return _combine(weighted, k), aux
+
+
+def moe_block(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, D) -> (B, S, D), plus the scalar router aux loss.
+
+    Default: one GLOBAL dispatch group of all B*S tokens (exact Switch
+    semantics; capacity counts the whole batch). ``moe_group_dispatch``: one
+    group per batch row, capacity per row. ``moe_expert_parallel`` picks the
+    JAX package's expert-parallel layout, which differs from the per-row
+    route only in its sharding constraints: on one card both are this
+    grouped computation.
+    """
+    b, s, d = x.shape
+    groups = x if cfg.moe_group_dispatch else x.reshape(1, b * s, d)
+    out, aux = _grouped_moe(params, groups, cfg)
+    out = out.reshape(b, s, d)
+    if params.shared is not None:
+        out = out + mlp_block(params.shared, x, cfg)
+    return out, aux

@@ -1,12 +1,11 @@
 """Decoder-LM assembly: pattern-cycled blocks and serving caches.
 
-The port of ``repro.models.transformer`` for the layer kinds ``attn``,
-``local_attn``, ``mlstm`` and ``slstm``. The JAX package stacks layers into
-scan groups for its compiler and rematerializes them in training; on one
-card, run eagerly, neither applies, so the layers are an ``nn.ModuleList``
-in layer order (``convert.params_from_jax`` unstacks the JAX groups onto
-it). The kind ``rglru`` and MoE FFNs raise :class:`NotImplementedError`
-naming the ROADMAP item that ports them.
+The port of ``repro.models.transformer`` for every decoder-only family: the
+layer kinds ``attn``, ``local_attn``, ``mlstm``, ``slstm`` and ``rglru``,
+with a dense MLP or an MoE FFN. The JAX package stacks layers into scan
+groups for its compiler and rematerializes them in training; on one card,
+run eagerly, neither applies, so the layers are an ``nn.ModuleList`` in
+layer order (``convert.params_from_jax`` unstacks the JAX groups onto it).
 """
 from __future__ import annotations
 
@@ -19,6 +18,8 @@ from repro_torch.models.attention import attention_block, init_attention, init_k
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Embed, Norm, embed, layernorm, rmsnorm, unembed
 from repro_torch.models.mlp import MLP, init_mlp, mlp_block
+from repro_torch.models.moe import MoE, init_moe, moe_block
+from repro_torch.models.rglru import init_rglru, init_rglru_state, rglru_block
 from repro_torch.models.xlstm import (
     init_mlstm,
     init_mlstm_state,
@@ -30,32 +31,19 @@ from repro_torch.models.xlstm import (
 
 __all__ = ["Layer", "Transformer", "init_params", "init_cache", "forward", "check_ported"]
 
-# Where each block kind or FFN this slice does not run gets ported.
-_NOT_PORTED = {
-    "rglru": "ROADMAP.md queue 1 item 9 (RG-LRU blocks of recurrentgemma)",
-    "moe": "ROADMAP.md queue 1 item 9 (MoE FFNs of olmoe and qwen2-moe)",
-}
-_KINDS = ("attn", "local_attn", "mlstm", "slstm")
-
-
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless every layer of ``cfg`` is ported."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE is not ported to repro_torch yet: see {_NOT_PORTED['moe']}")
+    """Raise ValueError on a block kind the model does not know."""
     for kind in dict.fromkeys(cfg.layer_kinds()):
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported to repro_torch yet: see {_NOT_PORTED[kind]}"
-            )
-        if kind not in _KINDS:
+        if kind not in _INIT_MIXER:
             raise ValueError(f"unknown block kind {kind!r}")
 
 
 class Layer(nn.Module):
-    """One block: ``ln1`` + ``mixer`` (attention, mLSTM or sLSTM), then ``ln2``
-    + ``ffn`` when the config has an FFN (xLSTM's d_ff = 0 has none)."""
+    """One block: ``ln1`` + ``mixer`` (attention, mLSTM, sLSTM or RG-LRU), then
+    ``ln2`` + ``ffn`` (an MLP or an MoE) when the config has an FFN."""
 
-    def __init__(self, ln1: Norm, mixer: nn.Module, ln2: Optional[Norm], ffn: Optional[MLP]):
+    def __init__(self, ln1: Norm, mixer: nn.Module, ln2: Optional[Norm],
+                 ffn: Optional[MLP | MoE]):
         super().__init__()
         self.ln1, self.mixer, self.ln2, self.ffn = ln1, mixer, ln2, ffn
 
@@ -89,24 +77,33 @@ def _init_norm(cfg: ModelConfig, dtype: torch.dtype, device) -> Norm:
 
 
 _INIT_MIXER = {"attn": init_attention, "local_attn": init_attention,
-               "mlstm": init_mlstm, "slstm": init_slstm}
+               "mlstm": init_mlstm, "slstm": init_slstm, "rglru": init_rglru}
+
+
+def _has_ffn(cfg: ModelConfig) -> bool:
+    """MoE layers always have one (olmoe's d_ff is 0); xLSTM's d_ff = 0 has none."""
+    return cfg.is_moe or cfg.d_ff > 0
 
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype: torch.dtype) -> Layer:
     ln1 = _init_norm(cfg, dtype, gen.device)
     mixer = _INIT_MIXER[kind](gen, cfg, dtype)
-    if cfg.d_ff > 0:
-        return Layer(ln1, mixer, _init_norm(cfg, dtype, gen.device), init_mlp(gen, cfg, dtype))
-    return Layer(ln1, mixer, None, None)
+    if not _has_ffn(cfg):
+        return Layer(ln1, mixer, None, None)
+    ffn = init_moe(gen, cfg, dtype) if cfg.is_moe else init_mlp(gen, cfg, dtype)
+    return Layer(ln1, mixer, _init_norm(cfg, dtype, gen.device), ffn)
 
 
 def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype, device) -> dict:
     """One layer's serving cache: {k, v} in ``dtype`` for attention, the
-    recurrent state (always fp32, O(1) in ``max_seq``) for mLSTM and sLSTM."""
+    recurrent state (always fp32, O(1) in ``max_seq``) for mLSTM, sLSTM and
+    RG-LRU."""
     if kind == "mlstm":
         return init_mlstm_state(cfg, batch, device)
     if kind == "slstm":
         return init_slstm_state(cfg, batch, device)
+    if kind == "rglru":
+        return init_rglru_state(cfg, batch, device)
     if kind == "local_attn" and cfg.local_window:
         # ring buffer: O(window) regardless of context length
         return init_kv_cache(cfg, batch, min(max_seq, cfg.local_window), dtype, device)
@@ -143,12 +140,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *, device
 
 def _apply_layer(lparams: Layer, x, cfg: ModelConfig, kind: str, *, positions, cache_entry,
                  cache_pos, causal: bool):
-    """One block: pre-norm mixer + residual (+ pre-norm FFN + residual)."""
+    """One block: pre-norm mixer + residual (+ pre-norm FFN + residual).
+    Returns (x, new cache entry, the MoE router's aux loss or None)."""
     h = _norm(cfg, lparams.ln1, x)
     if kind == "mlstm":
         mix, new_cache = mlstm_block(lparams.mixer, h, cfg, state=cache_entry)
     elif kind == "slstm":
         mix, new_cache = slstm_block(lparams.mixer, h, cfg, state=cache_entry)
+    elif kind == "rglru":
+        mix, new_cache = rglru_block(lparams.mixer, h, cfg, state=cache_entry)
     else:
         window = cfg.local_window if kind == "local_attn" and cfg.local_window else None
         ring = kind == "local_attn" and bool(cfg.local_window)
@@ -158,9 +158,15 @@ def _apply_layer(lparams: Layer, x, cfg: ModelConfig, kind: str, *, positions, c
             cache=cache_entry, cache_pos=cache_pos, ring=ring,
         )
     x = x + mix
+    aux = None
     if lparams.ffn is not None:
-        x = x + mlp_block(lparams.ffn, _norm(cfg, lparams.ln2, x), cfg)
-    return x, new_cache
+        h2 = _norm(cfg, lparams.ln2, x)
+        if cfg.is_moe:
+            f, aux = moe_block(lparams.ffn, h2, cfg)
+        else:
+            f = mlp_block(lparams.ffn, h2, cfg)
+        x = x + f
+    return x, new_cache, aux
 
 
 def forward(
@@ -205,17 +211,20 @@ def forward(
         if cfg.mrope:
             positions = positions[..., None].expand(b, s, 3)
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {"pos": cache_pos + s, "layers": []} if cache is not None else None
     for i, lparams in enumerate(params.layers):
-        x, nc = _apply_layer(
+        x, nc, aux = _apply_layer(
             lparams, x, cfg, cfg.block_kind(i),
             positions=positions,
             cache_entry=cache["layers"][i] if cache is not None else None,
             cache_pos=cache_pos, causal=causal,
         )
+        if aux is not None:
+            aux_total = aux_total + aux
         if cache is not None:
             new_cache["layers"].append(nc)
 
     x = _norm(cfg, params.final_norm, x)
     logits = unembed(params.embed, x, tied=cfg.tie_embeddings, softcap=cfg.logit_softcap)
-    return logits, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, new_cache, aux_total

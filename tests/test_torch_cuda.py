@@ -204,6 +204,37 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2**-7)])
+def test_cuda_flash_attention_recurrentgemma_shape(cuda, dtype, tol):
+    """recurrentgemma's local attention: head dim 256, MQA with 16 query heads
+    on 1 KV head, and a window shorter than the sequence."""
+    for s, window in ((300, 128), (1100, 1024)):
+        q = _on(cuda, (1, 16, s, 256), dtype)
+        k, v = _on(cuda, (1, 1, s, 256), dtype), _on(cuda, (1, 1, s, 256), dtype)
+        got = tfa.flash_attention_cuda(q, k, v, causal=True, window=window)
+        want = attention_ref(q, k, v, causal=True, window=window)
+        assert got.dtype == dtype and _within(got, want, tol), (s, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "recurrentgemma_9b"])
+def test_cuda_engine_serves_moe_and_rglru_like_the_cpu_port(cuda, arch):
+    """The smoke configs (fp32) served on the card give the CPU port's greedy tokens."""
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    serve = ServeConfig(max_seq=64, slots=2, page_size=8)
+    prompts = [np.arange(5 + 7 * i) % cfg.vocab for i in range(3)]  # 19 > recurrentgemma's window
+    eng = Engine(cfg, params, serve, device=cuda)
+    hs = [eng.submit(p, 6) for p in prompts]
+    eng.run()
+    assert [h.finish_reason for h in hs] == ["length"] * 3
+    cpu = Engine(cfg, params.cpu(), serve, device="cpu")
+    want = [cpu.submit(p, 6) for p in prompts]
+    cpu.run()
+    assert [h.tokens() for h in hs] == [h.tokens() for h in want]
+
+
+@pytest.mark.cuda
 def test_cuda_engine_serves_through_both_kernels(cuda):
     cfg = get_smoke_config("phi4_mini_3_8b")
     params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))

@@ -3,11 +3,14 @@
 The same seeded numpy inputs and the JAX parameters, converted with
 ``convert.params_from_jax``, go through both packages in fp32 on the CPU:
 rope, the layers, the MLP and whole-model logits of ``transformer.forward``
-on dense smoke configs, at 1e-4 relative to the largest output (the JAX
-package's own model tests hold fp32 paths at 1e-4). The configs are plain
-data and equal the JAX ones field for field; the families the port does
-not run yet raise NotImplementedError naming their ROADMAP item. The
-xLSTM family has its own file, ``tests/test_torch_xlstm.py``.
+on dense smoke configs, and on the MoE (olmoe, qwen2-moe) and RG-LRU
+(recurrentgemma) smoke configs with the summed router aux loss and prefill +
+decode, at 1e-4 relative to the largest output (the JAX package's own model
+tests hold fp32 paths at 1e-4). The configs are plain data and equal the
+JAX ones field for field; the encoder-decoder family, which the port does
+not run yet, raises NotImplementedError naming its ROADMAP item. The xLSTM
+family has its own file, ``tests/test_torch_xlstm.py``; the MoE and RG-LRU
+blocks have ``tests/test_torch_moe.py`` and ``tests/test_torch_rglru.py``.
 """
 import dataclasses
 
@@ -35,6 +38,7 @@ from repro_torch.models import transformer as TT
 
 RNG = np.random.default_rng(5)
 DENSE = ["phi4_mini_3_8b", "qwen1_5_32b", "gemma_7b", "internlm2_20b", "qwen2_vl_72b"]
+MOE_AND_RGLRU = ["olmoe_1b_7b", "qwen2_moe_a2_7b", "recurrentgemma_9b"]
 
 
 def _np(shape):
@@ -172,9 +176,39 @@ def test_prefill_and_decode_match_reference_on_a_tail_layout():
     assert int(tcache["pos"]) == 8
 
 
+@pytest.mark.parametrize("arch", MOE_AND_RGLRU)
+def test_forward_logits_and_aux_match_reference(arch):
+    """The summed router aux loss of every MoE layer (0 for recurrentgemma)."""
+    jcfg, tcfg, jp, tp = _models(arch)
+    toks = RNG.integers(0, jcfg.vocab, (2, 12))
+    want, _, jaux = JT.forward(jp, jnp.asarray(toks), jcfg)
+    got, cache, aux = TT.forward(tp, torch.from_numpy(toks), tcfg)
+    assert cache is None
+    _close(got, want)
+    assert abs(float(aux) - float(jaux)) <= 1e-6 * max(abs(float(jaux)), 1e-30)
+    assert (float(aux) > 0) == tcfg.is_moe
+
+
+@pytest.mark.parametrize("arch", MOE_AND_RGLRU)
+@pytest.mark.parametrize("prompt", [7, 21])
+def test_prefill_and_decode_match_reference(arch, prompt):
+    """21 tokens pass recurrentgemma's 16-token window, so its ring wraps."""
+    jcfg, tcfg, jp, tp = _models(arch)
+    toks = RNG.integers(0, jcfg.vocab, (2, prompt))
+    jlog, jcache = JM.apply_prefill(jp, {"tokens": jnp.asarray(toks)},
+                                    JM.init_cache(jcfg, 2, 32), jcfg)
+    tlog, tcache = TM.apply_prefill(tp, {"tokens": torch.from_numpy(toks)},
+                                    TM.init_cache(tcfg, 2, 32, device="cpu"), tcfg)
+    _close(tlog, jlog)
+    for _ in range(3):
+        nxt = np.array(jnp.argmax(jlog, -1))[:, None]
+        jlog, jcache = JM.apply_decode(jp, jnp.asarray(nxt), jcache, jcfg)
+        tlog, tcache = TM.apply_decode(tp, torch.from_numpy(nxt), tcache, tcfg)
+        _close(tlog, jlog)
+    assert int(tcache["pos"]) == prompt + 3
+
+
 @pytest.mark.parametrize("arch,match", [
-    ("olmoe_1b_7b", "MoE"),
-    ("recurrentgemma_9b", "block kind 'rglru'"),
     ("whisper_tiny", "encoder-decoder"),
 ])
 def test_unported_families_raise_not_implemented(arch, match):

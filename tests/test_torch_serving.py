@@ -4,8 +4,9 @@ Mirrors the decoder-only parts of ``tests/test_serving.py``,
 ``tests/test_serve_pool.py`` and the serving fault tests of
 ``tests/test_recovery.py`` on ``repro_torch.serving``, and holds the port's
 ``Engine`` against the JAX ``Engine``: from the same converted parameters
-(the phi4, qwen2-vl and xlstm smoke configs, fp32) both give the same greedy
-tokens, and their prefill logits agree within 1e-4 relative.
+(the phi4, qwen2-vl, xlstm, olmoe, qwen2-moe and recurrentgemma smoke
+configs, fp32) both give the same greedy tokens, and their prefill logits
+agree within 1e-4 relative.
 """
 import dataclasses
 
@@ -44,11 +45,15 @@ def _engine(cfg, params, **kw):
 
 
 # ------------------------------------------------------------ against JAX
-@pytest.fixture(scope="module", params=["phi4_mini_3_8b", "qwen2_vl_72b", "xlstm_1_3b"])
+@pytest.fixture(scope="module", params=["phi4_mini_3_8b", "qwen2_vl_72b", "xlstm_1_3b",
+                                        "olmoe_1b_7b", "qwen2_moe_a2_7b", "recurrentgemma_9b"])
 def jax_pair(request):
     """Both engines on the same parameters; qwen2-vl's text path runs M-RoPE
-    with the engine's stub position streams, and xlstm has no paged layer:
-    its mLSTM and sLSTM state is slot-indexed."""
+    with the engine's stub position streams, xlstm has no paged layer (its
+    mLSTM and sLSTM state is slot-indexed), the MoE models route the whole
+    slot bucket of a decode step, dead slots included, as one capacity group,
+    and recurrentgemma has no paged layer either: its RG-LRU state and its
+    local-attention rings are slot-indexed."""
     jcfg = jax_smoke(request.param)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
     tcfg = get_smoke_config(request.param)
@@ -523,6 +528,38 @@ def test_scatter_freezes_dead_slot_recurrent_state():
             assert torch.equal(now[name][1], old[name][1])
             assert torch.equal(now[name][[0, 2]], step[name][[0, 2]])
             assert not torch.equal(now[name][0], old[name][0])
+
+
+def test_scatter_freezes_dead_slot_rglru_state():
+    """recurrentgemma's RG-LRU state {h, conv} is slot-indexed and fp32, and
+    its local attention is a ring: nothing is paged. A real decode step
+    advances the live slots' state and leaves a dead slot's as it was."""
+    cfg = get_smoke_config("recurrentgemma_9b")
+    lay = CacheLayout(cfg=cfg, n_slots=3, page_size=8, max_seq=32, device="cpu")
+    assert not lay.has_paged and {n.kind for n in lay.nodes} == {"rglru", "local_attn"}
+    params = M.init_params(cfg, torch.Generator().manual_seed(2))
+    kv = lay.init_kv_state(0)
+    gen = torch.Generator().manual_seed(3)
+    for entry, node in zip(kv, lay.nodes):
+        for name, t in entry.items():
+            if node.kind == "rglru":
+                assert t.dtype == torch.float32 and t.shape[0] == 3
+            t.copy_(torch.randn(t.shape, generator=gen))
+    before = [{n: t.clone() for n, t in e.items()} for e in kv]
+    table = torch.zeros((3, lay.table_width), dtype=torch.long)
+    pos = torch.tensor([4, 9, 2])
+    dense = lay.gather(kv, table, pos, bucket_pages=1)
+    _, new = M.apply_decode(params, torch.tensor([[3], [5], [7]]), dense, cfg)
+    for old, now in zip(before, kv):  # the decode itself wrote no state in place
+        for name in now:
+            assert torch.equal(now[name], old[name])
+    lay.scatter_token(kv, new, table, pos, torch.tensor([True, False, True]))
+    for node, old, now, step in zip(lay.nodes, before, kv, new["layers"]):
+        for name in now:
+            assert torch.equal(now[name][1], old[name][1])
+            assert torch.equal(now[name][[0, 2]], step[name][[0, 2]])
+            if node.kind == "rglru":
+                assert not torch.equal(now[name][0], old[name][0])
 
 
 def test_xlstm_survivor_tokens_exact_across_admission_and_finish():
