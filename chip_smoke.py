@@ -122,7 +122,14 @@ e2. serves 4 of the requests with ``matmul_autotune=True`` (kind auto on
    with no page leaked and that its tokens pass (c)'s near-tie rule against
    the dense-cache route of the same config;
 f. prints TTFT, TPOT, tokens/s, prefill and decode-step times, peak memory,
-   a breakdown of one prefill and each kernel's times against its bound.
+   a breakdown of one prefill and each kernel's times against its bound;
+f1. the fp8 KV cache (``cache_dtype="float8_e4m3fn"``) on the same bf16
+   weights: prints which fp8 index ops the card's torch has, the prefill
+   logits of 4 prompts against the bf16 cache's (normwise, printed) and
+   their prefill + decode logits, which must be finite; serves the 4
+   requests through the Engine: every one ends by length, their first
+   tokens agree with the bf16 engine's on at least half, and the KV pool
+   takes half the bf16 pool's bytes.
 
 The third path serves xlstm-1.3b (random weights from ``--seed``, bf16, full
 width and depth: 42 mLSTM and 6 sLSTM layers) through the same ``Engine``:
@@ -205,6 +212,31 @@ r5. prints prefill ms at 128, 512, 1024, 2048 and 3000 tokens, the decode
     repeated to 16 heads, the window as a mask) and its bound, with RMSNorm
     at (1024, 4096).
 
+The sixth path serves whisper-tiny (the encoder-decoder family; random
+bf16 weights from ``--seed``, full width and depth: 4 encoder and 4 decoder
+layers, d_model 384, 6 heads of 64, vocab 51,865) through
+``Engine.generate``'s static batch: 8 requests, each 1500 stub frames (one
+30 s window) and the 4-token start-of-transcript prefix, 128 new tokens,
+max_seq 448:
+
+w1. (with the kernel checks) holds flash attention against its plain
+    version at whisper's three shapes, fp32 and bf16: the encoder (8, 6,
+    1500, 64) non-causal, the decoder's prefill (8, 6, 4, 64) causal, and
+    cross-attention at a decode step, q (8, 6, 1, 64) against kv (8, 6,
+    1500, 64), non-causal;
+w0. serves the batch: tokens (8, 128) in the vocabulary, flash launched
+    4 + 4 + 4 times in the prefill and 4 times a decode step, no other
+    kernel; tokens/s and the allocator's peak;
+w2. every served token against an fp32 copy of the model (its kernels in
+    fp32) fed the same frames and tokens: its argmax or within NEAR_TIE;
+w3. prefill logits against a 3-token prefill and one decode step;
+w4. a prefill through kind strassen_fused (depth 1, min_dim 256: the
+    encoder's (8 x 1500)-row projections and MLP and the cross K/V reach
+    strassen1) against the naive route, with its strassen1 launches;
+w5. prints encode and prefill ms, the decode step's wall (host clock) and
+    device busy time (CUDA events behind a held stream), its idle share and
+    device split, and flash at the three shapes beside SDPA and its bound.
+
 RMSNorm is timed with its rows in L2 (the same x again) and cold (x and out
 rotating over more than 100 MB, past the 50 MB L2); the JSON line holds
 the cold time.
@@ -214,7 +246,8 @@ device is present. The JSON line's launches are those of the first path's
 main-path run, for the strassen1 stripe entries those of the mesh path's
 fused runs at that stripe, and for the later entries of a serving kernel
 those of the serving run of its model (xLSTM's sLSTM, olmoe's flash,
-recurrentgemma's RMSNorm and flash); the out-of-core path's launches are
+recurrentgemma's RMSNorm and flash, whisper's flash at its three shapes);
+the out-of-core path's launches are
 printed on its own lines. The last lines are the card's name and power limit, a
 JSON line with one entry per kernel, and ``{"ok": true, "device": ...}``.
 """
@@ -278,9 +311,11 @@ from repro_torch.kernels.strassen.strassen import (  # noqa: E402
     strassen1_matmul_cuda,
 )
 from repro_torch import obs  # noqa: E402
+from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
+from repro_torch.models.frontends import make_stub_frames  # noqa: E402
 from repro_torch.models.rglru import init_rglru_state, rglru_block  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 
@@ -414,6 +449,29 @@ RG_FLASH_LENS = (1024, 3000)
 # move the bf16 rounding of h by one ulp (2^-8) here and there: the output
 # is held to 2^-8 normwise, h to 1e-5 and the conv tail must be equal.
 HALVES_LIMIT, HALVES_H_LIMIT = 2.0**-8, 1e-5
+# The encoder-decoder model: whisper-tiny at full width and depth (4 encoder
+# and 4 decoder layers), one static batch of 8 requests, each one 30 s window
+# of stub frames (1500) and the 4-token start-of-transcript prefix
+# (<|startoftranscript|><|en|><|transcribe|><|notimestamps|>), 128 new tokens
+# each, max_seq 448 (whisper's decoder context).
+WHISPER_ARCH = "whisper_tiny"
+WHISPER_BATCH = 8
+WHISPER_PREFIX = (50258, 50259, 50359, 50363)
+WHISPER_NEW = 128
+WHISPER_SERVE = dict(max_seq=448, temperature=0.0)
+WHISPER_FUSED = MatmulBackend(kind="strassen_fused", depth=1, min_dim=256)
+# The stream is held this many GPU cycles (about 10 ms) before a decode step
+# is timed for its device busy time, so that the host has enqueued the whole
+# step before the card starts it: the events then span only device work.
+HOLD_CYCLES = 20_000_000
+# The fp8 KV cache (f1): phi4 serves 4 of PROMPT_LENS (64, 512, 1024 and 1984
+# tokens) with cache_dtype float8_e4m3fn; its first tokens must agree with the
+# bf16 cache's on at least half of them (the bound of
+# tests/test_perf_features.py::test_fp8_cache_decode_close_to_full_precision).
+FP8 = "float8_e4m3fn"
+FP8_PROMPTS = (0, 3, 5, 7)
+FP8_NEW = 8
+FP8_AGREE = 0.5
 # Kind auto: the candidate set of the 16384^2 table (and of the crossover
 # table and measured mode, so that every timed candidate is in the table),
 # the crossover sizes, and the phi4 requests it serves (prompts of 64, 512,
@@ -503,12 +561,12 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, kind: str) -> floa
 QUEUE_CYCLES = 2_000_000
 
 
-def time_ms(fn, reps: int, queued: bool = False) -> float:
+def time_ms(fn, reps: int, queued: bool = False, hold: int = QUEUE_CYCLES) -> float:
     """Median milliseconds of one call, from CUDA events, after one warm-up.
 
-    With ``queued`` the stream is held busy first, so the events measure the
-    call's device time alone: a kernel of a few microseconds would otherwise
-    be timed as the host's launch gap.
+    With ``queued`` the stream is held busy for ``hold`` cycles first, so the
+    events measure the call's device time alone: a kernel of a few
+    microseconds would otherwise be timed as the host's launch gap.
     """
     fn()
     torch.cuda.synchronize()
@@ -516,7 +574,7 @@ def time_ms(fn, reps: int, queued: bool = False) -> float:
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         if queued:
-            torch.cuda._sleep(QUEUE_CYCLES)
+            torch.cuda._sleep(hold)
         start.record()
         fn()
         end.record()
@@ -1747,13 +1805,15 @@ def phase_engine_vs_model(cfg, params, prompts: list, served: list, seed: int,
     torch.cuda.empty_cache()
 
 
-def last_logits(params, cfg, tokens: torch.Tensor, split: bool) -> torch.Tensor:
-    """Last-position logits of a prefill, or of a prefill of all but the last
-    token followed by one decode step."""
-    cache = M.init_cache(cfg, 1, tokens.shape[1], device=DEVICE)
+def last_logits(params, cfg, tokens: torch.Tensor, split: bool, frames=None) -> torch.Tensor:
+    """Last-position logits of a prefill (of an encoder-decoder model: with
+    ``frames``), or of a prefill of all but the last token followed by one
+    decode step."""
+    cache = M.init_cache(cfg, tokens.shape[0], tokens.shape[1], device=DEVICE)
+    extra = {} if frames is None else {"frames": frames}
     if not split:
-        return M.apply_prefill(params, {"tokens": tokens}, cache, cfg)[0].float()
-    _, cache = M.apply_prefill(params, {"tokens": tokens[:, :-1]}, cache, cfg)
+        return M.apply_prefill(params, {"tokens": tokens, **extra}, cache, cfg)[0].float()
+    _, cache = M.apply_prefill(params, {"tokens": tokens[:, :-1], **extra}, cache, cfg)
     return M.apply_decode(params, tokens[:, -1:], cache, cfg)[0].float()
 
 
@@ -2378,6 +2438,264 @@ def run_rglru(seed: int, reps: int, gen: np.random.Generator) -> list:
     return entries
 
 
+# ----------------------------------------------------------- whisper path
+def whisper_flash_shapes(cfg) -> list:
+    """(name, q shape, kv shape, causal) of flash attention on whisper's path:
+    the encoder, the decoder's prefill and cross-attention at a decode step."""
+    b, h, hd, s = WHISPER_BATCH, cfg.n_heads, cfg.head_dim, cfg.enc_seq
+    p = len(WHISPER_PREFIX)
+    return [("encoder", (b, h, s, hd), (b, cfg.n_kv_heads, s, hd), False),
+            ("decoder prefill", (b, h, p, hd), (b, cfg.n_kv_heads, p, hd), True),
+            ("cross decode", (b, h, 1, hd), (b, cfg.n_kv_heads, s, hd), False)]
+
+
+def phase_whisper_kernels(gen: np.random.Generator, cfg) -> None:
+    """(w1) Flash attention against its plain version at whisper's three shapes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for name, qs, ks, causal in whisper_flash_shapes(cfg):
+            q, k, v = randn(gen, qs, dtype), randn(gen, ks, dtype), randn(gen, ks, dtype)
+            compare(f"flash {tag} q{qs} kv{ks} {'causal' if causal else 'non-causal'} "
+                    f"(whisper {name})", flash_attention_cuda(q, k, v, causal=causal),
+                    attention_ref(q, k, v, causal=causal), "flash")
+
+
+def attention_ops(b: int, hq: int, sq: int, sk: int, d: int, causal: bool) -> int:
+    """4 * D flops per live (query, key) pair and head; causal needs Sq == Sk."""
+    return flash_ops(b, hq, sq, d) if causal else 4 * b * hq * sq * sk * d
+
+
+@torch.inference_mode()
+def whisper_rollout(cfg, params, frames, prefix, tokens):
+    """The dense-cache route fed the frames, the prefix and then ``tokens``
+    (B, T): per step and row, whether the token is the route's argmax and how
+    far below its top logit it lies, in units of the logits' rms."""
+    cache = M.init_cache(cfg, prefix.shape[0], WHISPER_SERVE["max_seq"], device=DEVICE)
+    logits, cache = M.apply_prefill(params, {"tokens": prefix, "frames": frames}, cache, cfg)
+    argmax_equal, gaps = 0, []
+    for i in range(tokens.shape[1]):
+        if i:
+            logits, cache = M.apply_decode(params, tokens[:, i - 1:i], cache, cfg)
+        rows = logits.float()
+        tok = tokens[:, i]
+        argmax_equal += int((rows.argmax(-1) == tok).sum())
+        picked = rows.gather(1, tok[:, None])[:, 0]
+        gaps.append((rows.amax(-1) - picked) / rows.square().mean(-1).sqrt())
+    return argmax_equal, torch.stack(gaps, 1)
+
+
+def phase_whisper_serve(cfg, engine, frames, prefix) -> dict:
+    """(w0) One static batch through ``Engine.generate``: launch counts, the
+    tokens, wall, tokens/s and the allocator's peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    tokens, stats = engine.generate(prefix, WHISPER_NEW, frames=frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in ALL_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = tokens.numel()
+    log(f"serve {cfg.name}: {tokens.shape[0]} requests x {tokens.shape[1]} tokens = {n} tokens "
+        f"in {wall:.3f} s = {n / wall:.1f} tokens/s (generate, one static batch); "
+        f"peak_mem={peak:.3f} GiB; stats {stats}")
+    shape_ok = tuple(tokens.shape) == (WHISPER_BATCH, WHISPER_NEW)
+    range_ok = bool(((tokens >= 0) & (tokens < cfg.vocab)).all())
+    if not (shape_ok and range_ok):
+        fail(f"serve {cfg.name}: tokens {tuple(tokens.shape)}, all in the vocabulary {range_ok}")
+    layers = cfg.n_layers
+    want = {"flash_attention_cuda": cfg.enc_layers + 2 * layers + layers * (WHISPER_NEW - 1),
+            "rmsnorm_cuda": 0, "strassen1_matmul_cuda": 0}
+    log(f"serve {cfg.name} launches: {counts} (want flash {cfg.enc_layers} encoder + {layers} "
+        f"self + {layers} cross in the prefill, {layers} cross x {WHISPER_NEW - 1} decode steps)")
+    for name, k in want.items():
+        if counts[name] != k:
+            fail(f"serve {cfg.name}: {name} launched {counts[name]} times, want {k}")
+    return {"counts": counts, "tokens": tokens.to(DEVICE), "wall": wall, "peak": peak}
+
+
+def phase_whisper_vs_fp32(cfg, params, frames, prefix, tokens) -> None:
+    """(w2) Every served bf16 token against an fp32 copy of the model (its
+    kernels in fp32) fed the same frames and tokens: its argmax, or at most
+    NEAR_TIE x rms below its top logit."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = copy.deepcopy(params).float()
+    equal, gaps = whisper_rollout(cfg32, params32, frames.float(), prefix, tokens)
+    worst = gaps.max().item()
+    ok = worst <= NEAR_TIE
+    log(f"{cfg.name} served bf16 tokens vs fp32 copy: {equal} of {tokens.numel()} are its "
+        f"argmax, largest gap {worst:.3f} rms limit={NEAR_TIE} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{cfg.name} served tokens vs fp32 copy: largest gap {worst:.3f} rms")
+    del params32
+    torch.cuda.empty_cache()
+
+
+def phase_whisper_prefill_vs_decode(cfg, params, frames, prefix) -> None:
+    """(w3) Prefill logits (flash in the decoder's self- and cross-attention)
+    against a prefill of 3 tokens and one decode step (plain decode attention,
+    flash at Sq = 1 for cross-attention)."""
+    full = last_logits(params, cfg, prefix, False, frames)
+    split = last_logits(params, cfg, prefix, True, frames)
+    err = rel_norm(split, full)
+    ok = bool(torch.isfinite(full).all() and torch.isfinite(split).all()) and err <= PREFILL_DECODE_LIMIT
+    log(f"{cfg.name} prefill vs prefill+decode, batch {prefix.shape[0]} bf16: rel_err={err:.3e} "
+        f"limit={PREFILL_DECODE_LIMIT:.0e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{cfg.name} prefill vs prefill+decode: rel_err {err:.3e}")
+
+
+def phase_whisper_strassen(cfg, params, frames, prefix) -> int:
+    """(w4) A prefill with every projection through strassen_fused (min_dim
+    256: the encoder's (B * 1500)-row projections, the cross K/V and the
+    encoder MLP reach strassen1) against the naive route; returns the launches."""
+    naive = last_logits(params, cfg, prefix, False, frames)
+    fused = dataclasses.replace(cfg, matmul_backend=WHISPER_FUSED)
+    strassen1_matmul_cuda.launches = 0
+    got = last_logits(params, fused, prefix, False, frames)
+    launches = strassen1_matmul_cuda.launches
+    err = rel_norm(got, naive)
+    ok = launches > 0 and bool(torch.isfinite(got).all()) and err <= STRASSEN_LIMIT
+    log(f"{cfg.name} prefill, strassen_fused depth={fused.matmul_backend.depth} min_dim="
+        f"{fused.matmul_backend.min_dim}: strassen1 launches {launches}, "
+        f"rel_err vs naive={err:.3e} limit={STRASSEN_LIMIT:.0e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{cfg.name} strassen_fused prefill: {launches} strassen1 launches, rel_err {err:.3e}")
+    return launches
+
+
+def phase_whisper_numbers(cfg, params, frames, prefix, reps: int) -> None:
+    """(w5) Encode and prefill ms, the decode step's wall and device busy time,
+    its idle share and device split."""
+    with torch.inference_mode():
+        enc_ms = time_ms(lambda: encdec.encode(params, frames, cfg), reps)
+    pre_ms = time_ms(lambda: last_logits(params, cfg, prefix, False, frames), reps)
+    log(f"{cfg.name} encode, {WHISPER_BATCH} x {cfg.enc_seq} frames bf16: {enc_ms:.3f} ms; "
+        f"prefill (encode + {len(WHISPER_PREFIX)}-token decoder prefill): {pre_ms:.3f} ms")
+    cache = M.init_cache(cfg, WHISPER_BATCH, WHISPER_SERVE["max_seq"], device=DEVICE)
+    _, cache = M.apply_prefill(params, {"tokens": prefix, "frames": frames}, cache, cfg)
+    tok = prefix[:, -1:]
+
+    def step():
+        return M.apply_decode(params, tok, cache, cfg)
+
+    wall = statistics.median([timed(step)[0] for _ in range(16)])
+    busy = time_ms(step, 16, queued=True, hold=HOLD_CYCLES)
+    log(f"{cfg.name} decode step, batch {WHISPER_BATCH}: wall {wall:.3f} ms (host clock around a "
+        f"synchronized step), device busy {busy:.3f} ms (CUDA events, stream held), idle share "
+        f"{1 - busy / wall:.1%}; {WHISPER_BATCH / wall * 1e3:.1f} tokens/s at this step time")
+    log_split(f"{cfg.name} decode step, batch {WHISPER_BATCH}", wall, device_split(step))
+
+
+def phase_whisper_flash_timing(cfg, reps: int, counts: dict) -> list:
+    """Flash attention at whisper's three shapes beside SDPA and its bound;
+    JSON entries with the whisper path's launches."""
+    gen = np.random.default_rng(7)
+    rows = []
+    for name, qs, ks, causal in whisper_flash_shapes(cfg):
+        q = randn(gen, qs, torch.bfloat16)
+        k, v = randn(gen, ks, torch.bfloat16), randn(gen, ks, torch.bfloat16)
+        stats = time_kernel(
+            f"flash bf16 q{qs} kv{ks} {'causal' if causal else 'non-causal'} (whisper {name})",
+            lambda: flash_attention_cuda(q, k, v, causal=causal),
+            lambda: attention_ref(q, k, v, causal=causal),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal),
+            attention_ops(qs[0], qs[1], qs[2], ks[2], qs[3], causal),
+            2 * nbytes(q) + nbytes(k, v), torch.bfloat16, "flash", reps)
+        rows.append(json_row("flash_attention_cuda", counts, stats))
+    return rows
+
+
+def run_whisper(seed: int, reps: int) -> list:
+    """(w0), (w2)-(w5) Serve whisper-tiny at full width and depth through the
+    static generate path; returns its JSON entries."""
+    cfg = get_config(WHISPER_ARCH)
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed))
+    frames = make_stub_frames(cfg, WHISPER_BATCH, torch.Generator(device=DEVICE).manual_seed(seed),
+                              device=DEVICE)
+    prefix = torch.tensor([WHISPER_PREFIX] * WHISPER_BATCH, device=DEVICE)
+    log(f"{cfg.name}: {sum(p.numel() for p in params.parameters()) / 1e6:.3f} M parameters "
+        f"({cfg.dtype}, {cfg.enc_layers} encoder + {cfg.n_layers} decoder layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, vocab {cfg.vocab}) from seed {seed}; "
+        f"frames {tuple(frames.shape)}")
+    engine = Engine(cfg, params, ServeConfig(**WHISPER_SERVE), device=DEVICE)
+    served = phase_whisper_serve(cfg, engine, frames, prefix)
+    phase_whisper_vs_fp32(cfg, params, frames, prefix, served["tokens"])
+    phase_whisper_prefill_vs_decode(cfg, params, frames, prefix)
+    phase_whisper_strassen(cfg, params, frames, prefix)
+    phase_whisper_numbers(cfg, params, frames, prefix, reps)
+    entries = phase_whisper_flash_timing(cfg, reps, served["counts"])
+    del params, engine, served
+    torch.cuda.empty_cache()
+    return entries
+
+
+# ------------------------------------------------------------- fp8 KV cache
+def probe_fp8_ops() -> None:
+    """Which index ops this torch has for float8_e4m3fn on the card (printed:
+    the port moves fp8 cache entries through uint8 views either way)."""
+    c = torch.zeros((2, 2, 8, 4), dtype=torch.float8_e4m3fn, device=DEVICE)
+    kv = torch.ones((2, 2, 1, 4), device=DEVICE).to(c.dtype)
+    rows, pos = torch.arange(2, device=DEVICE), torch.tensor([1, 2], device=DEVICE)
+    ops = {
+        "index_copy_": lambda: c.index_copy_(2, pos[:1], kv),
+        "index_put_": lambda: c.__setitem__((rows, slice(None), pos, slice(None)), kv[:, :, 0]),
+        "index": lambda: c[rows],
+        "roll": lambda: torch.roll(c, 1, dims=2),
+        "where": lambda: torch.where(rows.bool()[:, None, None, None], c, c),
+    }
+    have = []
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            have.append(f"{name} ok")
+        except (RuntimeError, NotImplementedError) as e:
+            have.append(f"{name} missing ({type(e).__name__})")
+    log(f"fp8 (float8_e4m3fn) ops on the card, torch {torch.__version__}: {', '.join(have)}")
+
+
+def cache_bytes(state) -> int:
+    return sum(nbytes(t) for layer in state for t in layer.values())
+
+
+def phase_fp8_cache(cfg, params, prompts: list, served: list) -> None:
+    """(f1) The fp8 KV cache on phi4's bf16 weights: the dense route's prefill
+    and prefill + decode logits are finite, and their distance from the bf16
+    cache's is printed; 4 requests through the Engine end by length, their
+    first tokens agree with the bf16 engine's on at least FP8_AGREE of them,
+    and the KV pool takes half the bf16 pool's bytes."""
+    probe_fp8_ops()
+    cfg8 = dataclasses.replace(cfg, cache_dtype=FP8)
+    finite = True
+    for i in FP8_PROMPTS:
+        tokens = torch.as_tensor(prompts[i][None], device=DEVICE)
+        full = last_logits(params, cfg, tokens, False)
+        got, split = last_logits(params, cfg8, tokens, False), last_logits(params, cfg8, tokens, True)
+        finite &= bool(torch.isfinite(got).all() and torch.isfinite(split).all())
+        log(f"fp8 cache, prompt {tokens.shape[1]}: prefill logits rel_err vs bf16 cache="
+            f"{rel_norm(got, full):.3e}, prefill+decode vs prefill {rel_norm(split, got):.3e}, "
+            f"same argmax {int(got.argmax()) == int(full.argmax())}")
+    engine = Engine(cfg8, params, ServeConfig(**SERVE), device=DEVICE)
+    handles = [engine.submit(prompts[i], FP8_NEW) for i in FP8_PROMPTS]
+    engine.run()
+    ended = all(h.finish_reason == "length" and len(h.tokens()) == FP8_NEW for h in handles)
+    agree = float(np.mean([h.tokens()[0] == served[i].tokens()[0]
+                           for h, i in zip(handles, FP8_PROMPTS)]))
+    bf16 = Engine(cfg, params, ServeConfig(**SERVE), device=DEVICE)
+    bf16._ensure_serving()
+    b8, b16 = cache_bytes(engine._kv), cache_bytes(bf16._kv)
+    ok = finite and ended and agree >= FP8_AGREE and 2 * b8 == b16
+    log(f"fp8 cache engine, {len(handles)} requests: all end by length {ended}, first tokens agree "
+        f"with the bf16 engine on {agree:.0%} (limit {FP8_AGREE:.0%}), logits finite {finite}, "
+        f"KV pool {b8 / 2**30:.3f} GiB vs bf16 {b16 / 2**30:.3f} GiB {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"fp8 cache: finite {finite}, ended {ended}, agree {agree:.2f}, pool bytes {b8} vs {b16}")
+    del engine, bf16
+    torch.cuda.empty_cache()
+
+
 def report_failures() -> int:
     print(f"chip_smoke: {len(FAILURES)} failure(s):", file=sys.stderr)
     for f in FAILURES:
@@ -2420,6 +2738,8 @@ def main() -> int:
     rg_gen = np.random.default_rng([args.seed, 5])  # the RG-LRU path's own stream
     rg_cfg = get_config(RG_ARCH)
     phase_model_kernels(rg_gen, rg_cfg, RG_FLASH_LENS, rg_cfg.local_window)
+    whisper_gen = np.random.default_rng([args.seed, 6])  # the whisper path's own stream
+    phase_whisper_kernels(whisper_gen, get_config(WHISPER_ARCH))
     if FAILURES:  # no point driving the main path through a wrong kernel
         return report_failures()
 
@@ -2471,6 +2791,7 @@ def main() -> int:
     phase_strassen_prefill(cfg, params, serve_gen)
     phase_auto_serve(cfg, params, prompts)
     phase_serving_numbers(cfg, params, prompts, args.reps)
+    phase_fp8_cache(cfg, params, prompts, served["handles"])
     entries += phase_serving_timing(cfg, args.reps, served["counts"])
     del params, served
     torch.cuda.empty_cache()
@@ -2481,6 +2802,8 @@ def main() -> int:
     entries += run_moe(args.seed, args.reps, moe_gen)
     log(f"MoE path done at {time.perf_counter() - t0:.1f} s")
     entries += run_rglru(args.seed, args.reps, rg_gen)
+    log(f"RG-LRU path done at {time.perf_counter() - t0:.1f} s")
+    entries += run_whisper(args.seed, args.reps)
     log(f"total {time.perf_counter() - t0:.1f} s")
 
     if FAILURES:

@@ -65,15 +65,24 @@ def _flatten(tree: Dict[str, Any], prefix: str, out: Dict[str, Any], index=None)
 def params_from_jax(
     params_np: Dict[str, Any], cfg: ModelConfig, device: torch.device | str = "cuda"
 ) -> Dict[str, torch.Tensor]:
-    """The port's state dict from the JAX decoder's parameter tree, bit for bit.
+    """The port's state dict from the JAX model's parameter tree, bit for bit.
 
-    ``params_np`` is ``repro.models.transformer.init_params``'s tree with
-    numpy leaves. The JAX tree stacks layers into scan groups: leaf
+    ``params_np`` is ``repro.models.model.init_params``'s tree with numpy
+    leaves. The JAX decoder stacks layers into scan groups: leaf
     ``groups/pos{j}`` index ``g`` is layer ``g * period + j``, and
     ``tail[i]`` is layer ``n_groups * period + i``
     (``repro/models/transformer.py:139-180``). The port keeps the layers as
-    one list, so they become ``layers.{i}.<name>``.
+    one list, so they become ``layers.{i}.<name>``. The encoder-decoder
+    tree keeps plain lists ``enc[i]`` and ``dec[i]``, which become
+    ``enc.{i}.<name>`` and ``dec.{i}.<name>``.
     """
+    if cfg.is_encdec:
+        flat: Dict[str, Any] = {}
+        _flatten({k: params_np[k] for k in ("embed", "enc_norm", "dec_norm")}, "", flat)
+        for stack in ("enc", "dec"):
+            for i, layer in enumerate(params_np[stack]):
+                _flatten(layer, f"{stack}.{i}.", flat)
+        return {k: tensor_from_numpy(np.array(v), device) for k, v in flat.items()}
     period = len(cfg.block_pattern)
     n_groups = cfg.n_layers // period
     flat: Dict[str, Any] = {}

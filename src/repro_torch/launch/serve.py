@@ -1,4 +1,4 @@
-"""Serving launcher: the port's continuous-batching engine for a decoder LM.
+"""Serving launcher: the port's continuous-batching engine, and whisper's static path.
 
 The port of ``repro.launch.serve``, with its flags plus ``--device``. It runs
 on the card unless asked for the CPU:
@@ -8,11 +8,13 @@ on the card unless asked for the CPU:
   python -m repro_torch.launch.serve --arch xlstm_1_3b --device cpu --smoke
   python -m repro_torch.launch.serve --arch olmoe_1b_7b --full
   python -m repro_torch.launch.serve --arch recurrentgemma_9b --device cpu --smoke
+  python -m repro_torch.launch.serve --arch whisper_tiny --device cpu --smoke
   python -m repro_torch.launch.serve --backend auto --trace-out trace.json --device cpu
 
-Every decoder-only family is served: the dense decoders, the MoE models
-(olmoe-1b-7b, qwen2-moe-a2.7b), xlstm-1.3b and recurrentgemma-9b. The
-encoder-decoder whisper raises NotImplementedError naming its ROADMAP item.
+Every family is served: the decoder-only ones (the dense decoders, the MoE
+models olmoe-1b-7b and qwen2-moe-a2.7b, xlstm-1.3b and recurrentgemma-9b)
+through the request API, and the encoder-decoder whisper-tiny, on stub audio
+frames made on the device, through ``Engine.generate``'s static batch.
 
 Parameters are random, drawn on the device from ``--seed`` in the config's
 dtype. ``--backend auto`` routes every projection through the autotune
@@ -36,6 +38,7 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch import obs
 from repro_torch.core.backend import JIT_SAFE_KINDS, MatmulBackend
 from repro_torch.models import model as M
+from repro_torch.models.frontends import make_stub_frames
 from repro_torch.obs import export
 from repro_torch.serving.engine import Engine, ServeConfig
 
@@ -120,9 +123,21 @@ def main(argv=None) -> int:
         device=device,
     )
     print(f"arch={cfg.name} on {device}: parameters made in {time.perf_counter() - t0:.2f}s")
+    prompts = np.random.default_rng(args.seed).integers(0, cfg.vocab, (args.batch, args.prompt_len))
+    if cfg.frontend == "audio_stub":
+        # encoder-decoder archs serve through the legacy batched path
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        frames = make_stub_frames(cfg, args.batch, gen, device=device)
+        t0 = time.perf_counter()
+        tokens, stats = engine.generate(prompts, args.new_tokens, frames=frames)
+        dt = time.perf_counter() - t0
+        n = tokens.shape[0] * tokens.shape[1]
+        print(f"arch={cfg.name} generated {tuple(tokens.shape)} in {dt:.2f}s "
+              f"({n / dt:.1f} tok/s incl. first-call set-up); stats={stats}")
+        _write_trace(args.trace_out, engine)
+        return 0
     # request API: submit the batch as independent requests (staggered
     # lengths) and let the scheduler pack the decode bucket
-    prompts = np.random.default_rng(args.seed).integers(0, cfg.vocab, (args.batch, args.prompt_len))
     t0 = time.perf_counter()
     handles = [engine.submit(prompts[i], args.new_tokens + (i % 3)) for i in range(args.batch)]
     n = len(list(engine.stream(handles)))
@@ -135,12 +150,15 @@ def main(argv=None) -> int:
     print(f"arch={cfg.name} served {len(handles)} requests / {n} tokens "
           f"in {dt:.2f}s ({n / dt:.1f} tok/s incl. first-call set-up)")
     print(f"serve_stats: {engine.serve_stats()}")
-    if args.trace_out:
-        export.write_trace(args.trace_out, metrics=engine.metrics)
-        st = engine.stats()["obs"]
-        print(f"wrote {args.trace_out} ({st['tracer']['spans']} spans, "
-              f"{len(st['metrics'])} metric series)")
+    _write_trace(args.trace_out, engine)
     return 0
+
+
+def _write_trace(path, engine: Engine) -> None:
+    if path:
+        export.write_trace(path, metrics=engine.metrics)
+        st = engine.stats()["obs"]
+        print(f"wrote {path} ({st['tracer']['spans']} spans, {len(st['metrics'])} metric series)")
 
 
 if __name__ == "__main__":

@@ -10,9 +10,13 @@ The port of ``repro.models.attention``. Two execution paths, one semantics:
     plain PyTorch as in the JAX package.
 
 Caches are updated in place (the JAX code returns new arrays): a cache
-passed to :func:`attention_block` is the one it returns, written.
-Cross-attention (encoder-decoder) waits for that family (ROADMAP.md queue 1
-item 9).
+passed to :func:`attention_block` is the one it returns, written. A cache
+may be stored in fp8 (``cfg.cache_dtype="float8_e4m3fn"``): it is written
+through uint8 views of its storage (:func:`as_bits`), and the prefill's
+flash attention reads the fp8-rounded K/V upcast to q's dtype, which is
+exact, as the JAX ``chunked_attention`` upcasts them to fp32.
+Cross-attention (the encoder-decoder family, whisper) runs flash attention
+without a mask against K/V computed once from the encoder's output.
 """
 from __future__ import annotations
 
@@ -32,6 +36,10 @@ __all__ = [
     "attention_block",
     "decode_attention",
     "init_kv_cache",
+    "init_cross_attention",
+    "cross_attention_block",
+    "encode_cross_kv",
+    "as_bits",
 ]
 
 _NEG_INF = -1e30
@@ -117,21 +125,43 @@ def _project_qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig, positions
     return q, k, v
 
 
+_FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def as_bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or for an fp8 tensor a uint8 view of the same storage.
+
+    Index ops that move cache entries without arithmetic (``index_copy_``,
+    indexed reads and writes, ``roll``, ``where``) run on the view: not every
+    one has an fp8 kernel (``index_copy_`` has none on the CPU, neither
+    ``index_copy_`` nor ``roll`` on the card in torch 2.11), and a copy of
+    the bits is a copy of the values.
+    """
+    return t.view(torch.uint8) if t.dtype in _FP8 else t
+
+
 def _cache_write(cache: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor, vec: bool) -> torch.Tensor:
     """Write one token's K/V at ``pos``, in place: lockstep (scalar pos) or
     per-row (vector pos, each batch row at its own sequence position)."""
+    dst, src = as_bits(cache), as_bits(kv.to(cache.dtype))
     if not vec:
-        cache.index_copy_(2, pos.reshape(1).long(), kv.to(cache.dtype))
+        dst.index_copy_(2, pos.reshape(1).long(), src)
     else:
         rows = torch.arange(cache.shape[0], device=cache.device)
-        cache[rows, :, pos.long(), :] = kv[:, :, 0, :].to(cache.dtype)
+        dst[rows, :, pos.long(), :] = src[:, :, 0, :]
     return cache
 
 
 def _prefix_write(cache: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Write a whole K/V prefix at scalar ``pos``, in place."""
     idx = pos.reshape(1).long() + torch.arange(kv.shape[2], device=cache.device)
-    return cache.index_copy_(2, idx, kv.to(cache.dtype))
+    as_bits(cache).index_copy_(2, idx, as_bits(kv.to(cache.dtype)))
+    return cache
+
+
+def _roll(t: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll`` along the sequence axis, of the bits for fp8."""
+    return torch.roll(as_bits(t), shift, dims=2).view(t.dtype)
 
 
 def attention_block(
@@ -178,14 +208,15 @@ def attention_block(
             out = decode_attention(q, kc, vc, cache_pos, window=window)
         new_cache = {"k": kc, "v": vc}
     else:
-        out = flash_attention(q, k, v, causal=causal, window=window)
+        # an fp8 cache: attend over the fp8-rounded K/V, upcast exactly
+        out = flash_attention(q, k.to(q.dtype), v.to(q.dtype), causal=causal, window=window)
         if cache is not None and ring:
             w_size = cache["k"].shape[2]
             if s >= w_size:
                 # keep only the last W tokens; token t -> slot t % W.
                 shift = (s - w_size) % w_size
-                kc = torch.roll(k[:, :, -w_size:], shift, dims=2)
-                vc = torch.roll(v[:, :, -w_size:], shift, dims=2)
+                kc = _roll(k[:, :, -w_size:], shift)
+                vc = _roll(v[:, :, -w_size:], shift)
             else:
                 kc = _prefix_write(cache["k"], k, cache_pos)
                 vc = _prefix_write(cache["v"], v, cache_pos)
@@ -199,3 +230,37 @@ def attention_block(
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     out = linear(params.wo, out, cfg.matmul_backend, w_logical=("heads", "fsdp"), site="attn.wo")
     return out, new_cache
+
+
+# ------------------------------------------------------------ cross-attention
+
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Attention:
+    return init_attention(gen, cfg, dtype)
+
+
+def cross_attention_block(
+    params: Attention,
+    x: torch.Tensor,
+    enc_kv: Tuple[torch.Tensor, torch.Tensor],
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V (whisper):
+    flash attention without a mask, in the prefill and at every decode step."""
+    b, s, _ = x.shape
+    backend = cfg.matmul_backend
+    q = linear(params.wq, x, backend, site="xattn.wq").reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k, v = enc_kv  # (B, Hkv, S_enc, hd)
+    out = flash_attention(q.transpose(1, 2), k, v, causal=False)
+    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return linear(params.wo, out, backend, site="xattn.wo")
+
+
+def encode_cross_kv(params: Attention, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention K/V (B, Hkv, S_enc, hd) from the encoder output (no RoPE)."""
+    backend = cfg.matmul_backend
+    b, s, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    k = linear(params.wk, enc_out, backend, site="xattn.wk").reshape(b, s, hkv, hd)
+    v = linear(params.wv, enc_out, backend, site="xattn.wv").reshape(b, s, hkv, hd)
+    return k.transpose(1, 2), v.transpose(1, 2)

@@ -1,9 +1,8 @@
-"""Unified model API over the decoder-only stacks.
+"""Unified model API over the decoder-only and encoder-decoder stacks.
 
-The port of ``repro.models.model`` for decoder-only configs: serving talks to
-these four functions. Encoder-decoder configs (whisper) raise
-:class:`NotImplementedError`; ``apply_train`` and ``loss_fn`` come with the
-training slice (both ROADMAP.md queue 1 item 9).
+The port of ``repro.models.model``: serving talks to these four functions,
+and the family dispatch lives here and nowhere else. ``apply_train`` and
+``loss_fn`` come with the training slice (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -11,28 +10,21 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["init_params", "init_cache", "apply_prefill", "apply_decode"]
 
-_ENCDEC = "ROADMAP.md queue 1 item 9 (encoder-decoder models: whisper)"
 
-
-def _decoder_only(cfg: ModelConfig) -> None:
+def init_params(cfg: ModelConfig, gen: torch.Generator):
     if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported to repro_torch yet: see {_ENCDEC}"
-        )
-
-
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> transformer.Transformer:
-    _decoder_only(cfg)
+        return encdec.init_encdec_params(cfg, gen)
     return transformer.init_params(cfg, gen)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *, device="cuda") -> dict:
-    _decoder_only(cfg)
+    if cfg.is_encdec:
+        return encdec.init_encdec_cache(cfg, batch, max_seq, dtype, device=device)
     return transformer.init_cache(cfg, batch, max_seq, dtype, device=device)
 
 
@@ -40,8 +32,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *, device
 def apply_prefill(
     params, batch: Dict[str, torch.Tensor], cache: dict, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, dict]:
-    """Fill the cache with a prompt (in place); return last-position logits + cache."""
-    _decoder_only(cfg)
+    """Fill the cache with a prompt (in place); return last-position logits + cache.
+    An encoder-decoder config encodes ``batch["frames"]`` first."""
+    if cfg.is_encdec:
+        enc_out = encdec.encode(params, batch["frames"], cfg)
+        logits, new_cache, _ = encdec.decode_forward(
+            params, batch["tokens"], cfg, enc_out=enc_out, cache=cache
+        )
+        return logits[:, -1], new_cache
     logits, new_cache, _ = transformer.forward(
         params, batch["tokens"], cfg, positions=batch.get("positions"), cache=cache,
     )
@@ -58,6 +56,8 @@ def apply_decode(
     positions: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, dict]:
     """One decode step against the cache (written in place); returns (B, V) logits."""
-    _decoder_only(cfg)
+    if cfg.is_encdec:
+        logits, new_cache, _ = encdec.decode_forward(params, tokens, cfg, cache=cache)
+        return logits[:, -1], new_cache
     logits, new_cache, _ = transformer.forward(params, tokens, cfg, positions=positions, cache=cache)
     return logits[:, -1], new_cache

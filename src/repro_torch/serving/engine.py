@@ -21,11 +21,17 @@ The port of ``repro.serving.engine``::
   fetches tokens and finish state every ``sync_interval`` steps.
 * ``generate()`` remains as a thin compatibility shim on top of the loop
   (token-exact with ``_generate_static``, the legacy static-batch path).
+  Encoder-decoder configs (whisper) and calls with audio frames serve
+  through ``_generate_static`` alone, as in the JAX package: the request
+  API covers the decoder-only families.
 
 On the card each forward runs the RMSNorm kernel in every norm, each
 prefill the flash-attention kernel in every attention layer, and each
 forward the sLSTM kernel in every sLSTM layer; decode attention and the
-mLSTM recurrence are plain PyTorch, as in the JAX package. PyTorch runs
+mLSTM recurrence are plain PyTorch, as in the JAX package. An
+encoder-decoder generate runs the flash kernel in every encoder layer and
+every decoder self- and cross-attention of the prefill, and in every
+cross-attention of a decode step. PyTorch runs
 eagerly, so the JAX engine's jitted bodies are plain methods here, and the
 pools and per-slot state are updated in place.
 
@@ -40,8 +46,7 @@ resolves every projection shape of the prefill and decode buckets on the
 engine's device) and ``autotune_stats()`` reports the process decision log,
 the calibration it ran on, and under ``oot`` the stats of every out-of-core
 run since the engine was built (an engine-owned ring of
-:mod:`repro_torch.blocks.scheduler`). Not ported: encoder-decoder serving
-(ROADMAP.md queue 1 item 9).
+:mod:`repro_torch.blocks.scheduler`).
 """
 from __future__ import annotations
 
@@ -305,6 +310,12 @@ class Engine:
     def _ensure_serving(self) -> None:
         if self._layout is not None:
             return
+        if self.cfg.is_encdec:
+            raise NotImplementedError(
+                "continuous batching covers decoder-only families; "
+                "encoder-decoder configs serve through generate()'s "
+                "legacy static path"
+            )
         serve, dev = self.serve, self.device
         layout = CacheLayout(
             cfg=self.cfg,
@@ -841,13 +852,16 @@ class Engine:
         prompts,  # (B, S_prompt) int
         max_new_tokens: int,
         *,
+        frames=None,  # (B, S_enc, D) audio frames for an encoder-decoder config
         seed: int = 0,
     ) -> Tuple[torch.Tensor, Dict[str, float]]:
         """Compatibility shim: batched equal-length generation on top of
         the request loop. Token-exact with the static path for greedy
-        decoding (the parity test pins this). Frame inputs come with the
-        encoder-decoder family (ROADMAP.md queue 1 item 9).
+        decoding (the parity test pins this); encoder-decoder configs and
+        frame inputs take the static path directly.
         """
+        if self.cfg.is_encdec or frames is not None:
+            return self._generate_static(prompts, max_new_tokens, frames=frames, seed=seed)
         serve = self.serve
         prompts_np = np.asarray(torch.as_tensor(prompts).cpu())
         b, s = prompts_np.shape
@@ -918,10 +932,12 @@ class Engine:
         prompts,  # (B, S_prompt) int
         max_new_tokens: int,
         *,
+        frames=None,
         seed: int = 0,
     ) -> Tuple[torch.Tensor, Dict[str, float]]:
         """The lockstep loop: one static equal-length batch on a dense
-        cache, per-token host sync on eos. The parity anchor for the shim."""
+        cache, per-token host sync on eos. The encoder-decoder and frames
+        path, and the parity anchor for the shim."""
         cfg, serve = self.cfg, self.serve
         prompts = torch.as_tensor(prompts, dtype=torch.long, device=self.device)
         b, s = prompts.shape
@@ -930,6 +946,8 @@ class Engine:
             raise ValueError(f"prompt+max_new_tokens={total} exceeds max_seq={serve.max_seq}")
         cache = M.init_cache(cfg, b, serve.max_seq, device=self.device)
         batch = {"tokens": prompts}
+        if frames is not None:
+            batch["frames"] = torch.as_tensor(frames, device=self.device)
         if cfg.mrope:
             batch["positions"] = make_stub_positions(b, s, device=self.device)
         logits, cache = self._prefill(batch, cache)

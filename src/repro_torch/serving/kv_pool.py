@@ -22,7 +22,8 @@ The port of ``repro.serving.kv_pool``. Two layers:
   view, runs the ordinary model decode on it, then scatters the one
   written column back. The JAX layout is per scan group; the port's model
   has no scan groups, so its layout is per layer. Pools are updated in
-  place.
+  place. An fp8 pool (``cfg.cache_dtype``) is gathered, scattered and
+  filled through uint8 views of its storage (``attention.as_bits``).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from repro_torch.models.attention import as_bits
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import _init_layer_cache
 
@@ -209,9 +211,9 @@ class CacheLayout:
     @staticmethod
     def _gather_leaf(pool: torch.Tensor, table_b: torch.Tensor) -> torch.Tensor:
         b, bp = table_b.shape
-        g = pool[table_b]  # (B, bp, H, ps, d)
+        g = as_bits(pool)[table_b]  # (B, bp, H, ps, d)
         _, _, h, ps, d = g.shape
-        return g.transpose(1, 2).reshape(b, h, bp * ps, d)
+        return g.transpose(1, 2).reshape(b, h, bp * ps, d).view(pool.dtype)
 
     # --------------------------------------------------------- scatter
 
@@ -236,13 +238,14 @@ class CacheLayout:
         rows = torch.arange(pos.shape[0], device=pos.device)
         for node, old, new in zip(self.nodes, kv_state, new_dense["layers"]):
             for name in old:
+                dst, src = as_bits(old[name]), as_bits(new[name])
                 if node.paged:
                     # pages were gathered from the table prefix in order, so the
                     # column written this step sits at ``pos`` of the view
-                    old[name][page_idx, :, off, :] = new[name][rows, :, pos, :]
+                    dst[page_idx, :, off, :] = src[rows, :, pos, :]
                 else:
-                    keep = live.reshape(-1, *([1] * (old[name].ndim - 1)))
-                    old[name].copy_(torch.where(keep, new[name], old[name]))
+                    keep = live.reshape(-1, *([1] * (dst.ndim - 1)))
+                    dst.copy_(torch.where(keep, src, dst))
         return kv_state
 
     # ---------------------------------------------------------- insert
@@ -259,10 +262,11 @@ class CacheLayout:
         nb = page_ids.shape[0]
         for node, old, new in zip(self.nodes, kv_state, prefill_cache["layers"]):
             for name in old:
+                dst, src = as_bits(old[name]), as_bits(new[name])
                 if node.paged:
-                    _, h, _, d = new[name].shape
-                    vals = new[name][0].reshape(h, nb, self.page_size, d).transpose(0, 1)
-                    old[name][page_ids.long()] = vals
+                    _, h, _, d = src.shape
+                    vals = src[0].reshape(h, nb, self.page_size, d).transpose(0, 1)
+                    dst[page_ids.long()] = vals
                 else:
-                    old[name][slot] = new[name][0]
+                    dst[slot] = src[0]
         return kv_state

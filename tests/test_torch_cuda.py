@@ -13,7 +13,8 @@ element is held to 2^-7 x (|plain| + rms(plain)): one bf16 ulp of itself,
 with a floor for elements near 0 (the bf16 flash kernel feeds P to its
 tensor-core P V product as two bf16 parts, so that it holds this rule). The
 sLSTM kernel takes the JAX kernel test's 2e-5 in fp32. Smoke-config engine
-runs on the card launch the serving kernels.
+runs on the card launch the serving kernels; an fp8 KV cache and whisper's
+generate path run as on the CPU.
 """
 import numpy as np
 import pytest
@@ -214,6 +215,66 @@ def test_cuda_flash_attention_recurrentgemma_shape(cuda, dtype, tol):
         got = tfa.flash_attention_cuda(q, k, v, causal=True, window=window)
         want = attention_ref(q, k, v, causal=True, window=window)
         assert got.dtype == dtype and _within(got, want, tol), (s, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2**-7)])
+def test_cuda_flash_attention_whisper_shapes(cuda, dtype, tol):
+    """whisper's attention, head dim 64, 6 heads: the encoder (Sq = Sk = 1500,
+    no mask; 1500 is not a multiple of the key tile), the decoder's causal
+    prefill, and cross-attention at a decode step (Sq = 1 against 1500 frames)."""
+    for (b, sq, sk), causal in (((1, 1500, 1500), False), ((2, 4, 4), True),
+                                ((2, 1, 1500), False), ((2, 4, 1500), False)):
+        q = _on(cuda, (b, 6, sq, 64), dtype)
+        k, v = _on(cuda, (b, 6, sk, 64), dtype), _on(cuda, (b, 6, sk, 64), dtype)
+        got = tfa.flash_attention_cuda(q, k, v, causal=causal)
+        want = attention_ref(q, k, v, causal=causal)
+        assert got.dtype == dtype and _within(got, want, tol), (sq, sk, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "recurrentgemma_9b"])
+def test_cuda_fp8_cache_prefill_and_decode_like_the_cpu_port(cuda, arch):
+    """An fp8 KV cache (fp32 smoke config): prefill + 3 decode steps on the
+    card are finite and within the CPU parity tests' 1e-4 of the CPU port."""
+    cfg = get_smoke_config(arch, cache_dtype="float8_e4m3fn")
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    cpu_params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    cpu_params.load_state_dict({k: v.cpu() for k, v in params.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab, (2, 21)))
+    logits = {}
+    for dev, p in ((cuda, params), (torch.device("cpu"), cpu_params)):
+        cache = M.init_cache(cfg, 2, 32, device=dev)
+        lg, cache = M.apply_prefill(p, {"tokens": toks.to(dev)}, cache, cfg)
+        out = [lg.cpu()]
+        for i in range(3):
+            lg, cache = M.apply_decode(p, toks[:, i:i + 1].to(dev), cache, cfg)
+            out.append(lg.cpu())
+        logits[dev.type] = out
+    for got, want in zip(logits["cuda"], logits["cpu"]):
+        assert bool(torch.isfinite(got).all())
+        assert (got - want).abs().max() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_generate_like_the_cpu_port(cuda):
+    """The whisper smoke config (fp32) through generate on the card gives the
+    CPU port's greedy tokens; flash runs in every encoder layer and every
+    self- and cross-attention of the prefill, and in every cross-attention
+    of a decode step."""
+    from repro_torch.models.frontends import make_stub_frames
+
+    cfg = get_smoke_config("whisper_tiny")
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    frames = make_stub_frames(cfg, 2, device=cuda)
+    prompts = np.arange(8).reshape(2, 4) % cfg.vocab
+    tfa.flash_attention_cuda.launches = 0
+    got, _ = Engine(cfg, params, ServeConfig(max_seq=32), device=cuda).generate(
+        prompts, 6, frames=frames)
+    assert tfa.flash_attention_cuda.launches == cfg.enc_layers + 2 * cfg.n_layers + 5 * cfg.n_layers
+    want, _ = Engine(cfg, params.cpu(), ServeConfig(max_seq=32), device="cpu").generate(
+        prompts, 6, frames=frames.cpu())
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -44,6 +44,7 @@ def test_port_files_exist():
         "launch/solve_demo.py", "core/mesh.py", "core/distributed.py",
         "launch/strassen_distributed.py", "models/moe.py", "models/rglru.py",
         "configs/olmoe_1b_7b.py", "configs/qwen2_moe_a2_7b.py", "configs/recurrentgemma_9b.py",
+        "models/encdec.py", "configs/whisper_tiny.py",
     } <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"rmsnorm.cu", "flash_attention.cu", "matmul.cu", "signed_sum.cu",
@@ -73,7 +74,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.obs\n"
         "import repro_torch.kernels.rmsnorm.ops, repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.kernels.slstm.ops, repro_torch.models.xlstm\n"
-        "import repro_torch.models.moe, repro_torch.models.rglru\n"
+        "import repro_torch.models.moe, repro_torch.models.rglru, repro_torch.models.encdec\n"
         "import repro_torch.configs, repro_torch.models.model, repro_torch.models.frontends\n"
         "import repro_torch.serving.engine, repro_torch.launch.serve\n"
         "import repro_torch.core.cost_model, repro_torch.core.autotune, repro_torch.core.compat\n"

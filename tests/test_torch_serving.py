@@ -5,8 +5,8 @@ Mirrors the decoder-only parts of ``tests/test_serving.py``,
 ``tests/test_recovery.py`` on ``repro_torch.serving``, and holds the port's
 ``Engine`` against the JAX ``Engine``: from the same converted parameters
 (the phi4, qwen2-vl, xlstm, olmoe, qwen2-moe and recurrentgemma smoke
-configs, fp32) both give the same greedy tokens, and their prefill logits
-agree within 1e-4 relative.
+configs, fp32, and phi4 and recurrentgemma with an fp8 KV cache) both give
+the same greedy tokens, and their prefill logits agree within 1e-4 relative.
 """
 import dataclasses
 
@@ -46,17 +46,21 @@ def _engine(cfg, params, **kw):
 
 # ------------------------------------------------------------ against JAX
 @pytest.fixture(scope="module", params=["phi4_mini_3_8b", "qwen2_vl_72b", "xlstm_1_3b",
-                                        "olmoe_1b_7b", "qwen2_moe_a2_7b", "recurrentgemma_9b"])
+                                        "olmoe_1b_7b", "qwen2_moe_a2_7b", "recurrentgemma_9b",
+                                        "phi4_mini_3_8b-fp8", "recurrentgemma_9b-fp8"])
 def jax_pair(request):
     """Both engines on the same parameters; qwen2-vl's text path runs M-RoPE
     with the engine's stub position streams, xlstm has no paged layer (its
     mLSTM and sLSTM state is slot-indexed), the MoE models route the whole
     slot bucket of a decode step, dead slots included, as one capacity group,
     and recurrentgemma has no paged layer either: its RG-LRU state and its
-    local-attention rings are slot-indexed."""
-    jcfg = jax_smoke(request.param)
+    local-attention rings are slot-indexed. ``-fp8`` keeps the KV pages
+    (phi4) or the rings (recurrentgemma) in float8_e4m3fn."""
+    arch, _, fp8 = request.param.partition("-")
+    overrides = {"cache_dtype": "float8_e4m3fn"} if fp8 else {}
+    jcfg = jax_smoke(arch, **overrides)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tcfg = get_smoke_config(request.param)
+    tcfg = get_smoke_config(arch, **overrides)
     tparams = M.init_params(tcfg, torch.Generator().manual_seed(9))
     tparams.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, "cpu"))
     args = dict(max_seq=64, temperature=0.0, slots=3, page_size=8, sync_interval=2)
