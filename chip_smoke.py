@@ -220,10 +220,13 @@ layers, d_model 384, 6 heads of 64, vocab 51,865) through
 max_seq 448:
 
 w1. (with the kernel checks) holds flash attention against its plain
-    version at whisper's three shapes, fp32 and bf16: the encoder (8, 6,
+    version at whisper's four shapes, fp32 and bf16: the encoder (8, 6,
     1500, 64) non-causal, the decoder's prefill (8, 6, 4, 64) causal, and
-    cross-attention at a decode step, q (8, 6, 1, 64) against kv (8, 6,
-    1500, 64), non-causal;
+    cross-attention in the prefill, q (8, 6, 4, 64), and at a decode step,
+    q (8, 6, 1, 64), each against kv (8, 6, 1500, 64), non-causal; and
+    strassen1 against its plain version at w4's quadrant shapes, the
+    encoder's (12000, 384) rows split in four against the (384, 384),
+    (384, 1536) and (1536, 384) weights;
 w0. serves the batch: tokens (8, 128) in the vocabulary, flash launched
     4 + 4 + 4 times in the prefill and 4 times a decode step, no other
     kernel; tokens/s and the allocator's peak;
@@ -233,9 +236,9 @@ w3. prefill logits against a 3-token prefill and one decode step;
 w4. a prefill through kind strassen_fused (depth 1, min_dim 256: the
     encoder's (8 x 1500)-row projections and MLP and the cross K/V reach
     strassen1) against the naive route, with its strassen1 launches;
-w5. prints encode and prefill ms, the decode step's wall (host clock) and
-    device busy time (CUDA events behind a held stream), its idle share and
-    device split, and flash at the three shapes beside SDPA and its bound.
+w5. prints encode and prefill ms, the decode step's wall (host clock),
+    tokens/s and device split (busy time and idle share), and flash at the
+    four shapes beside SDPA and its bound.
 
 RMSNorm is timed with its rows in L2 (the same x again) and cold (x and out
 rotating over more than 100 MB, past the 50 MB L2); the JSON line holds
@@ -246,7 +249,7 @@ device is present. The JSON line's launches are those of the first path's
 main-path run, for the strassen1 stripe entries those of the mesh path's
 fused runs at that stripe, and for the later entries of a serving kernel
 those of the serving run of its model (xLSTM's sLSTM, olmoe's flash,
-recurrentgemma's RMSNorm and flash, whisper's flash at its three shapes);
+recurrentgemma's RMSNorm and flash, whisper's flash at its four shapes);
 the out-of-core path's launches are
 printed on its own lines. The last lines are the card's name and power limit, a
 JSON line with one entry per kernel, and ``{"ok": true, "device": ...}``.
@@ -460,10 +463,6 @@ WHISPER_PREFIX = (50258, 50259, 50359, 50363)
 WHISPER_NEW = 128
 WHISPER_SERVE = dict(max_seq=448, temperature=0.0)
 WHISPER_FUSED = MatmulBackend(kind="strassen_fused", depth=1, min_dim=256)
-# The stream is held this many GPU cycles (about 10 ms) before a decode step
-# is timed for its device busy time, so that the host has enqueued the whole
-# step before the card starts it: the events then span only device work.
-HOLD_CYCLES = 20_000_000
 # The fp8 KV cache (f1): phi4 serves 4 of PROMPT_LENS (64, 512, 1024 and 1984
 # tokens) with cache_dtype float8_e4m3fn; its first tokens must agree with the
 # bf16 cache's on at least half of them (the bound of
@@ -561,12 +560,12 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, kind: str) -> floa
 QUEUE_CYCLES = 2_000_000
 
 
-def time_ms(fn, reps: int, queued: bool = False, hold: int = QUEUE_CYCLES) -> float:
+def time_ms(fn, reps: int, queued: bool = False) -> float:
     """Median milliseconds of one call, from CUDA events, after one warm-up.
 
-    With ``queued`` the stream is held busy for ``hold`` cycles first, so the
-    events measure the call's device time alone: a kernel of a few
-    microseconds would otherwise be timed as the host's launch gap.
+    With ``queued`` the stream is held busy first, so the events measure the
+    call's device time alone: a kernel of a few microseconds would otherwise
+    be timed as the host's launch gap.
     """
     fn()
     torch.cuda.synchronize()
@@ -574,7 +573,7 @@ def time_ms(fn, reps: int, queued: bool = False, hold: int = QUEUE_CYCLES) -> fl
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         if queued:
-            torch.cuda._sleep(hold)
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
         end.record()
@@ -2441,16 +2440,27 @@ def run_rglru(seed: int, reps: int, gen: np.random.Generator) -> list:
 # ----------------------------------------------------------- whisper path
 def whisper_flash_shapes(cfg) -> list:
     """(name, q shape, kv shape, causal) of flash attention on whisper's path:
-    the encoder, the decoder's prefill and cross-attention at a decode step."""
+    the encoder, the decoder's prefill, and cross-attention in the prefill and
+    at a decode step."""
     b, h, hd, s = WHISPER_BATCH, cfg.n_heads, cfg.head_dim, cfg.enc_seq
     p = len(WHISPER_PREFIX)
     return [("encoder", (b, h, s, hd), (b, cfg.n_kv_heads, s, hd), False),
             ("decoder prefill", (b, h, p, hd), (b, cfg.n_kv_heads, p, hd), True),
+            ("cross prefill", (b, h, p, hd), (b, cfg.n_kv_heads, s, hd), False),
             ("cross decode", (b, h, 1, hd), (b, cfg.n_kv_heads, s, hd), False)]
 
 
+def whisper_strassen_shapes(cfg) -> list:
+    """(M, K, N) of the projections that reach strassen1 on w4's route: the
+    encoder's (B * 1500)-row attention projections (and the cross K/V) and its
+    MLP; the decoder's 4-token rows stay under min_dim."""
+    m, d, f = WHISPER_BATCH * cfg.enc_seq, cfg.d_model, cfg.d_ff
+    return [(m, d, d), (m, d, f), (m, f, d)]
+
+
 def phase_whisper_kernels(gen: np.random.Generator, cfg) -> None:
-    """(w1) Flash attention against its plain version at whisper's three shapes."""
+    """(w1) Flash attention against its plain version at whisper's four shapes,
+    and strassen1 at w4's quadrant shapes."""
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
         for name, qs, ks, causal in whisper_flash_shapes(cfg):
@@ -2458,6 +2468,13 @@ def phase_whisper_kernels(gen: np.random.Generator, cfg) -> None:
             compare(f"flash {tag} q{qs} kv{ks} {'causal' if causal else 'non-causal'} "
                     f"(whisper {name})", flash_attention_cuda(q, k, v, causal=causal),
                     attention_ref(q, k, v, causal=causal), "flash")
+        s = get_scheme(WHISPER_FUSED.scheme_name)
+        for m, k, n in whisper_strassen_shapes(cfg):
+            aq = split_quadrants(randn(gen, (1, m, k), dtype))
+            bq = split_quadrants(randn(gen, (1, k, n), dtype))
+            compare(f"strassen1 {tag} {WHISPER_FUSED.scheme_name} {(1, m // 2, k // 2, n // 2)} "
+                    f"(whisper {(m, k, n)})", strassen1_matmul_cuda(aq, bq, scheme=s),
+                    strassen1_matmul_ref(aq, bq, s), "mm")
 
 
 def attention_ops(b: int, hq: int, sq: int, sk: int, d: int, causal: bool) -> int:
@@ -2566,8 +2583,8 @@ def phase_whisper_strassen(cfg, params, frames, prefix) -> int:
 
 
 def phase_whisper_numbers(cfg, params, frames, prefix, reps: int) -> None:
-    """(w5) Encode and prefill ms, the decode step's wall and device busy time,
-    its idle share and device split."""
+    """(w5) Encode and prefill ms, the decode step's wall and tokens/s, and its
+    device split (busy time and idle share)."""
     with torch.inference_mode():
         enc_ms = time_ms(lambda: encdec.encode(params, frames, cfg), reps)
     pre_ms = time_ms(lambda: last_logits(params, cfg, prefix, False, frames), reps)
@@ -2581,15 +2598,13 @@ def phase_whisper_numbers(cfg, params, frames, prefix, reps: int) -> None:
         return M.apply_decode(params, tok, cache, cfg)
 
     wall = statistics.median([timed(step)[0] for _ in range(16)])
-    busy = time_ms(step, 16, queued=True, hold=HOLD_CYCLES)
     log(f"{cfg.name} decode step, batch {WHISPER_BATCH}: wall {wall:.3f} ms (host clock around a "
-        f"synchronized step), device busy {busy:.3f} ms (CUDA events, stream held), idle share "
-        f"{1 - busy / wall:.1%}; {WHISPER_BATCH / wall * 1e3:.1f} tokens/s at this step time")
+        f"synchronized step); {WHISPER_BATCH / wall * 1e3:.1f} tokens/s at this step time")
     log_split(f"{cfg.name} decode step, batch {WHISPER_BATCH}", wall, device_split(step))
 
 
 def phase_whisper_flash_timing(cfg, reps: int, counts: dict) -> list:
-    """Flash attention at whisper's three shapes beside SDPA and its bound;
+    """Flash attention at whisper's four shapes beside SDPA and its bound;
     JSON entries with the whisper path's launches."""
     gen = np.random.default_rng(7)
     rows = []

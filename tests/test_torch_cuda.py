@@ -232,28 +232,60 @@ def test_cuda_flash_attention_whisper_shapes(cuda, dtype, tol):
         assert got.dtype == dtype and _within(got, want, tol), (sq, sk, causal)
 
 
+# FP8_FLIP_LIMIT of tests/test_torch_models.py: the logit movement that one
+# e4m3 rounding flip can cause, where fp32 results that differ in their last
+# bits (here the card's and the CPU's) straddle a rounding boundary.
+FP8_FLIP_LIMIT = 4e-3
+
+
+@torch.inference_mode()
+def _fp8_flips_then_load(cache, want):
+    """Cached fp8 elements whose bits differ from ``want``'s (each within one
+    e4m3 ulp of it); then copies every leaf of ``want`` into ``cache``."""
+    flips = 0
+    for layer, ref in zip(cache["layers"], want["layers"]):
+        for name, t in layer.items():
+            r = ref[name]
+            if t.dtype == torch.float8_e4m3fn:
+                got, exp = t.float().cpu(), r.float()
+                assert bool(((got - exp).abs() <= 2**-3 * exp.abs() + 2**-9).all())
+                bits = r.view(torch.uint8).to(t.device)
+                flips += int((t.view(torch.uint8) != bits).sum())
+                t.view(torch.uint8).copy_(bits)
+            else:
+                t.copy_(r)
+    return flips
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "recurrentgemma_9b"])
 def test_cuda_fp8_cache_prefill_and_decode_like_the_cpu_port(cuda, arch):
     """An fp8 KV cache (fp32 smoke config): prefill + 3 decode steps on the
-    card are finite and within the CPU parity tests' 1e-4 of the CPU port."""
+    card are finite and within the CPU parity tests' bounds of the CPU port:
+    1e-4, or FP8_FLIP_LIMIT where an e4m3 flip can reach the logits (a decode
+    step, a prefill whose caches differ, or one whose ring dropped K/V). The
+    CPU cache is loaded into the card's before each step."""
     cfg = get_smoke_config(arch, cache_dtype="float8_e4m3fn")
     params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
     cpu_params = M.init_params(cfg, torch.Generator().manual_seed(0))
     cpu_params.load_state_dict({k: v.cpu() for k, v in params.state_dict().items()})
     toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab, (2, 21)))
-    logits = {}
-    for dev, p in ((cuda, params), (torch.device("cpu"), cpu_params)):
-        cache = M.init_cache(cfg, 2, 32, device=dev)
-        lg, cache = M.apply_prefill(p, {"tokens": toks.to(dev)}, cache, cfg)
-        out = [lg.cpu()]
-        for i in range(3):
-            lg, cache = M.apply_decode(p, toks[:, i:i + 1].to(dev), cache, cfg)
-            out.append(lg.cpu())
-        logits[dev.type] = out
-    for got, want in zip(logits["cuda"], logits["cpu"]):
+    dropped = "local_attn" in cfg.block_pattern and toks.shape[1] > cfg.local_window
+    caches = {dev: M.init_cache(cfg, 2, 32, device=dev) for dev in (cuda, "cpu")}
+    for step in range(4):
+        logits = {}
+        for dev, p in ((cuda, params), ("cpu", cpu_params)):
+            if step:
+                logits[dev], caches[dev] = M.apply_decode(p, toks[:, step - 1:step].to(dev),
+                                                          caches[dev], cfg)
+            else:
+                logits[dev], caches[dev] = M.apply_prefill(p, {"tokens": toks.to(dev)},
+                                                           caches[dev], cfg)
+        got, want = logits[cuda].cpu(), logits["cpu"]
+        flips = _fp8_flips_then_load(caches[cuda], caches["cpu"])
+        limit = FP8_FLIP_LIMIT if step or flips or dropped else 1e-4
         assert bool(torch.isfinite(got).all())
-        assert (got - want).abs().max() <= 1e-4 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max() <= limit * max(1.0, want.abs().max().item()), (step, flips)
 
 
 @pytest.mark.cuda
