@@ -240,6 +240,40 @@ w5. prints encode and prefill ms, the decode step's wall (host clock),
     tokens/s and device split (busy time and idle share), and flash at the
     four shapes beside SDPA and its bound.
 
+The seventh path trains (``repro_torch.launch.train``, the train step,
+AdamW, remat), on the flash and RMSNorm backward kernels:
+
+t1. (with the kernel checks) holds the flash backward kernel against its
+    plain backward at phi4's q (2, 24, 1024, 128), kv (2, 8, 1024, 128)
+    causal and whisper's encoder (8, 6, 1500, 64), decoder self-attention
+    (8, 6, 128, 64) causal and cross-attention q (8, 6, 128, 64) against kv
+    (8, 6, 1500, 64), and the RMSNorm backward at (2048, 3072) with w in
+    fp32, in fp32 and bf16 (dq, dk, dv, dx element by element, bf16 also
+    normwise; dw normwise); both give the same bits on a second run, and
+    bf16 flash at head dim 256 raises ``ValueError``;
+t2. one fp32 train step at phi4's widths cut to 2 layers and vocab 8192,
+    batch 1 x 128, on the card against the CPU port from the same state:
+    the loss, each gradient leaf and each parameter's update; then the same
+    model in bf16 against the fp32 loss;
+t4. a checkpoint after step 2 restored into a fresh state: step 3's loss
+    and the state after it bit for bit the uninterrupted run's;
+t6. ``strassen_fused`` and an xLSTM smoke config's sLSTM raise under
+    autograd on the card, and a kind ``strassen`` depth-1 train step
+    matches kind naive;
+t3. phi4-mini-3.8B at full width and depth (bf16, remat every 4 layers)
+    trained 8 steps of 2 x 1024 tokens through ``train_loop``: losses and
+    grad norms finite, the last loss below the first, RMSNorm backward 65
+    and flash backward 32 launches a step (the forwards twice, under
+    remat); step time, tokens/s, model TFLOP/s, the allocator's peak,
+    one step's device split (flash and RMSNorm forward and backward,
+    cuBLAS, the rest) with its idle share, and the AdamW update's alone;
+t5. whisper-tiny at full width and depth (bf16) trained 6 steps of 8 x
+    1500 frames and 128 decoder tokens: the loss falls, 12 flash backward
+    launches a step, the device splits as t3's;
+then the backward kernels are timed at t1's shapes (bf16) beside their
+plain versions, torch.autograd through SDPA and through ``F.rms_norm``,
+and their bounds.
+
 RMSNorm is timed with its rows in L2 (the same x again) and cold (x and out
 rotating over more than 100 MB, past the 50 MB L2); the JSON line holds
 the cold time.
@@ -249,7 +283,9 @@ device is present. The JSON line's launches are those of the first path's
 main-path run, for the strassen1 stripe entries those of the mesh path's
 fused runs at that stripe, and for the later entries of a serving kernel
 those of the serving run of its model (xLSTM's sLSTM, olmoe's flash,
-recurrentgemma's RMSNorm and flash, whisper's flash at its four shapes);
+recurrentgemma's RMSNorm and flash, whisper's flash at its four shapes,
+and the backward kernels' of the training run at their shapes: t3's at
+phi4's, t5's at whisper's);
 the out-of-core path's launches are
 printed on its own lines. The last lines are the card's name and power limit, a
 JSON line with one entry per kernel, and ``{"ok": true, "device": ...}``.
@@ -280,7 +316,7 @@ from repro_torch.blocks.scheduler import (  # noqa: E402
     min_depth_for_budget,
     strassen_oot_matmul,
 )
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import autotune, distributed  # noqa: E402
 from repro_torch.core.backend import (  # noqa: E402
     MatmulBackend,
@@ -298,12 +334,17 @@ from repro_torch.core.strassen import (  # noqa: E402
     split_quadrants,
 )
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS, flash_attention_cuda  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    HEAD_DIMS,
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+)
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref  # noqa: E402
 from repro_torch.kernels.matmul.matmul import batched_matmul_cuda, matmul_cuda  # noqa: E402
 from repro_torch.kernels.matmul.ref import batched_matmul_ref, matmul_ref  # noqa: E402
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
-from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda  # noqa: E402
 from repro_torch.kernels.slstm.ref import slstm_seq_ref  # noqa: E402
 from repro_torch.kernels.slstm.slstm import slstm_seq_cuda  # noqa: E402
 from repro_torch.kernels.strassen.ops import strassen_matmul_stages  # noqa: E402
@@ -320,7 +361,11 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.frontends import make_stub_frames  # noqa: E402
 from repro_torch.models.rglru import init_rglru_state, rglru_block  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, OptState, apply_updates  # noqa: E402
+from repro_torch.runtime.checkpoint import load_pytree, save_pytree  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.training.train_step import TrainState, init_train_state, make_train_step  # noqa: E402
 
 # Dense peaks of one H100 SXM at its full 700 W (NVIDIA data sheet): fp32 on
 # the CUDA cores (the kernels' fp32 path; TF32 would change the result), bf16
@@ -341,6 +386,7 @@ TOL = {
     ("mm", torch.float32): 2e-5, ("mm", torch.bfloat16): 8e-3,
     ("norm", torch.float32): 1e-5, ("flash", torch.float32): 2e-5,
     ("slstm", torch.float32): 2e-5,
+    ("flash_bwd", torch.float32): 1e-4, ("norm_bwd", torch.float32): 1e-4,
 }
 # In bf16, RMSNorm and flash attention compute in fp32 from the same inputs as
 # their plain versions and round once, so each element is held to its own
@@ -348,7 +394,18 @@ TOL = {
 # most 2^-7 of the value; the rms term covers elements near 0, where the fp32
 # sums' order shows. A dropped, doubled or mis-masked KV tile moves a late
 # row of flash attention by about its own size and fails this.
-ELEMENT_TOL = {("norm", torch.bfloat16): 2**-7, ("flash", torch.bfloat16): 2**-7}
+ELEMENT_TOL = {("norm", torch.bfloat16): 2**-7, ("flash", torch.bfloat16): 2**-7,
+               ("flash_bwd", torch.bfloat16): 2**-5, ("norm_bwd", torch.bfloat16): 2**-5}
+# The backward kernels against their plain backwards. fp32 (TOL above): five
+# products and dQ's sum over key tiles in another order than the plain
+# version's, hence 1e-4 x max(1, max|plain|). bf16: the flash kernel rounds
+# P and dS to bf16 for its tensor-core products (2^-9 each) where the plain
+# version keeps them in fp32, and the RMSNorm kernel rounds dx once; each
+# element within 2^-5 x (|plain| + rms(plain)) (ELEMENT_TOL) and the whole
+# gradient normwise within GRAD_NORMWISE. dw (fp32 in both) adds 2048 rows
+# in another order: DW_LIMIT normwise.
+GRAD_NORMWISE = 1e-2
+DW_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 # Main path against fp32 torch.matmul, normwise relative error ||C - C_ref|| / ||C_ref||.
 MAIN_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -396,7 +453,8 @@ MATMUL_EDGES = [(2, 130, 72, 200), (1, 257, 520, 136), (3, 33, 65, 17), (2, 64, 
                 (2, 136, 96, 264), (2, 64, 36, 100), (2, 96, 64, 68), (2, 256, 1024, 384),
                 (1, 200, 1000, 260)]
 COUNTED = (strassen1_matmul_cuda, batched_matmul_cuda, divide_cuda, combine_cuda)
-ALL_KERNELS = (*COUNTED, matmul_cuda, rmsnorm_cuda, flash_attention_cuda, slstm_seq_cuda)
+ALL_KERNELS = (*COUNTED, matmul_cuda, rmsnorm_cuda, flash_attention_cuda, slstm_seq_cuda,
+               rmsnorm_bwd_cuda, flash_attention_bwd_cuda)
 REPLACES = {
     "strassen1_matmul_cuda": "src/repro/kernels/strassen/strassen.py:155",
     "batched_matmul_cuda": "src/repro/kernels/matmul/matmul.py:95",
@@ -406,6 +464,10 @@ REPLACES = {
     "rmsnorm_cuda": "src/repro/kernels/rmsnorm/rmsnorm.py:29",
     "flash_attention_cuda": "src/repro/kernels/flash_attention/flash_attention.py:105",
     "slstm_seq_cuda": "src/repro/kernels/slstm/slstm.py:81",
+    # No Pallas backward exists: the JAX package differentiates these pure-JAX
+    # functions, which the backward kernels stand in for.
+    "rmsnorm_bwd_cuda": "src/repro/models/layers.py:61",
+    "flash_attention_bwd_cuda": "src/repro/models/attention.py:44",
 }
 SOURCES = {
     "strassen1_matmul_cuda": "src/repro_torch/csrc/strassen1.cu",
@@ -416,6 +478,8 @@ SOURCES = {
     "rmsnorm_cuda": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_attention_cuda": "src/repro_torch/csrc/flash_attention.cu",
     "slstm_seq_cuda": "src/repro_torch/csrc/slstm.cu",
+    "rmsnorm_bwd_cuda": "src/repro_torch/csrc/rmsnorm.cu",
+    "flash_attention_bwd_cuda": "src/repro_torch/csrc/flash_attention_bwd.cu",
 }
 
 # The served model and its traffic: prompt lengths and max_new_tokens of
@@ -463,6 +527,30 @@ WHISPER_PREFIX = (50258, 50259, 50359, 50363)
 WHISPER_NEW = 128
 WHISPER_SERVE = dict(max_seq=448, temperature=0.0)
 WHISPER_FUSED = MatmulBackend(kind="strassen_fused", depth=1, min_dim=256)
+# The training path (t1-t6). t3 trains phi4-mini-3.8B whole; t2, t4 and t6 run
+# at its widths cut to TRAIN_CUT (2 layers, vocab 8192), batch CUT_BATCH x
+# CUT_SEQ, where the CPU port can run the same step; t5 trains whisper-tiny
+# whole. The data cycles through a few batches, so a model that learns shows
+# it in a few steps.
+TRAIN_ARCH = "phi4_mini_3_8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CYCLE = 2, 1024, 8, 2
+TRAIN_OPT = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+TRAIN_CUT = dict(n_layers=2, vocab=8192)
+CUT_BATCH, CUT_SEQ = 1, 128
+WHISPER_TRAIN = dict(batch=8, seq=128, steps=6, cycle=2)
+WHISPER_TRAIN_OPT = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=WHISPER_TRAIN["steps"])
+# t2: the card's fp32 step against the CPU port's. Both compute in fp32 (TF32
+# off), in other orders: the loss to 1e-5 relative, each gradient leaf
+# normwise to 1e-4, each update normwise to 1e-3 (AdamW's first updates are
+# about lr * sign(g): an element whose gradient is near 0 may flip, so the
+# update is compared as a whole). bf16 against fp32: the loss of a bf16
+# forward lies a few bf16 roundings (2^-8 each) from the fp32 one.
+STEP_LIMITS = dict(loss=1e-5, grad=1e-4, update=1e-3)
+BF16_LOSS_LIMIT = 2e-2
+# t6: kind strassen at depth 1 against naive, fp32: Strassen's operand sums
+# and 7-term combines move each projection by about 1e-6 relative.
+STRASSEN_TRAIN = MatmulBackend(kind="strassen", depth=1, min_dim=64)
+STRASSEN_LOSS_LIMIT = 1e-4
 # The fp8 KV cache (f1): phi4 serves 4 of PROMPT_LENS (64, 512, 1024 and 1984
 # tokens) with cache_dtype float8_e4m3fn; its first tokens must agree with the
 # bf16 cache's on at least half of them (the bound of
@@ -1887,6 +1975,10 @@ def device_kernels(events) -> list:
 def kernel_class(name: str) -> str:
     """The class of a device kernel, by its name."""
     name = name.lower()
+    if "flash_bwd" in name:
+        return "flash backward kernels"
+    if "rmsnorm_bwd_kernel" in name or "rmsnorm_dw_kernel" in name:
+        return "rmsnorm backward kernels"
     if "flash_kernel" in name or "flash_mma_kernel" in name:
         return "flash kernel"
     if "strassen1_" in name:
@@ -2711,6 +2803,444 @@ def phase_fp8_cache(cfg, params, prompts: list, served: list) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- training
+def grad_inputs(gen: np.random.Generator, qs: tuple, ks: tuple, causal: bool, dtype) -> tuple:
+    """q, k, v, the forward kernel's out and lse, and a random output gradient."""
+    q, k, v = randn(gen, qs, dtype), randn(gen, ks, dtype), randn(gen, ks, dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    return q, k, v, out, lse, randn(gen, qs, dtype)
+
+
+def train_flash_shapes() -> list:
+    """(name, q shape, kv shape, causal) of flash attention on the training
+    paths: phi4's layers at t3's batch, and whisper's encoder, decoder
+    self-attention and cross-attention at t5's."""
+    phi, wh = get_config(TRAIN_ARCH), get_config(WHISPER_ARCH)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    wb, ws, we, h, hd = WHISPER_TRAIN["batch"], WHISPER_TRAIN["seq"], wh.enc_seq, wh.n_heads, wh.head_dim
+    return [("phi4", (b, phi.n_heads, s, phi.head_dim), (b, phi.n_kv_heads, s, phi.head_dim), True),
+            ("whisper encoder", (wb, h, we, hd), (wb, h, we, hd), False),
+            ("whisper decoder", (wb, h, ws, hd), (wb, h, ws, hd), True),
+            ("whisper cross", (wb, h, ws, hd), (wb, h, we, hd), False)]
+
+
+def compare_grad(name: str, got: torch.Tensor, want: torch.Tensor, kind: str) -> float:
+    """compare(), and in bf16 also the normwise rule GRAD_NORMWISE."""
+    err = compare(name, got, want, kind)
+    if got.dtype == torch.bfloat16:
+        rel = rel_norm(got.float(), want.float())
+        ok = rel <= GRAD_NORMWISE
+        log(f"check {name}: normwise {rel:.3e} limit {GRAD_NORMWISE:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{name}: normwise {rel:.3e} > {GRAD_NORMWISE:.0e}")
+    return err
+
+
+def phase_train_kernels(gen: np.random.Generator) -> None:
+    """(t1) The backward kernels against their plain backwards at the training
+    paths' shapes, fp32 and bf16; both give the same bits on a second run."""
+    phi = get_config(TRAIN_ARCH)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for name, qs, ks, causal in train_flash_shapes():
+            ins = grad_inputs(gen, qs, ks, causal, dtype)
+            got = flash_attention_bwd_cuda(*ins, causal=causal)
+            want = attention_bwd_ref(*ins, causal=causal)
+            for part, g, w in zip(("dq", "dk", "dv"), got, want):
+                compare_grad(f"flash bwd {tag} {part} q{qs} kv{ks} "
+                             f"{'causal' if causal else 'non-causal'} ({name})", g, w, "flash_bwd")
+            if name == "phi4":
+                again = flash_attention_bwd_cuda(*ins, causal=causal)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                log(f"check flash bwd {tag} ({name}): a second run gives the same bits {same}")
+                if not same:
+                    fail(f"flash bwd {tag}: two runs differ")
+            del ins, got, want
+        rows, d = TRAIN_BATCH * TRAIN_SEQ, phi.d_model
+        x, dy = randn(gen, (rows, d), dtype), randn(gen, (rows, d), dtype)
+        w = 1.0 + 0.1 * randn(gen, (d,), torch.float32)
+        dx, dw = rmsnorm_bwd_cuda(x, w, dy)
+        want_dx, want_dw = rmsnorm_bwd_ref(x, w, dy)
+        compare_grad(f"rmsnorm bwd {tag} dx {(rows, d)} w fp32", dx, want_dx, "norm_bwd")
+        rel, limit = rel_norm(dw, want_dw), DW_LIMIT[dtype]
+        again = rmsnorm_bwd_cuda(x, w, dy)
+        same = torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+        ok = rel <= limit and same
+        log(f"check rmsnorm bwd {tag} dw {(d,)}: normwise {rel:.3e} limit {limit:.0e}, a second run "
+            f"gives the same bits {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"rmsnorm bwd {tag} dw: normwise {rel:.3e} (limit {limit:.0e}), same bits {same}")
+    q = randn(gen, (1, 2, 64, 256), torch.bfloat16)
+    out, lse = flash_attention_cuda(q, q, q, return_lse=True)
+    try:
+        flash_attention_bwd_cuda(q, q, q, out, lse, out)
+        fail("flash bwd bf16 D=256 ran; it should raise (no register room for its accumulators)")
+    except ValueError as e:
+        log(f"check flash bwd bf16 D=256 raises ValueError: {e}")
+
+
+def state_to(state: TrainState, device) -> TrainState:
+    """A copy of a training state on ``device``."""
+    opt = state.opt
+    return TrainState(copy.deepcopy(state.params).to(device),
+                      OptState(opt.step.to(device, copy=True),
+                               {k: t.to(device, copy=True) for k, t in opt.m.items()},
+                               {k: t.to(device, copy=True) for k, t in opt.v.items()}))
+
+
+def loss_and_grads(params, batch: dict, cfg) -> tuple:
+    """The loss and {name: gradient} of one forward and backward."""
+    for p in params.parameters():
+        p.grad = None
+    loss, _ = M.loss_fn(params, batch, cfg)
+    loss.backward()
+    grads = {n: p.grad for n, p in params.named_parameters()}
+    for p in params.parameters():
+        p.grad = None
+    return loss.detach(), grads
+
+
+def cut_config(dtype: str = "float32"):
+    """phi4-mini at full width, cut to TRAIN_CUT (2 layers, vocab 8192)."""
+    return dataclasses.replace(get_config(TRAIN_ARCH), dtype=dtype, **TRAIN_CUT)
+
+
+def worst_rel(got: dict, want: dict) -> tuple:
+    """(largest normwise distance over the leaves, its leaf's name)."""
+    rels = {n: rel_norm(got[n].detach().float().cpu(), want[n].detach().float()) for n in want}
+    name = max(rels, key=rels.get)
+    return rels[name], name
+
+
+def phase_train_step_vs_cpu(seed: int) -> None:
+    """(t2) One train step at phi4's widths (TRAIN_CUT, fp32) on the card
+    against the CPU port from the same state and batch; then the same model
+    in bf16 on the card against the fp32 loss."""
+    cfg = cut_config()
+    cpu = init_train_state(cfg, TRAIN_OPT, torch.Generator().manual_seed(seed))
+    dev = state_to(cpu, DEVICE)
+    model16 = copy.deepcopy(dev.params).to(torch.bfloat16)
+    batch = SyntheticLM(cfg, DataConfig(CUT_BATCH, CUT_SEQ, seed), device="cpu")(0)
+    dbatch = {k: t.to(DEVICE) for k, t in batch.items()}
+    p0 = {n: p.detach().clone() for n, p in cpu.params.named_parameters()}
+    reset_counts()
+    dloss, dgrads = loss_and_grads(dev.params, dbatch, cfg)
+    torch.cuda.synchronize()
+    launched = (rmsnorm_bwd_cuda.launches, flash_attention_bwd_cuda.launches)
+    closs, cgrads = loss_and_grads(cpu.params, batch, cfg)
+    apply_updates(dev.params, dgrads, dev.opt, TRAIN_OPT)
+    apply_updates(cpu.params, cgrads, cpu.opt, TRAIN_OPT)
+    loss_rel = abs(dloss.item() - closs.item()) / abs(closs.item())
+    g_rel, g_name = worst_rel(dgrads, cgrads)
+    d_dev = {n: p.detach() - p0[n].to(DEVICE) for n, p in dev.params.named_parameters()}
+    d_cpu = {n: p.detach() - p0[n] for n, p in cpu.params.named_parameters()}
+    u_rel, u_name = worst_rel(d_dev, d_cpu)
+    n_params = sum(p.numel() for p in p0.values())
+    ok = (loss_rel <= STEP_LIMITS["loss"] and g_rel <= STEP_LIMITS["grad"]
+          and u_rel <= STEP_LIMITS["update"] and launched == (2 * cfg.n_layers + 1, cfg.n_layers))
+    log(f"train step fp32 on the card vs the CPU port ({cfg.name} widths, {cfg.n_layers} layers, "
+        f"vocab {cfg.vocab}, {n_params / 1e6:.1f} M parameters, batch {CUT_BATCH} x {CUT_SEQ}): "
+        f"loss {dloss.item():.6f} vs {closs.item():.6f} rel {loss_rel:.2e} (limit "
+        f"{STEP_LIMITS['loss']:.0e}); worst gradient leaf {g_name} normwise {g_rel:.2e} (limit "
+        f"{STEP_LIMITS['grad']:.0e}); worst update leaf {u_name} normwise {u_rel:.2e} (limit "
+        f"{STEP_LIMITS['update']:.0e}); backward launches rmsnorm {launched[0]}, flash "
+        f"{launched[1]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"t2 train step vs CPU: loss {loss_rel:.2e}, grad {g_rel:.2e} ({g_name}), update "
+             f"{u_rel:.2e} ({u_name}), launches {launched}")
+    del cpu, dgrads, cgrads, d_dev, d_cpu
+    cfg16 = cut_config("bfloat16")
+    loss16, grads16 = loss_and_grads(model16, dbatch, cfg16)
+    rel16 = abs(loss16.item() - dloss.item()) / abs(dloss.item())
+    ok = rel16 <= BF16_LOSS_LIMIT and all(bool(torch.isfinite(g).all()) for g in grads16.values())
+    log(f"train step bf16 on the card: loss {loss16.item():.6f} vs fp32 {dloss.item():.6f} rel "
+        f"{rel16:.2e} (limit {BF16_LOSS_LIMIT:.0e}), gradients finite {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"t2 bf16 loss rel {rel16:.2e} or non-finite gradients")
+    del dev, model16, grads16
+    torch.cuda.empty_cache()
+
+
+def state_leaves(state: TrainState) -> list:
+    return [*state.params.state_dict().values(), state.opt.step, *state.opt.m.values(),
+            *state.opt.v.values()]
+
+
+def phase_checkpoint_round_trip(seed: int) -> None:
+    """(t4) Save after step 2, restore into a fresh state, run step 3: the
+    same loss and state, bit for bit, as the uninterrupted run's step 3."""
+    cfg = cut_config()
+    step = make_train_step(cfg, TRAIN_OPT)
+    data = SyntheticLM(cfg, DataConfig(CUT_BATCH, CUT_SEQ, seed), device=DEVICE)
+    a = init_train_state(cfg, TRAIN_OPT, torch.Generator(device=DEVICE).manual_seed(seed))
+    for i in range(2):
+        a, _ = step(a, data(i))
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        path = save_pytree(a, d, step=2)
+        save_s = time.perf_counter() - t
+        a, ma = step(a, data(2))
+        b = init_train_state(cfg, TRAIN_OPT, torch.Generator(device=DEVICE).manual_seed(seed + 1))
+        t = time.perf_counter()
+        load_pytree(b, path)
+        load_s = time.perf_counter() - t
+        b, mb = step(b, data(2))
+    same_loss = torch.equal(ma["loss"], mb["loss"])
+    same = all(torch.equal(x, y) for x, y in zip(state_leaves(a), state_leaves(b)))
+    ok = same_loss and same and int(b.opt.step) == 3
+    log(f"checkpoint round trip at step 2 ({len(state_leaves(a))} leaves, save {save_s:.2f} s, load "
+        f"{load_s:.2f} s): step 3 loss {mb['loss'].item():.6f} vs {ma['loss'].item():.6f} "
+        f"bit-identical {same_loss}, state after step 3 bit-identical {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"t4 checkpoint round trip: same loss {same_loss}, same state {same}")
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def phase_fenced_routes(seed: int) -> None:
+    """(t6) strassen_fused and the sLSTM kernel raise under autograd on the
+    card; a kind-strassen depth-1 train step matches kind naive."""
+    a = torch.randn(256, 256, device=DEVICE, requires_grad=True)
+    w = torch.randn(256, 256, device=DEVICE)
+    xcfg = get_smoke_config(XLSTM_ARCH)
+    xs = init_train_state(xcfg, TRAIN_OPT, torch.Generator(device=DEVICE).manual_seed(seed))
+    xbatch = SyntheticLM(xcfg, DataConfig(2, 16, seed), device=DEVICE)(0)
+    for name, fn, match in (
+        ("strassen_fused", lambda: matmul(a, w, MatmulBackend(kind="strassen_fused", depth=1, min_dim=64)),
+         "no gradient"),
+        ("sLSTM (xlstm smoke)", lambda: M.loss_fn(xs.params, xbatch, xcfg), "sLSTM backward"),
+    ):
+        try:
+            fn()
+            fail(f"{name} under autograd on the card ran; it should raise")
+        except NotImplementedError as e:
+            ok = match in str(e)
+            log(f"check {name} under autograd raises NotImplementedError ({e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{name}: unexpected message {e}")
+    del xs
+    cfg = cut_config()
+    cfg_s = dataclasses.replace(cfg, matmul_backend=STRASSEN_TRAIN)
+    naive = init_train_state(cfg, TRAIN_OPT, torch.Generator(device=DEVICE).manual_seed(seed))
+    strassen = state_to(naive, DEVICE)
+    batch = SyntheticLM(cfg, DataConfig(CUT_BATCH, CUT_SEQ, seed), device=DEVICE)(0)
+    _, mn = make_train_step(cfg, TRAIN_OPT)(naive, batch)
+    _, ms = make_train_step(cfg_s, TRAIN_OPT)(strassen, batch)
+    rel = abs(ms["loss"].item() - mn["loss"].item()) / abs(mn["loss"].item())
+    g_rel = abs(ms["grad_norm"].item() - mn["grad_norm"].item()) / mn["grad_norm"].item()
+    ok = rel <= STRASSEN_LOSS_LIMIT and np.isfinite(ms["grad_norm"].item())
+    log(f"train step kind strassen depth {STRASSEN_TRAIN.depth} vs naive (fp32, t2's config): loss "
+        f"{ms['loss'].item():.6f} vs {mn['loss'].item():.6f} rel {rel:.2e} (limit "
+        f"{STRASSEN_LOSS_LIMIT:.0e}), grad norm rel {g_rel:.2e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"t6 strassen train step: loss rel {rel:.2e}")
+    del naive, strassen
+    torch.cuda.empty_cache()
+
+
+def train_flops(cfg, n_params: int, tokens: int, batch: int, seq: int) -> dict:
+    """One step's work: 6 N T (forward and backward of every parameter), the
+    remat forward of the layers (2 N_layers T), and attention's score and
+    P V products (forward, remat forward, and the backward's five)."""
+    n_layers = n_params - cfg.vocab * cfg.d_model  # all but the (tied) embedding
+    attn = cfg.n_layers * flash_ops(batch, cfg.n_heads, seq, cfg.head_dim)
+    return {"6NT": 6 * n_params * tokens, "remat": 2 * n_layers * tokens,
+            "attention": (1 + (1 if cfg.remat else 0) + 2.5) * attn}
+
+
+def run_train_loop(cfg, opt, run: dict, seed: int, what: str) -> tuple:
+    """Train ``cfg`` through launch/train.py's train_loop; returns (state,
+    history, stats, launch counts, peak GiB, wall s) with the gates checked:
+    losses and grad norms finite, the last loss below the first."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stats: dict = {}
+    before = torch.cuda.memory_stats()
+    t = time.perf_counter()
+    state, history = train_mod.train_loop(
+        cfg, opt, steps=run["steps"], batch=run["batch"], seq=run["seq"], seed=seed,
+        stats_out=stats, device=DEVICE, data_cycle=run["cycle"], log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {fn.__name__: fn.launches for fn in ALL_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = torch.cuda.memory_stats()
+    log(f"{what}: allocator peak {peak:.2f} GiB allocated, "
+        f"{after.get('reserved_bytes.all.peak', 0) / 2**30:.2f} GiB reserved; during the run "
+        f"{after.get('num_alloc_retries', 0) - before.get('num_alloc_retries', 0)} alloc retries, "
+        f"{after.get('num_device_alloc', 0) - before.get('num_device_alloc', 0)} cudaMalloc calls")
+    finite = all(np.isfinite(history)) and all(np.isfinite(stats["grad_norm"]))
+    ok = finite and len(history) == run["steps"] and history[-1] < history[0]
+    log(f"{what}: {run['steps']} steps of {run['batch']} x {run['seq']} tokens cycling "
+        f"{run['cycle']} batches in {wall:.1f} s; loss {' '.join(f'{x:.4f}' for x in history)}; grad "
+        f"norm {' '.join(f'{x:.3f}' for x in stats['grad_norm'])}; finite {finite}, last below "
+        f"first {history[-1] < history[0]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{what}: losses {history}, grad norms {stats['grad_norm']}")
+    return state, history, stats, counts, peak, wall
+
+
+def phase_train_phi4(seed: int, smi: str) -> dict:
+    """(t3) phi4-mini-3.8B at full width and depth, bf16, trained through
+    train_loop: gates, launches per step, step time, tokens/s, model
+    TFLOP/s, the allocator's peak and one step's device split."""
+    cfg = get_config(TRAIN_ARCH)
+    run = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, cycle=TRAIN_CYCLE)
+    state, history, stats, counts, peak, wall = run_train_loop(
+        cfg, TRAIN_OPT, run, seed, f"t3 {cfg.name} full ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}, remat every {len(cfg.block_pattern)})")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    state_gb = sum(nbytes(t) for t in state_leaves(state)) / 1e9
+    steps = TRAIN_STEPS
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    want = {"rmsnorm_bwd_cuda": 2 * cfg.n_layers + 1, "flash_attention_bwd_cuda": cfg.n_layers,
+            "rmsnorm_cuda": 2 * (2 * cfg.n_layers) + 1, "flash_attention_cuda": 2 * cfg.n_layers}
+    ok = all(per_step.get(k) == v for k, v in want.items())
+    log(f"t3 launches per step (remat runs each layer's forward twice): "
+        f"{', '.join(f'{k} {v:g}' for k, v in sorted(per_step.items()))}; expected {want} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"t3 launches per step {per_step}, expected {want}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = stats["median_step_time_s"]
+    flops = train_flops(cfg, n_params, tokens, TRAIN_BATCH, TRAIN_SEQ)
+    total = sum(flops.values())
+    log(f"t3 numbers on {smi}: {n_params / 1e9:.3f} B parameters, state {state_gb:.2f} GB (bf16 "
+        f"parameters, fp32 moments); median step {step_s * 1e3:.1f} ms (host clock, train_loop's "
+        f"watchdog), {tokens / step_s:.0f} tokens/s; work per step "
+        f"{', '.join(f'{k} {v / 1e12:.2f}' for k, v in flops.items())} TFLOP = {total / 1e12:.2f} "
+        f"TFLOP, {total / step_s / 1e12:.1f} TFLOP/s ({total / step_s / PEAK_OPS[torch.bfloat16]:.1%}"
+        f" of the 989 TFLOP/s bf16 peak; 6NT alone {flops['6NT'] / step_s / 1e12:.1f} TFLOP/s); "
+        f"allocator peak {peak:.2f} GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+    log_step_split(cfg, TRAIN_OPT, state, TRAIN_BATCH, TRAIN_SEQ, seed, "t3")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def log_step_split(cfg, opt, state: TrainState, batch: int, seq: int, seed: int, tag: str) -> None:
+    """One more train step's wall (CUDA events, no profiler) and its device
+    split by kernel class from the profiler, with its idle share; then the
+    AdamW update alone (on one batch's gradients), profiled apart: its
+    elementwise kernels are among the step's "other kernels"."""
+    step = make_train_step(cfg, opt)
+    data = SyntheticLM(cfg, DataConfig(batch, seq, seed), device=DEVICE)(0)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], data)
+
+    step_ms = time_ms(one_step, 1)
+    log_split(f"{tag} one train step ({batch} x {seq} tokens, {cfg.dtype})", step_ms,
+              device_split(one_step))
+    st = holder[0]
+    _, grads = loss_and_grads(st.params, data, cfg)
+    update_ms = time_ms(lambda: apply_updates(st.params, grads, st.opt, opt), 1)
+    log_split(f"{tag} AdamW update alone, on one batch's gradients", update_ms,
+              device_split(lambda: apply_updates(st.params, grads, st.opt, opt)))
+
+
+def run_whisper_train(seed: int) -> dict:
+    """(t5) whisper-tiny at full width and depth, bf16, trained through
+    train_loop on 8 x 1500 frames and 128 decoder tokens."""
+    cfg = get_config(WHISPER_ARCH)
+    run = dict(steps=WHISPER_TRAIN["steps"], batch=WHISPER_TRAIN["batch"], seq=WHISPER_TRAIN["seq"],
+               cycle=WHISPER_TRAIN["cycle"])
+    state, _, stats, counts, peak, _ = run_train_loop(
+        cfg, WHISPER_TRAIN_OPT, run, seed, f"t5 {cfg.name} full ({cfg.enc_layers} + {cfg.n_layers} "
+        f"layers, {cfg.dtype}, frames {WHISPER_TRAIN['batch']} x {cfg.enc_seq})")
+    per_step = counts["flash_attention_bwd_cuda"] / run["steps"]
+    want = cfg.enc_layers + 2 * cfg.n_layers
+    ok = per_step == want
+    step_s = stats["median_step_time_s"]
+    log(f"t5 flash bwd launches per step {per_step:g} (expected {want}: encoder, decoder self- and "
+        f"cross-attention) {'ok' if ok else 'FAIL'}; median step {step_s * 1e3:.1f} ms, "
+        f"{run['batch'] * run['seq'] / step_s:.0f} decoder tokens/s, allocator peak {peak:.2f} GiB")
+    if not ok:
+        fail(f"t5 flash bwd launches per step {per_step}, expected {want}")
+    log_step_split(cfg, WHISPER_TRAIN_OPT, state, run["batch"], run["seq"], seed, "t5")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def time_grads(name, kernel, plain, library, ops, moved, dtype, kind, reps) -> dict:
+    """time_kernel() for a kernel that returns several gradients: each
+    checked against the plain version's, then the three timed."""
+    errs = [compare_grad(f"{name} {i}", g, w, kind) for i, (g, w) in
+            enumerate(zip(kernel(), plain()))]
+    ms, plain_ms = time_ms(kernel, reps, queued=True), time_ms(plain, reps, queued=True)
+    library_ms = time_ms(library, reps, queued=True)
+    bms, by = bound_ms(ops, moved, dtype)
+    log(f"time {name}: kernel {ms:.5g} ms, plain {plain_ms:.5g} ms, library {library_ms:.5g} ms, "
+        f"bound {bms:.5g} ms ({by}), kernel at {bms / ms:.1%} of bound")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
+                max_abs_err=max(errs))
+
+
+def sdpa_grad(q, k, v, do, causal: bool):
+    """torch.autograd through scaled_dot_product_attention (the yardstick;
+    the port never calls it): a call of the backward alone."""
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+
+
+def phase_train_timing(reps: int, phi_counts: dict, whisper_counts: dict) -> list:
+    """(t1) The backward kernels timed at the training paths' shapes (bf16)
+    beside their plain versions, torch.autograd through SDPA and F.rms_norm,
+    and their bounds; JSON entries with the paths' launches."""
+    gen = np.random.default_rng(8)
+    rows = []
+    for name, qs, ks, causal in train_flash_shapes():
+        q, k, v, out, lse, do = grad_inputs(gen, qs, ks, causal, torch.bfloat16)
+        ops = 2.5 * attention_ops(qs[0], qs[1], qs[2], ks[2], qs[3], causal)
+        moved = nbytes(q, k, v, out, lse, do) + nbytes(q, k, v)
+        stats = time_grads(
+            f"flash bwd bf16 q{qs} kv{ks} {'causal' if causal else 'non-causal'} ({name})",
+            lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal),
+            lambda: attention_bwd_ref(q, k, v, out, lse, do, causal=causal),
+            sdpa_grad(q, k, v, do, causal), ops, moved, torch.bfloat16, "flash_bwd", reps)
+        counts = phi_counts if name == "phi4" else whisper_counts
+        rows.append(json_row("flash_attention_bwd_cuda", counts, stats))
+        del q, k, v, out, lse, do
+    d = get_config(TRAIN_ARCH).d_model
+    shape = (TRAIN_BATCH * TRAIN_SEQ, d)
+    w = 1.0 + 0.1 * randn(gen, (d,), torch.float32)
+    w16 = w.bfloat16().requires_grad_()
+    xs = cold_inputs(gen, shape, torch.bfloat16)
+    pairs = [(x, xs[(i + 1) % len(xs)]) for i, x in enumerate(xs)]  # (x, dy), rotating
+    graphs = []
+    for x, dy in pairs:
+        xg = x.detach().requires_grad_()
+        graphs.append((torch.nn.functional.rms_norm(xg, (d,), w16, 1e-6), xg, dy))
+    stats = time_grads(
+        f"rmsnorm bwd bf16 {shape} w fp32 cold L2 ({len(pairs)} x/dy pairs rotating)",
+        rotating(lambda p: rmsnorm_bwd_cuda(p[0], w, p[1]), pairs),
+        rotating(lambda p: rmsnorm_bwd_ref(p[0], w, p[1]), pairs),
+        rotating(lambda g: torch.autograd.grad(g[0], (g[1], w16), g[2], retain_graph=True), graphs),
+        10 * shape[0] * shape[1], 3 * shape[0] * shape[1] * 2 + 2 * nbytes(w), torch.float32,
+        "norm_bwd", reps)
+    rows.append(json_row("rmsnorm_bwd_cuda", phi_counts, stats))
+    return rows
+
+
+def run_training(seed: int, reps: int, smi: str) -> list:
+    """The training path: t2, t4 and t6 at phi4's widths cut to 2 layers, t3
+    phi4-mini-3.8B in full, t5 whisper-tiny in full, then t1's timings."""
+    t0 = time.perf_counter()
+    phase_train_step_vs_cpu(seed)
+    phase_checkpoint_round_trip(seed)
+    phase_fenced_routes(seed)
+    log(f"t2, t4, t6 done in {time.perf_counter() - t0:.1f} s")
+    phi_counts = phase_train_phi4(seed, smi)
+    whisper_counts = run_whisper_train(seed)
+    return phase_train_timing(reps, phi_counts, whisper_counts)
+
+
 def report_failures() -> int:
     print(f"chip_smoke: {len(FAILURES)} failure(s):", file=sys.stderr)
     for f in FAILURES:
@@ -2755,6 +3285,7 @@ def main() -> int:
     phase_model_kernels(rg_gen, rg_cfg, RG_FLASH_LENS, rg_cfg.local_window)
     whisper_gen = np.random.default_rng([args.seed, 6])  # the whisper path's own stream
     phase_whisper_kernels(whisper_gen, get_config(WHISPER_ARCH))
+    phase_train_kernels(np.random.default_rng([args.seed, 7]))  # the training path's own stream
     if FAILURES:  # no point driving the main path through a wrong kernel
         return report_failures()
 
@@ -2819,6 +3350,9 @@ def main() -> int:
     entries += run_rglru(args.seed, args.reps, rg_gen)
     log(f"RG-LRU path done at {time.perf_counter() - t0:.1f} s")
     entries += run_whisper(args.seed, args.reps)
+    log(f"whisper path done at {time.perf_counter() - t0:.1f} s")
+    entries += run_training(args.seed, args.reps, smi)
+    log(f"training path done at {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t0:.1f} s")
 
     if FAILURES:

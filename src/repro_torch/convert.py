@@ -5,7 +5,10 @@ plain dicts. :func:`params_from_jax` maps the JAX model's parameter tree
 onto the port's state dict. ``torch.from_numpy`` rejects
 ml_dtypes' ``bfloat16``, so bf16 crosses through an ``int16`` view of the
 same bits. A backend crosses as the dict ``dataclasses.asdict`` makes of a
-JAX ``MatmulBackend``; the port never imports the JAX class.
+JAX ``MatmulBackend``; the port never imports the JAX class. A training
+state crosses the same way: gradient and moment trees have the parameter
+tree's shape, so :func:`params_from_jax` maps them too
+(:func:`opt_state_from_jax`, :func:`train_state_from_jax`).
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch
 from repro_torch.core.backend import MatmulBackend
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["tensor_from_numpy", "tensor_to_numpy", "backend_from_fields", "params_from_jax"]
+__all__ = ["tensor_from_numpy", "tensor_to_numpy", "backend_from_fields", "params_from_jax",
+           "opt_state_from_jax", "train_state_from_jax"]
 
 
 def tensor_from_numpy(arr: np.ndarray, device: torch.device | str = "cuda") -> torch.Tensor:
@@ -93,3 +97,31 @@ def params_from_jax(
     for i, layer in enumerate(params_np.get("tail", [])):
         _flatten(layer, f"layers.{n_groups * period + i}.", flat)
     return {k: tensor_from_numpy(np.array(v), device) for k, v in flat.items()}
+
+
+def opt_state_from_jax(opt_np, cfg: ModelConfig, device: torch.device | str = "cuda"):
+    """The port's ``OptState`` from a JAX ``OptState`` (step, m, v) with numpy
+    leaves: the moments keyed like the port's parameters, bit for bit."""
+    from repro_torch.optim.adamw import OptState
+
+    step, m, v = opt_np
+    return OptState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        m=params_from_jax(m, cfg, device),
+        v=params_from_jax(v, cfg, device),
+    )
+
+
+def train_state_from_jax(state_np, cfg: ModelConfig, device: torch.device | str = "cuda"):
+    """The port's ``TrainState`` from a JAX ``TrainState`` (params, opt) with
+    numpy leaves: a model of ``cfg`` holding the JAX parameters bit for bit,
+    trainable, and the optimizer state of :func:`opt_state_from_jax`."""
+    from repro_torch.models import model as M
+    from repro_torch.training.train_step import TrainState
+
+    params_np, opt_np = state_np
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    params.load_state_dict(params_from_jax(params_np, cfg, device))
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return TrainState(params=params, opt=opt_state_from_jax(opt_np, cfg, device))

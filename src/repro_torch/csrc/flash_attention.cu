@@ -11,6 +11,11 @@
 // memory (above the static 48 KB at large D, so each launch raises the
 // dynamic shared-memory limit).
 //
+// For training, each kernel also writes the row log-sum-exp of the scaled,
+// masked scores, lse (B, Hq, Sq) in fp32 and natural log units (+inf for a
+// row with no live key), when it is given an lse pointer; serving passes
+// none, and out does not depend on it. flash_attention_bwd.cu reads it.
+//
 // Semantics kept from the TPU kernel: query head h reads KV head h / (Hq/Hkv)
 // (GQA, MQA); causal keeps row >= col, counted from 0 for both; a window
 // keeps row - col < window; masked scores are -1e30 (not -inf) and their
@@ -74,8 +79,8 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t k_of
 template <typename T, int D>
 __global__ void __launch_bounds__(Geometry<D>::THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int hq, int group, int64_t sq, int64_t sk, bool causal,
-             int64_t window, float scale) {
+             T* __restrict__ out, float* __restrict__ lse, int hq, int group, int64_t sq,
+             int64_t sk, bool causal, int64_t window, float scale) {
   using G = Geometry<D>;
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // BK x D
@@ -161,6 +166,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 
   if (qrow < sq) {
+    if (lse != nullptr && r == 0) {
+      lse[(static_cast<int64_t>(b) * hq + h) * sq + qrow] =
+          l == 0.f ? __int_as_float(0x7f800000) : m + logf(l);
+    }
     const float l_safe = l == 0.f ? 1.f : l;
 #pragma unroll
     for (int c = 0; c < G::CHUNKS; ++c) {
@@ -172,7 +181,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int64_t b,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t b,
                    int64_t hq, int64_t hkv, int64_t sq, int64_t sk, bool causal,
                    int64_t window, float scale, cudaStream_t stream) {
   const int smem = 2 * BK * D * static_cast<int>(sizeof(float));
@@ -183,21 +192,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int64
                   static_cast<unsigned>(b));
   flash_kernel<T, D><<<grid, Geometry<D>::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<int>(hq), static_cast<int>(hq / hkv), sq, sk, causal,
-      window, scale);
+      static_cast<T*>(out), lse, static_cast<int>(hq), static_cast<int>(hq / hkv), sq, sk,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int64_t d, const void* q, const void* k, const void* v, void* out,
-                     int64_t b, int64_t hq, int64_t hkv, int64_t sq, int64_t sk, bool causal,
-                     int64_t window, float scale, cudaStream_t s) {
+                     float* lse, int64_t b, int64_t hq, int64_t hkv, int64_t sq, int64_t sk,
+                     bool causal, int64_t window, float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, out, b, hq, hkv, sq, sk, causal, window, scale, s);
-    case 32: return launch<T, 32>(q, k, v, out, b, hq, hkv, sq, sk, causal, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, b, hq, hkv, sq, sk, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, b, hq, hkv, sq, sk, causal, window, scale, s);
-    case 256: return launch<T, 256>(q, k, v, out, b, hq, hkv, sq, sk, causal, window, scale, s);
+    case 16: return launch<T, 16>(q, k, v, out, lse, b, hq, hkv, sq, sk, causal, window, scale, s);
+    case 32: return launch<T, 32>(q, k, v, out, lse, b, hq, hkv, sq, sk, causal, window, scale, s);
+    case 64: return launch<T, 64>(q, k, v, out, lse, b, hq, hkv, sq, sk, causal, window, scale, s);
+    case 128: return launch<T, 128>(q, k, v, out, lse, b, hq, hkv, sq, sk, causal, window, scale, s);
+    case 256: return launch<T, 256>(q, k, v, out, lse, b, hq, hkv, sq, sk, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -267,8 +276,9 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int hq,
-                 int group, int64_t sq, int64_t sk, bool causal, int64_t window, float scale) {
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ lse, int hq, int group, int64_t sq, int64_t sk, bool causal,
+                 int64_t window, float scale) {
   constexpr int LD = D + 8, KD = D / 16;
   constexpr bool QREG = D <= 128;
   extern __shared__ float4 smem4[];
@@ -427,6 +437,11 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (lse != nullptr && lane % 4 == 0 && row[r] < sq) {
+      // m is in units of log2 (scores times scale * log2(e))
+      lse[(static_cast<int64_t>(b) * hq + h) * sq + row[r]] =
+          l[r] == 0.f ? __int_as_float(0x7f800000) : m[r] * 0.6931471805599453f + logf(l[r]);
+    }
     if (l[r] == 0.f) l[r] = 1.f;
   }
 #pragma unroll
@@ -442,9 +457,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int64_t b, int64_t hq,
-                   int64_t hkv, int64_t sq, int64_t sk, bool causal, int64_t window, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t b,
+                   int64_t hq, int64_t hkv, int64_t sq, int64_t sk, bool causal, int64_t window,
+                   float scale, cudaStream_t stream) {
   const int smem = (BQ + 4 * BKV) * (D + 8) * static_cast<int>(sizeof(__nv_bfloat16));
   const cudaError_t err = cudaFuncSetAttribute(
       flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -453,20 +468,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int64
                   static_cast<unsigned>((sq + BQ - 1) / BQ));
   flash_mma_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse,
       static_cast<int>(hq), static_cast<int>(hq / hkv), sq, sk, causal, window, scale);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(int64_t d, const void* q, const void* k, const void* v, void* out, int64_t b,
-                     int64_t hq, int64_t hkv, int64_t sq, int64_t sk, bool causal, int64_t window,
-                     float scale, cudaStream_t s) {
+cudaError_t dispatch(int64_t d, const void* q, const void* k, const void* v, void* out, float* lse,
+                     int64_t b, int64_t hq, int64_t hkv, int64_t sq, int64_t sk, bool causal,
+                     int64_t window, float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<16>(q, k, v, out, b, hq, hkv, sq, sk, causal, window, scale, s);
-    case 32: return launch<32>(q, k, v, out, b, hq, hkv, sq, sk, causal, window, scale, s);
-    case 64: return launch<64>(q, k, v, out, b, hq, hkv, sq, sk, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, out, b, hq, hkv, sq, sk, causal, window, scale, s);
-    case 256: return launch<256>(q, k, v, out, b, hq, hkv, sq, sk, causal, window, scale, s);
+    case 16: return launch<16>(q, k, v, out, lse, b, hq, hkv, sq, sk, causal, window, scale, s);
+    case 32: return launch<32>(q, k, v, out, lse, b, hq, hkv, sq, sk, causal, window, scale, s);
+    case 64: return launch<64>(q, k, v, out, lse, b, hq, hkv, sq, sk, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, out, lse, b, hq, hkv, sq, sk, causal, window, scale, s);
+    case 256: return launch<256>(q, k, v, out, lse, b, hq, hkv, sq, sk, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -477,9 +492,10 @@ cudaError_t dispatch(int64_t d, const void* q, const void* k, const void* v, voi
 }  // namespace repro
 
 // q, out: (b, hq, sq, d); k, v: (b, hkv, sk, d); contiguous, 16-byte aligned,
-// all of type dtype. window < 0 means no window.
+// all of type dtype. window < 0 means no window. lse: (b, hq, sq) fp32, or
+// null when the caller does not need it.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     int dtype, int64_t b, int64_t hq, int64_t hkv, int64_t sq,
+                                     void* lse, int dtype, int64_t b, int64_t hq, int64_t hkv, int64_t sq,
                                      int64_t sk, int64_t d, int causal, int64_t window,
                                      float scale, void* stream) {
   using namespace repro;
@@ -493,10 +509,12 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kF32) {
-    err = dispatch<float>(d, q, k, v, out, b, hq, hkv, sq, sk, causal != 0, window, scale, s);
+    err = dispatch<float>(d, q, k, v, out, static_cast<float*>(lse), b, hq, hkv, sq, sk,
+                          causal != 0, window, scale, s);
   } else if (dtype == kBF16) {
     if ((sq + tc::BQ - 1) / tc::BQ > 65535) return cudaErrorInvalidValue;
-    err = tc::dispatch(d, q, k, v, out, b, hq, hkv, sq, sk, causal != 0, window, scale, s);
+    err = tc::dispatch(d, q, k, v, out, static_cast<float*>(lse), b, hq, hkv, sq, sk, causal != 0,
+                       window, scale, s);
   } else {
     return cudaErrorInvalidValue;
   }

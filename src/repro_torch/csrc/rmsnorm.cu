@@ -175,6 +175,204 @@ cudaError_t launch(const void* x, const void* w, void* out, int64_t rows, int64_
   return cudaSuccess;
 }
 
+// ------------------------------------------------------------------ backward
+//
+// No TPU kernel to replace: the JAX package differentiates its pure-JAX
+// rmsnorm (src/repro/models/layers.py:61) and has no Pallas backward. The
+// train step runs the forward kernel above, so its gradient is a kernel too.
+// With xh = x * rstd, rstd = rsqrt(mean(x^2) + eps):
+//   dx = rstd * (w * dy - xh * mean(xh * w * dy)),   dw = sum over rows of dy * xh.
+// What bounds it: x and dy read once, dx written once (w and dw are one row
+// each), so device-memory bandwidth, as the forward. Rows are owned as in the
+// forward (ROW threads a row, the row in registers); a block walks rows
+// blockIdx.x, + gridDim.x, ... in its SLOTS row slots, each thread adding
+// dy * xh of its columns into registers. dw is reduced without atomics, so
+// two runs give the same bits: the slots of a block add into shared memory
+// in slot order, each block writes one row of fp32 partials, and a second
+// kernel adds the partials of each column in block order. A thread holds
+// at most BWD_MAXV vectors of x and of dy (and as many of w and of its dw
+// sums), its own constant so that tuning the forward's MAXV leaves it be.
+constexpr int BWD_MAXV = 4;
+
+template <typename T, typename W, int VEC, int ROW, int BLOCK>
+__global__ void __launch_bounds__(BLOCK)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w, const T* __restrict__ dy,
+                   T* __restrict__ dx, float* __restrict__ partial, int64_t rows, int64_t d,
+                   float eps) {
+  constexpr int WARPS = ROW / 32, SLOTS = BLOCK / ROW;
+  const int slot = threadIdx.x / ROW, lane = threadIdx.x % ROW;
+  const int nvec = static_cast<int>(d / VEC);
+
+  float wv[BWD_MAXV][VEC], dw[BWD_MAXV][VEC];
+#pragma unroll
+  for (int j = 0; j < BWD_MAXV; ++j) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) dw[j][e] = 0.f;
+    if (lane + j * ROW < nvec) load_w<W, VEC>(wv[j], w + static_cast<int64_t>(lane + j * ROW) * VEC);
+  }
+  __shared__ float part[2][WARPS > 1 ? BLOCK / 32 : 1];
+
+  // Every thread of the block takes the same number of turns (the barriers).
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * SLOTS; base < rows;
+       base += static_cast<int64_t>(gridDim.x) * SLOTS) {
+    const int64_t row = base + slot;
+    const int nv = row < rows ? nvec : 0;
+    Chunk<T, VEC> xs[BWD_MAXV], gs[BWD_MAXV];
+#pragma unroll
+    for (int j = 0; j < BWD_MAXV; ++j) {
+      const int i = lane + j * ROW;
+      if (i < nv) {
+        xs[j].load(x + row * d + static_cast<int64_t>(i) * VEC);
+        gs[j].load(dy + row * d + static_cast<int64_t>(i) * VEC);
+      }
+    }
+    float ss = 0.f, xwg = 0.f;  // sum x^2, sum x * w * dy
+#pragma unroll
+    for (int j = 0; j < BWD_MAXV; ++j) {
+      if (lane + j * ROW < nv) {
+        float v[VEC], g[VEC];
+        xs[j].get(v);
+        gs[j].get(g);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          ss = fmaf(v[e], v[e], ss);
+          xwg = fmaf(v[e], wv[j][e] * g[e], xwg);
+        }
+      }
+    }
+    ss = warp_sum(ss);
+    xwg = warp_sum(xwg);
+    if constexpr (WARPS > 1) {
+      const int first = slot * WARPS;
+      if (lane % 32 == 0) {
+        part[0][first + lane / 32] = ss;
+        part[1][first + lane / 32] = xwg;
+      }
+      __syncthreads();
+      ss = 0.f;
+      xwg = 0.f;
+#pragma unroll
+      for (int i = 0; i < WARPS; ++i) {
+        ss += part[0][first + i];
+        xwg += part[1][first + i];
+      }
+      __syncthreads();  // every row has read part before the next turn writes it
+    }
+    const float inv_d = 1.f / static_cast<float>(d);
+    const float rstd = rsqrtf(ss * inv_d + eps);
+    const float c = rstd * xwg * inv_d;  // mean(xh * w * dy)
+#pragma unroll
+    for (int j = 0; j < BWD_MAXV; ++j) {
+      const int i = lane + j * ROW;
+      if (i < nv) {
+        float v[VEC], g[VEC], o[VEC];
+        xs[j].get(v);
+        gs[j].get(g);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float xh = v[e] * rstd;
+          o[e] = rstd * (wv[j][e] * g[e] - xh * c);
+          dw[j][e] = fmaf(g[e], xh, dw[j][e]);
+        }
+        Vec<T, VEC>::store(dx + row * d + static_cast<int64_t>(i) * VEC, o);
+      }
+    }
+  }
+
+  float* prow = partial + static_cast<int64_t>(blockIdx.x) * d;
+  if constexpr (SLOTS == 1) {
+#pragma unroll
+    for (int j = 0; j < BWD_MAXV; ++j) {
+      const int i = lane + j * ROW;
+      if (i < nvec) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) prow[static_cast<int64_t>(i) * VEC + e] = dw[j][e];
+      }
+    }
+  } else {
+    // Rows of at most ROW * BWD_MAXV * VEC columns: the slots' sums meet in shared memory.
+    __shared__ float red[SLOTS][ROW * BWD_MAXV * VEC];
+#pragma unroll
+    for (int j = 0; j < BWD_MAXV; ++j) {
+      const int i = lane + j * ROW;
+      if (i < nvec) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) red[slot][i * VEC + e] = dw[j][e];
+      }
+    }
+    __syncthreads();
+    for (int col = threadIdx.x; col < d; col += BLOCK) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < SLOTS; ++k) s += red[k][col];
+      prow[col] = s;
+    }
+  }
+}
+
+// dw[col] = the blocks' partials of col added in a fixed order: a block owns
+// 32 columns, each of its 8 warps adds every 8th partial row (warp w rows
+// w, w + 8, ...) in row order, coalesced across the columns, and the 8 sums
+// are added in warp order.
+constexpr int DW_COLS = 32, DW_SLICES = 8;
+
+template <typename W>
+__global__ void __launch_bounds__(DW_COLS * DW_SLICES)
+rmsnorm_dw_kernel(const float* __restrict__ partial, W* __restrict__ dw, int64_t groups, int64_t d) {
+  __shared__ float red[DW_SLICES][DW_COLS];
+  const int c = threadIdx.x % DW_COLS, slice = threadIdx.x / DW_COLS;
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * DW_COLS + c;
+  float s = 0.f;
+  if (col < d) {
+    for (int64_t g = slice; g < groups; g += DW_SLICES) s += partial[g * d + col];
+  }
+  red[slice][c] = s;
+  __syncthreads();
+  if (slice == 0 && col < d) {
+    float total = 0.f;
+#pragma unroll
+    for (int i = 0; i < DW_SLICES; ++i) total += red[i][c];
+    dw[col] = from_f32<W>(total);
+  }
+}
+
+template <typename T, typename W, int VEC, int ROW>
+void launch_bwd_rows(const T* x, const W* w, const T* dy, T* dx, float* partial, int64_t groups,
+                     int64_t rows, int64_t d, float eps, cudaStream_t stream) {
+  constexpr int BLOCK = ROW < BLOCK_MIN ? BLOCK_MIN : ROW;
+  rmsnorm_bwd_kernel<T, W, VEC, ROW, BLOCK><<<static_cast<unsigned>(groups), BLOCK, 0, stream>>>(
+      x, w, dy, dx, partial, rows, d, eps);
+}
+
+template <typename T, typename W, int VEC>
+cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
+                       float* partial, int64_t groups, int64_t rows, int64_t d, float eps,
+                       cudaStream_t stream) {
+  const T* xp = static_cast<const T*>(x);
+  const W* wp = static_cast<const W*>(w);
+  const T* gp = static_cast<const T*>(dy);
+  T* op = static_cast<T*>(dx);
+  const int64_t nvec = d / VEC;
+  if (nvec <= 32 * BWD_MAXV) {
+    launch_bwd_rows<T, W, VEC, 32>(xp, wp, gp, op, partial, groups, rows, d, eps, stream);
+  } else if (nvec <= 64 * BWD_MAXV) {
+    launch_bwd_rows<T, W, VEC, 64>(xp, wp, gp, op, partial, groups, rows, d, eps, stream);
+  } else if (nvec <= 128 * BWD_MAXV) {
+    launch_bwd_rows<T, W, VEC, 128>(xp, wp, gp, op, partial, groups, rows, d, eps, stream);
+  } else if (nvec <= 256 * BWD_MAXV) {
+    launch_bwd_rows<T, W, VEC, 256>(xp, wp, gp, op, partial, groups, rows, d, eps, stream);
+  } else if (nvec <= 512 * BWD_MAXV) {
+    launch_bwd_rows<T, W, VEC, 512>(xp, wp, gp, op, partial, groups, rows, d, eps, stream);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dw_kernel<W><<<static_cast<unsigned>((d + DW_COLS - 1) / DW_COLS), DW_COLS * DW_SLICES, 0,
+                         stream>>>(partial, static_cast<W*>(dw), groups, d);
+  return cudaSuccess;
+}
+
 }  // namespace
 }  // namespace repro
 
@@ -195,6 +393,36 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* out, int dtype,
   } else if (dtype == kBF16 && wdtype == kF32) {
     err = vec_ok && d % 8 == 0 ? launch<__nv_bfloat16, float, 8>(x, w, out, rows, d, eps, s)
                                : launch<__nv_bfloat16, float, 1>(x, w, out, rows, d, eps, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// x, dy, dx: (rows, d) of type dtype; w, dw: (d,) of type wdtype (fp32, or
+// dtype); partial: (groups, d) fp32 scratch, groups the number of blocks.
+extern "C" int repro_rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
+                                 void* partial, int dtype, int wdtype, int64_t rows, int64_t d,
+                                 int64_t groups, float eps, void* stream) {
+  using namespace repro;
+  if (rows < 1 || d < 1 || groups < 1 || groups > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(partial);
+  const bool vec_ok = aligned16(x) && aligned16(w) && aligned16(dy) && aligned16(dx);
+  cudaError_t err;
+  if (dtype == kF32 && wdtype == kF32) {
+    err = vec_ok && d % 4 == 0
+              ? launch_bwd<float, float, 4>(x, w, dy, dx, dw, p, groups, rows, d, eps, s)
+              : launch_bwd<float, float, 1>(x, w, dy, dx, dw, p, groups, rows, d, eps, s);
+  } else if (dtype == kBF16 && wdtype == kBF16) {
+    err = vec_ok && d % 8 == 0
+              ? launch_bwd<__nv_bfloat16, __nv_bfloat16, 8>(x, w, dy, dx, dw, p, groups, rows, d, eps, s)
+              : launch_bwd<__nv_bfloat16, __nv_bfloat16, 1>(x, w, dy, dx, dw, p, groups, rows, d, eps, s);
+  } else if (dtype == kBF16 && wdtype == kF32) {
+    err = vec_ok && d % 8 == 0
+              ? launch_bwd<__nv_bfloat16, float, 8>(x, w, dy, dx, dw, p, groups, rows, d, eps, s)
+              : launch_bwd<__nv_bfloat16, float, 1>(x, w, dy, dx, dw, p, groups, rows, d, eps, s);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -2,7 +2,9 @@
 
 The JAX op takes an interpret flag; here the tensors' device picks kernel or
 plain version. The op casts its operands to fp32 and makes them contiguous
-for the kernel.
+for the kernel. The kernel has no backward yet (ROADMAP.md queue 1, the
+sLSTM backward kernel): on a CUDA tensor that autograd would record, the op
+raises. On the CPU the plain version differentiates as PyTorch code.
 """
 from __future__ import annotations
 
@@ -24,5 +26,13 @@ def slstm_seq(
     """
     def f32(t: torch.Tensor) -> torch.Tensor:
         return t.float().contiguous()
+
+    if wx.is_cuda and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (wx, r, *state.values())
+    ):
+        raise NotImplementedError(
+            "slstm_seq has no backward kernel on the card yet (ROADMAP.md queue 1: the sLSTM "
+            "backward kernel); xLSTM trains on the CPU only"
+        )
 
     return slstm_seq_cuda(f32(wx), f32(r), {k: f32(state[k]) for k in ("c", "n", "m", "h")})

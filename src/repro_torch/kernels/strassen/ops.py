@@ -6,7 +6,8 @@
   the batched matmul kernel.
 * :func:`strassen_matmul_fused` unrolls einsum levels down to the last,
   which runs whole inside the fused kernel. Backend kind ``strassen_fused``
-  uses it.
+  uses it. It has no gradient, as ``jax.grad`` through the JAX package's
+  Pallas level has none: under autograd it raises, on every device.
 * :func:`strassen_matmul_fused_padded` zero-pads odd dims for it.
 """
 from __future__ import annotations
@@ -69,6 +70,12 @@ def strassen_matmul_fused(
     """
     if depth < 1:
         raise ValueError("fused pipeline needs depth >= 1")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        # jax.grad through the Pallas fused level fails as well; no fallback
+        raise NotImplementedError(
+            "strassen_matmul_fused (backend kind strassen_fused) has no gradient: train with "
+            "kind naive, strassen or winograd"
+        )
     scheme = get_scheme(scheme_name)
     ta, tb = a[None], b[None]
     for _ in range(depth - 1):

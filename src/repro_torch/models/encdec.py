@@ -11,8 +11,12 @@ every step, one query against the encoder's frames.
 
 The caches are written in place, as the rest of the port does: the prefill
 copies its cross K/V into ``cache["cross"][i]`` and a decode step reads them
-from there. ``jax.checkpoint`` (remat) has no effect at inference and
-``sharding.constrain`` is a hint for a mesh, so neither is mirrored.
+from there. In train mode (autograd recording, no cache) with ``cfg.remat``
+each encoder and decoder layer runs under ``torch.utils.checkpoint``, as
+``jax.checkpoint`` wraps them (``repro/models/encdec.py:107,171``); the
+decoder layer computes its cross K/V from ``enc_out`` inside, so they are
+recomputed too. ``sharding.constrain`` is a hint for a mesh and is not
+mirrored.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (
     Attention,
@@ -102,12 +107,17 @@ def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     # the sinusoid in fp32, rounded once to the model dtype
     x = x + _sinusoid_at(positions, cfg.d_model).to(x.dtype)
-    for lp in params.enc:
+
+    def layer(lp: EncLayer, x: torch.Tensor) -> torch.Tensor:
         h = layernorm(lp.ln1, x, cfg.norm_eps)
         # bidirectional; whisper has no rope (the sinusoid is added above)
         mix, _ = attention_block(lp.attn, h, cfg, positions=positions, causal=False)
         x = x + mix
-        x = x + mlp_block(lp.mlp, layernorm(lp.ln2, x, cfg.norm_eps), cfg)
+        return x + mlp_block(lp.mlp, layernorm(lp.ln2, x, cfg.norm_eps), cfg)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in params.enc:
+        x = checkpoint(layer, lp, x, use_reentrant=False) if remat else layer(lp, x)
     return layernorm(params.enc_norm, x, cfg.norm_eps)
 
 
@@ -153,7 +163,10 @@ def decode_forward(
     new_cache = None
     if cache is not None:
         new_cache = {"pos": cache_pos + s, "self": [], "cross": cache["cross"]}
-    for i, lp in enumerate(params.dec):
+    if enc_out is None and cache is None:
+        raise ValueError("a decode step without enc_out needs the cached cross K/V")
+
+    def layer(lp: DecLayer, x: torch.Tensor, i: int):
         h = layernorm(lp.ln1, x, cfg.norm_eps)
         mix, nc = attention_block(
             lp.self_attn, h, cfg, positions=positions, causal=True,
@@ -166,12 +179,17 @@ def decode_forward(
                 cache["cross"][i]["k"].copy_(ck)
                 cache["cross"][i]["v"].copy_(cv)
         else:
-            if cache is None:
-                raise ValueError("a decode step without enc_out needs the cached cross K/V")
             ck, cv = cache["cross"][i]["k"], cache["cross"][i]["v"]
         x = x + cross_attention_block(lp.cross_attn, layernorm(lp.ln_x, x, cfg.norm_eps),
                                       (ck, cv), cfg)
-        x = x + mlp_block(lp.mlp, layernorm(lp.ln2, x, cfg.norm_eps), cfg)
+        return x + mlp_block(lp.mlp, layernorm(lp.ln2, x, cfg.norm_eps), cfg), nc
+
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    for i, lp in enumerate(params.dec):
+        if remat:
+            x, nc = checkpoint(layer, lp, x, i, use_reentrant=False)
+        else:
+            x, nc = layer(lp, x, i)
         if new_cache is not None:
             new_cache["self"].append(nc)
 

@@ -3,7 +3,10 @@
 The port of ``repro.models.layers``. Every dense projection funnels through
 :func:`linear`, which routes the matmul to the configured backend: this is
 where Stark's Strassen engine plugs into the model stack. :func:`rmsnorm`
-runs the RMSNorm kernel (``kernels/rmsnorm``) on the card.
+runs the RMSNorm kernel (``kernels/rmsnorm``) on the card, and its backward
+kernel when autograd records. Parameters are created with
+``requires_grad=False``, for serving; ``training.train_step.init_train_state``
+turns it on.
 """
 from __future__ import annotations
 
@@ -102,7 +105,8 @@ def linear(
 
 
 def rmsnorm(params: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """x * rsqrt(mean(x^2) + eps) * (1 + scale): the RMSNorm kernel with w = 1 + scale in fp32."""
+    """x * rsqrt(mean(x^2) + eps) * (1 + scale): the RMSNorm kernel with w = 1 + scale in
+    fp32. In training the gradient reaches ``scale`` through w."""
     return rmsnorm_op(x, 1.0 + params.scale.float(), eps=eps)
 
 

@@ -1,8 +1,10 @@
 """Unified model API over the decoder-only and encoder-decoder stacks.
 
-The port of ``repro.models.model``: serving talks to these four functions,
-and the family dispatch lives here and nowhere else. ``apply_train`` and
-``loss_fn`` come with the training slice (ROADMAP.md queue 1).
+The port of ``repro.models.model``: serving and training talk to these six
+functions, and the family dispatch lives here and nowhere else. Serving's
+two run under ``torch.inference_mode``; ``apply_train`` and ``loss_fn``
+record autograd where the parameters require grad
+(``training.train_step.init_train_state`` turns that on).
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["init_params", "init_cache", "apply_prefill", "apply_decode"]
+__all__ = ["init_params", "init_cache", "apply_train", "apply_prefill", "apply_decode", "loss_fn"]
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator):
@@ -26,6 +28,39 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *, device
     if cfg.is_encdec:
         return encdec.init_encdec_cache(cfg, batch, max_seq, dtype, device=device)
     return transformer.init_cache(cfg, batch, max_seq, dtype, device=device)
+
+
+def apply_train(
+    params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced logits and the MoE router's aux loss. batch: tokens
+    (B, S) [+ frames (encoder-decoder) / positions (mrope)]."""
+    if cfg.is_encdec:
+        enc_out = encdec.encode(params, batch["frames"], cfg)
+        logits, _, aux = encdec.decode_forward(params, batch["tokens"], cfg, enc_out=enc_out)
+        return logits, aux
+    logits, _, aux = transformer.forward(params, batch["tokens"], cfg,
+                                         positions=batch.get("positions"))
+    return logits, aux
+
+
+def loss_fn(
+    params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (+ router aux) over fp32 logits; ``batch["mask"]``,
+    when given, weights the tokens. Returns (loss, {loss, ce, aux, ppl})."""
+    logits, aux = apply_train(params, batch, cfg)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = batch.get("mask")
+    if mask is not None:
+        ce = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    else:
+        ce = torch.mean(nll)
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux, "ppl": torch.exp(ce)}
 
 
 @torch.inference_mode()

@@ -3,9 +3,13 @@
 The port of ``repro.models.transformer`` for every decoder-only family: the
 layer kinds ``attn``, ``local_attn``, ``mlstm``, ``slstm`` and ``rglru``,
 with a dense MLP or an MoE FFN. The JAX package stacks layers into scan
-groups for its compiler and rematerializes them in training; on one card,
-run eagerly, neither applies, so the layers are an ``nn.ModuleList`` in
-layer order (``convert.params_from_jax`` unstacks the JAX groups onto it).
+groups for its compiler; run eagerly on one card, the port keeps the layers
+as an ``nn.ModuleList`` in layer order (``convert.params_from_jax`` unstacks
+the JAX groups onto it). In train mode (no cache, autograd recording) with
+``cfg.remat`` it rematerializes as the JAX package does: each group of
+``len(cfg.block_pattern)`` layers, and each tail layer alone, runs under
+``torch.utils.checkpoint``, so the backward recomputes its forward (the
+flash and RMSNorm forward kernels run twice per layer and step).
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import attention_block, init_attention, init_kv_cache
 from repro_torch.models.config import ModelConfig
@@ -169,6 +174,27 @@ def _apply_layer(lparams: Layer, x, cfg: ModelConfig, kind: str, *, positions, c
     return x, new_cache, aux
 
 
+def _run_layers(params: Transformer, x, cfg: ModelConfig, idx: range, positions, causal: bool):
+    """Layers ``idx`` in train mode (no cache): (x, the sum of their aux losses)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in idx:
+        x, _, a = _apply_layer(params.layers[i], x, cfg, cfg.block_kind(i), positions=positions,
+                               cache_entry=None, cache_pos=None, causal=causal)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def remat_spans(cfg: ModelConfig) -> list:
+    """The layer ranges that train mode rematerializes as one: each group of
+    ``len(cfg.block_pattern)`` layers, then each tail layer alone
+    (``repro/models/transformer.py:288,323``)."""
+    period = len(cfg.block_pattern)
+    n_groups = cfg.n_layers // period
+    groups = [range(g * period, (g + 1) * period) for g in range(n_groups)]
+    return groups + [range(i, i + 1) for i in range(n_groups * period, cfg.n_layers)]
+
+
 def forward(
     params: Transformer,
     tokens_or_embeds: torch.Tensor,
@@ -185,7 +211,8 @@ def forward(
       positions: (B, S) or (B, S, 3) for mrope; defaults to arange (train)
         or the cache's ``pos`` offset (decode/prefill).
       cache: serving cache -> decode/prefill mode, written in place; None ->
-        train mode.
+        train mode (rematerialized per :func:`remat_spans` when ``cfg.remat``
+        and autograd records).
 
     Returns:
       (logits (B, S, V), new_cache or None, aux_loss scalar)
@@ -213,17 +240,23 @@ def forward(
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {"pos": cache_pos + s, "layers": []} if cache is not None else None
-    for i, lparams in enumerate(params.layers):
-        x, nc, aux = _apply_layer(
-            lparams, x, cfg, cfg.block_kind(i),
-            positions=positions,
-            cache_entry=cache["layers"][i] if cache is not None else None,
-            cache_pos=cache_pos, causal=causal,
-        )
-        if aux is not None:
+    if cache is None and cfg.remat and torch.is_grad_enabled():
+        for idx in remat_spans(cfg):
+            x, aux = checkpoint(_run_layers, params, x, cfg, idx, positions, causal,
+                                use_reentrant=False)
             aux_total = aux_total + aux
-        if cache is not None:
-            new_cache["layers"].append(nc)
+    else:
+        for i, lparams in enumerate(params.layers):
+            x, nc, aux = _apply_layer(
+                lparams, x, cfg, cfg.block_kind(i),
+                positions=positions,
+                cache_entry=cache["layers"][i] if cache is not None else None,
+                cache_pos=cache_pos, causal=causal,
+            )
+            if aux is not None:
+                aux_total = aux_total + aux
+            if cache is not None:
+                new_cache["layers"].append(nc)
 
     x = _norm(cfg, params.final_norm, x)
     logits = unembed(params.embed, x, tied=cfg.tie_embeddings, softcap=cfg.logit_softcap)

@@ -1,0 +1,1 @@
+"""The optimizer of the port: AdamW with a cosine schedule and global-norm clipping."""

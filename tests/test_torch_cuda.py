@@ -24,12 +24,13 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.coefficients import get_scheme
 from repro_torch.kernels.flash_attention import flash_attention as tfa
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 from repro_torch.kernels.matmul import ops as tmm
 from repro_torch.kernels.matmul import ref as tmm_ref
 from repro_torch.kernels.strassen import ref as tref
 from repro_torch.kernels.rmsnorm import rmsnorm as trn
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 from repro_torch.kernels.slstm import slstm as tsl
 from repro_torch.kernels.slstm.ref import slstm_seq_ref
 from repro_torch.kernels.strassen import strassen as tst
@@ -539,3 +540,164 @@ def test_cuda_mesh_strategy_matches_its_cpu_run(cuda, name, shape, names, kw):
         k: (t.count, t.logical_bytes) for k, t in cpu_mesh.traffic.items()}
     if torch.cuda.device_count() == 1:
         assert mesh.physical_bytes == 0
+
+
+# ------------------------------------------------------------ backward kernels
+# The backward kernels against their plain backwards (ref.py). fp32: max|d| <=
+# 1e-4 x max(1, max|plain|) (five fp32 products and an atomic dQ sum in
+# another order). bf16: each element within 2^-5 x (|plain| + rms(plain)) and
+# normwise within 1e-2: the kernel rounds P and dS to bf16 before its
+# tensor-core products (2^-9 each), where the plain version keeps them fp32.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-5}
+
+
+def _grad_within(got, want, dtype):
+    if dtype == torch.float32:
+        return _within(got, want, BWD_TOL[dtype])
+    rel = ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+    return _within(got, want, BWD_TOL[dtype]) and rel <= 1e-2
+
+
+FLASH_BWD_CASES = [
+    ((2, 6, 2, 130, 130), dict(causal=True)),               # GQA 3, ragged tiles
+    ((1, 4, 1, 150, 150), dict(causal=True, window=17)),    # MQA, a window
+    ((1, 4, 2, 40, 100), dict(causal=True)),                # Sq < Sk, top-left causal
+    ((1, 4, 2, 100, 40), dict(causal=True)),                # Sq > Sk
+    ((2, 3, 3, 37, 150), dict(causal=False)),               # cross-attention
+    ((1, 2, 2, 64, 16), dict(causal=True, window=8)),       # rows with no live key
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+def test_cuda_flash_attention_bwd_matches_plain(cuda, dtype, d):
+    if d not in tfa.BWD_HEAD_DIMS[dtype]:
+        q = _on(cuda, (1, 2, 8, d), dtype)
+        out, lse = tfa.flash_attention_cuda(q, q, q, return_lse=True)
+        with pytest.raises(ValueError, match="head dims"):
+            tfa.flash_attention_bwd_cuda(q, q, q, out, lse, out)
+        return
+    for (b, hq, hkv, sq, sk), kw in FLASH_BWD_CASES:
+        q = _on(cuda, (b, hq, sq, d), dtype)
+        k, v = _on(cuda, (b, hkv, sk, d), dtype), _on(cuda, (b, hkv, sk, d), dtype)
+        out, lse = tfa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        assert torch.equal(out, tfa.flash_attention_cuda(q, k, v, **kw))  # lse moves nothing
+        want_out, want_lse = attention_ref(q, k, v, return_lse=True, **kw)
+        live = torch.isfinite(want_lse)
+        assert torch.equal(torch.isfinite(lse), live)
+        assert (lse[live] - want_lse[live]).abs().max().item() <= 1e-4 * max(1.0, want_lse[live].abs().max().item())
+        do = _on(cuda, (b, hq, sq, d), dtype)
+        n = tfa.flash_attention_bwd_cuda.launches
+        got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+        assert tfa.flash_attention_bwd_cuda.launches == n + 1
+        want = attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        for name, g, w in zip("qkv", got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            assert _grad_within(g, w, dtype), (name, (b, hq, hkv, sq, sk, d), kw)
+        if kw.get("window") == 8:  # rows past 23 have no live key: their dq is 0
+            assert torch.count_nonzero(got[0][:, :, 23:]) == 0
+        again = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))  # no atomics: the same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_autograd_runs_the_kernels(cuda, dtype):
+    q = _on(cuda, (2, 4, 70, 64), dtype).requires_grad_()
+    k = _on(cuda, (2, 2, 70, 64), dtype).requires_grad_()
+    v = _on(cuda, (2, 2, 70, 64), dtype).requires_grad_()
+    do = _on(cuda, (2, 4, 70, 64), dtype)
+    n = tfa.flash_attention_bwd_cuda.launches
+    out = flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert tfa.flash_attention_bwd_cuda.launches == n + 1
+    o, lse = attention_ref(q.detach(), k.detach(), v.detach(), return_lse=True)
+    want = attention_bwd_ref(q.detach(), k.detach(), v.detach(), o, lse, do)
+    assert all(_grad_within(g, w, dtype) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,wdtype", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16)])
+def test_cuda_rmsnorm_bwd_matches_plain_and_is_deterministic(cuda, dtype, wdtype):
+    for r, d in [(1, 3072), (7, 3072), (300, 48), (64, 1000), (5, 250), (2048, 3072),
+                 (33, 8192), (4, 2048)]:
+        x, dy = _on(cuda, (r, d), dtype), _on(cuda, (r, d), dtype)
+        w = 1.0 + _on(cuda, (d,), wdtype)
+        n = trn.rmsnorm_bwd_cuda.launches
+        dx, dw = trn.rmsnorm_bwd_cuda(x, w, dy, eps=1e-6)
+        assert trn.rmsnorm_bwd_cuda.launches == n + 1
+        want_dx, want_dw = rmsnorm_bwd_ref(x, w, dy, 1e-6)
+        assert dx.dtype == dtype and dw.dtype == wdtype
+        assert _grad_within(dx, want_dx, dtype), (r, d)
+        rel = ((dw.float() - want_dw.float()).norm() / want_dw.float().norm()).item()
+        assert rel <= (1e-5 if wdtype == torch.float32 else 1e-2), (r, d, rel)
+        dx2, dw2 = trn.rmsnorm_bwd_cuda(x, w, dy, eps=1e-6)
+        assert torch.equal(dx, dx2) and torch.equal(dw, dw2)  # no atomics: the same bits
+
+
+@pytest.mark.cuda
+def test_cuda_fused_and_slstm_raise_under_grad(cuda):
+    from repro_torch.core.backend import MatmulBackend, matmul
+    from repro_torch.kernels.slstm.ops import slstm_seq
+
+    a = _on(cuda, (64, 64), torch.float32).requires_grad_()
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        matmul(a, _on(cuda, (64, 64), torch.float32),
+               MatmulBackend(kind="strassen_fused", depth=1, min_dim=16))
+    b, s, h, dh = 1, 4, 2, 8
+    wx = _on(cuda, (b, s, 4, h, dh), torch.float32).requires_grad_()
+    state = {n: torch.zeros((b, h, dh), device=cuda) for n in ("c", "n", "m", "h")}
+    with pytest.raises(NotImplementedError, match="sLSTM backward"):
+        slstm_seq(wx, _on(cuda, (4, h, dh, dh), torch.float32), state)
+
+
+def _state_on(state, device):
+    import copy
+
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.training.train_step import TrainState
+
+    opt = state.opt
+    return TrainState(copy.deepcopy(state.params).to(device),
+                      OptState(opt.step.to(device), {k: t.to(device) for k, t in opt.m.items()},
+                               {k: t.to(device) for k, t in opt.v.items()}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "olmoe_1b_7b", "recurrentgemma_9b"])
+def test_cuda_train_step_matches_the_cpu_port(cuda, arch):
+    """One fp32 train step of a smoke config on the card (flash and RMSNorm
+    forward and backward kernels; recurrentgemma's windowed MQA attention,
+    olmoe's routed experts) against the same step of the CPU port: loss and
+    grad norm to 1e-5 relative, each first moment (the clipped gradient
+    times 1 - b1) normwise to 1e-4, each update normwise to 1e-3."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.train_step import init_train_state, make_train_step
+
+    cfg = get_smoke_config(arch)
+    opt = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=50)
+    cpu = init_train_state(cfg, opt, torch.Generator().manual_seed(0))
+    dev = _state_on(cpu, cuda)
+    before = {n: p.detach().clone() for n, p in cpu.params.named_parameters()}
+    batch = SyntheticLM(cfg, DataConfig(batch=2, seq_len=32, seed=3), device="cpu")(0)
+    step = make_train_step(cfg, opt)
+    tfa.flash_attention_bwd_cuda.launches = trn.rmsnorm_bwd_cuda.launches = 0
+    dev, dm = step(dev, {k: t.to(cuda) for k, t in batch.items()})
+    cpu, cm = step(cpu, batch)
+    assert tfa.flash_attention_bwd_cuda.launches == sum(
+        cfg.block_kind(i) in ("attn", "local_attn") for i in range(cfg.n_layers))
+    assert trn.rmsnorm_bwd_cuda.launches == 2 * cfg.n_layers + 1
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(dm[key].item() - cm[key].item()) <= 1e-5 * abs(cm[key].item()), key
+
+    def rel(a, b):
+        return ((a.cpu().double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
+
+    for name, p in cpu.params.named_parameters():
+        assert rel(dev.opt.m[name], cpu.opt.m[name]) <= 1e-4, name
+        pd = dict(dev.params.named_parameters())[name]
+        assert rel(pd.detach() - before[name].to(cuda), p.detach() - before[name]) <= 1e-3, name

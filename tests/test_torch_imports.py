@@ -45,10 +45,12 @@ def test_port_files_exist():
         "launch/strassen_distributed.py", "models/moe.py", "models/rglru.py",
         "configs/olmoe_1b_7b.py", "configs/qwen2_moe_a2_7b.py", "configs/recurrentgemma_9b.py",
         "models/encdec.py", "configs/whisper_tiny.py",
+        "optim/adamw.py", "training/train_step.py", "data/pipeline.py",
+        "runtime/checkpoint.py", "runtime/elastic.py", "launch/train.py",
     } <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"rmsnorm.cu", "flash_attention.cu", "matmul.cu", "signed_sum.cu",
-            "strassen1.cu", "slstm.cu"} <= csrc
+            "strassen1.cu", "slstm.cu", "flash_attention_bwd.cu"} <= csrc
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -82,6 +84,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.blocks, repro_torch.launch.blocks_demo, repro_torch.launch.solve_demo\n"
         "import repro_torch.core.mesh, repro_torch.core.distributed\n"
         "import repro_torch.launch.strassen_distributed\n"
+        "import repro_torch.optim.adamw, repro_torch.training.train_step\n"
+        "import repro_torch.data.pipeline, repro_torch.runtime.checkpoint\n"
+        "import repro_torch.runtime.elastic, repro_torch.launch.train\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -101,7 +106,12 @@ OOT_PATH = ["blocks/__init__.py", "blocks/tags.py", "blocks/plan.py", "blocks/bl
             "core/autotune.py", "launch/blocks_demo.py", "launch/solve_demo.py"]
 
 
-@pytest.mark.parametrize("rel", OOT_PATH)
+# The training path, which chip_smoke.py runs on that machine too.
+TRAIN_PATH = ["optim/adamw.py", "training/train_step.py", "data/pipeline.py",
+              "runtime/checkpoint.py", "runtime/elastic.py", "launch/train.py"]
+
+
+@pytest.mark.parametrize("rel", OOT_PATH + TRAIN_PATH)
 def test_oot_path_imports_no_ml_dtypes(rel):
     tree = ast.parse((PORT / rel).read_text())
     for node in ast.walk(tree):

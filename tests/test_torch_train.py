@@ -1,0 +1,296 @@
+"""Port parity: training in repro_torch against repro's, on the CPU.
+
+The same seeded numpy tokens (and frames, and M-RoPE positions) and the JAX
+parameters, converted with ``convert.params_from_jax``, go through both
+packages' ``loss_fn`` in fp32 on the smoke configs of every family: the loss
+to 1e-5 relative, and each gradient leaf (the JAX tree converted the same
+way) normwise to 1e-4, ||g_port - g_jax|| / ||g_jax|| (a leaf whose gradient
+is zero in exact arithmetic, and so below 1e-6 of the whole gradient's norm
+in both packages, is held to 1e-6 of that norm). One train step of the
+port is held against one of ``repro.training.train_step`` from the same
+state (``convert.train_state_from_jax``), with 1 and 4 microbatches: grad
+norm and lr to 1e-5 relative, each moment normwise to 1e-4, and each
+parameter's update normwise to 1e-3 (AdamW's first updates are about
+lr * sign(g), so an element whose gradient is near 0 may flip: the update is
+compared as a whole, never by its largest element). The plain backwards of
+the two kernels (``attention_bwd_ref``, ``rmsnorm_bwd_ref``) are held
+against ``torch.autograd`` and ``jax.grad``; remat changes no gradient; the
+fused Strassen route has no gradient in either package; and the launcher
+trains, summarizes and resumes on the CPU.
+"""
+import dataclasses
+import json
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro import configs as jconfigs
+from repro.core import backend as JB
+from repro.data.pipeline import DataConfig as JDataConfig
+from repro.data.pipeline import SyntheticLM as JSyntheticLM
+from repro.models import attention as JA
+from repro.models import layers as JL
+from repro.models import model as JM
+from repro.optim.adamw import AdamWConfig as JAdamWConfig
+from repro.training import train_step as JTS
+from repro_torch import configs as tconfigs
+from repro_torch.convert import backend_from_fields, params_from_jax, train_state_from_jax
+from repro_torch.core import backend as TB
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+from repro_torch.launch import train as ttrain
+from repro_torch.models import model as TM
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.training.train_step import init_train_state, make_train_step
+
+RNG = np.random.default_rng(11)
+FAMILIES = ["phi4_mini_3_8b", "internlm2_20b", "qwen2_vl_72b", "olmoe_1b_7b",
+            "qwen2_moe_a2_7b", "recurrentgemma_9b", "xlstm_1_3b", "whisper_tiny"]
+B, S = 2, 16
+# Below this share of the whole gradient's norm a leaf is fp32 roundoff (a
+# few ulps of the sums that form it), and is held to that absolutely.
+NOISE = 1e-6
+
+
+def _models(arch, **overrides):
+    jcfg = jconfigs.get_smoke_config(arch, **overrides)
+    tcfg = tconfigs.get_smoke_config(arch, **overrides)
+    assert jcfg.dtype == tcfg.dtype == "float32"
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = TM.init_params(tcfg, torch.Generator().manual_seed(1))
+    tp.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu"), strict=True)
+    for p in tp.parameters():
+        p.requires_grad_(True)
+    return jcfg, tcfg, jp, tp
+
+
+def _batch(cfg):
+    toks = RNG.integers(0, cfg.vocab, (B, S + 1))
+    batch = {"tokens": toks[:, :-1].astype(np.int32), "labels": toks[:, 1:].astype(np.int32)}
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = RNG.standard_normal((B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.mrope:
+        batch["positions"] = np.broadcast_to(np.arange(S)[None, :, None], (B, S, 3)).copy()
+    return batch
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def _port_grads(tp, tcfg, batch):
+    for p in tp.parameters():
+        p.grad = None
+    loss, metrics = TM.loss_fn(tp, {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg)
+    loss.backward()
+    return loss, metrics, {n: p.grad for n, p in tp.named_parameters()}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_loss_and_every_gradient_leaf_match_jax(arch):
+    jcfg, tcfg, jp, tp = _models(arch)
+    batch = _batch(jcfg)
+    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(JM.loss_fn, has_aux=True), static_argnums=2)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
+    loss, metrics, grads = _port_grads(tp, tcfg, batch)
+    assert abs(loss.item() - float(jloss)) <= 1e-5 * abs(float(jloss))
+    for key in ("ce", "aux", "ppl"):
+        assert abs(float(metrics[key]) - float(jmet[key])) <= 1e-5 * max(abs(float(jmet[key])), 1e-6)
+    want = params_from_jax(jax.tree.map(np.asarray, jgrads), tcfg, "cpu")
+    assert set(want) == set(grads)
+    total = np.sqrt(sum(float(np.sum(w.double().numpy() ** 2)) for w in want.values()))
+    worst = 0.0
+    for name, g in grads.items():
+        w = want[name].numpy()
+        got = np.zeros_like(w) if g is None else g.detach().numpy()
+        diff = float(np.linalg.norm(got.astype(np.float64) - w))
+        if np.linalg.norm(w) <= NOISE * total:
+            # A leaf whose gradient is zero in exact arithmetic, left with fp32
+            # roundoff in both packages (the mLSTM input-gate bias: the
+            # stabilizer cancels a shift of every input gate of a head).
+            assert diff <= NOISE * total, (name, diff)
+            continue
+        worst = max(worst, _rel(got, w))
+        assert _rel(got, w) <= 1e-4, (name, _rel(got, w))
+    print(f"{arch}: loss {loss.item():.6f}, worst leaf {worst:.2e}")
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("phi4_mini_3_8b", dict(n_layers=3, block_pattern=("attn", "attn"))),  # a group and a tail
+    ("whisper_tiny", {}),
+])
+def test_remat_changes_no_gradient(arch, overrides):
+    _, tcfg, _, tp = _models(arch, **overrides)
+    batch = _batch(tcfg)
+    loss, _, plain = _port_grads(tp, tcfg, batch)
+    loss_r, _, remat = _port_grads(tp, dataclasses.replace(tcfg, remat=True), batch)
+    assert float(loss) == float(loss_r)
+    for name, g in plain.items():
+        assert torch.allclose(g, remat[name], rtol=0, atol=1e-7 * max(1.0, g.abs().max().item())), name
+
+
+def _rel_t(got: torch.Tensor, want) -> float:
+    return _rel(got.detach().float().numpy(), np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("accum", [1, 4])
+def test_train_step_matches_jax(accum):
+    jcfg = jconfigs.get_smoke_config("phi4_mini_3_8b")
+    tcfg = tconfigs.get_smoke_config("phi4_mini_3_8b")
+    jopt = JAdamWConfig(lr=1e-2, warmup_steps=2, total_steps=50)
+    topt = AdamWConfig(**dataclasses.asdict(jopt))
+    jstate = JTS.init_train_state(jcfg, jopt, jax.random.PRNGKey(0))
+    np_state = jax.tree.map(np.asarray, jstate)
+    state = train_state_from_jax(np_state, tcfg, "cpu")
+    batch = jax.tree.map(np.asarray, JSyntheticLM(jcfg, JDataConfig(batch=4, seq_len=16, seed=1))(0))
+    js, jm = jax.jit(JTS.make_train_step(jcfg, jopt, accum_steps=accum))(jstate, batch)
+    ts, tm = make_train_step(tcfg, topt, accum_steps=accum)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert set(tm) == set(jm)
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(float(tm[key]) - float(jm[key])) <= 1e-5 * abs(float(jm[key])), key
+    assert int(ts.opt.step) == int(js.opt.step) == 1
+    p0 = params_from_jax(np_state.params, tcfg, "cpu")
+    p1 = params_from_jax(jax.tree.map(np.asarray, js.params), tcfg, "cpu")
+    m1 = params_from_jax(jax.tree.map(np.asarray, js.opt.m), tcfg, "cpu")
+    v1 = params_from_jax(jax.tree.map(np.asarray, js.opt.v), tcfg, "cpu")
+    for name, p in ts.params.named_parameters():
+        assert _rel_t(ts.opt.m[name], m1[name]) <= 1e-4, name
+        assert _rel_t(ts.opt.v[name], v1[name]) <= 1e-4, name
+        assert _rel_t(p.detach() - p0[name], (p1[name] - p0[name]).numpy()) <= 1e-3, name
+
+
+# ----------------------------------------------------------- plain backwards
+ATTN_CASES = [
+    ((2, 4, 2, 32, 32), dict(causal=True)),             # GQA
+    ((1, 4, 1, 48, 48), dict(causal=True, window=5)),   # MQA, a window
+    ((1, 2, 2, 16, 40), dict(causal=True)),             # Sq < Sk
+    ((1, 2, 2, 40, 16), dict(causal=True)),             # Sq > Sk
+    ((1, 3, 3, 12, 36), dict(causal=False)),
+    ((1, 2, 2, 32, 8), dict(causal=True, window=4)),    # rows with no live key
+]
+
+
+@pytest.mark.parametrize("shape,kw", ATTN_CASES, ids=lambda v: str(v))
+def test_attention_bwd_ref_matches_autograd_and_jax(shape, kw):
+    b, hq, hkv, sq, sk = shape
+    d = 16
+    q, k, v = (RNG.standard_normal(s).astype(np.float32)
+               for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    do = RNG.standard_normal((b, hq, sq, d)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    auto = torch.autograd.grad(attention_ref(tq, tk, tv, **kw), (tq, tk, tv), torch.from_numpy(do))
+    o, lse = attention_ref(tq.detach(), tk.detach(), tv.detach(), return_lse=True, **kw)
+    ref = attention_bwd_ref(tq.detach(), tk.detach(), tv.detach(), o, lse, torch.from_numpy(do), **kw)
+    jgrads = jax.jit(lambda *a: jax.vjp(
+        lambda *x: JA.chunked_attention(*x, q_chunk=8, k_chunk=8, **kw), *a[:3])[1](a[3]))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(do))
+    # the op's autograd (the plain versions on the CPU) is the same function
+    op = torch.autograd.grad(flash_attention(tq, tk, tv, **kw), (tq, tk, tv), torch.from_numpy(do))
+    for r, a, j, g in zip(ref, auto, jgrads, op):
+        assert torch.allclose(r, a, rtol=0, atol=1e-5 * max(1.0, a.abs().max().item()))
+        assert torch.equal(r, g)
+        np.testing.assert_allclose(r.numpy(), np.asarray(j), rtol=0,
+                                   atol=1e-5 * max(1.0, float(np.abs(j).max())))
+    if kw.get("window") == 4:  # rows from 11 on have no live key
+        assert not ref[0][:, :, 11:].any()
+
+
+def test_rmsnorm_bwd_ref_matches_autograd_and_jax():
+    x = RNG.standard_normal((3, 5, 48)).astype(np.float32)
+    scale = (0.1 * RNG.standard_normal(48)).astype(np.float32)
+    dy = RNG.standard_normal((3, 5, 48)).astype(np.float32)
+    tx, ts = torch.from_numpy(x).requires_grad_(), torch.from_numpy(scale).requires_grad_()
+    w = 1.0 + ts
+    auto = torch.autograd.grad(rmsnorm_ref(tx.reshape(-1, 48), w), (tx, ts), torch.from_numpy(dy).reshape(-1, 48))
+    dx, dw = rmsnorm_bwd_ref(tx.detach().reshape(-1, 48), w.detach(), torch.from_numpy(dy).reshape(-1, 48))
+    op = torch.autograd.grad(rmsnorm(tx, 1.0 + ts), (tx, ts), torch.from_numpy(dy))
+    _, vjp = jax.vjp(lambda x_, s_: JL.rmsnorm({"scale": s_}, x_), jnp.asarray(x), jnp.asarray(scale))
+    jdx, jds = vjp(jnp.asarray(dy))
+    for got, a, o, j in ((dx.reshape(x.shape), auto[0], op[0], jdx), (dw, auto[1], op[1], jds)):
+        assert torch.allclose(got, a, rtol=0, atol=1e-5)
+        assert torch.equal(got, o)
+        np.testing.assert_allclose(got.numpy(), np.asarray(j), rtol=0, atol=1e-5)
+
+
+def test_fused_route_has_no_gradient_in_either_package():
+    a = RNG.standard_normal((64, 64)).astype(np.float32)
+    jb = JB.MatmulBackend(kind="strassen_fused", depth=1, min_dim=16)
+    with pytest.raises(Exception):
+        jax.grad(lambda x: JB.matmul(x, jnp.asarray(a), jb).sum())(jnp.asarray(a))
+    tb = backend_from_fields(dataclasses.asdict(jb))
+    x = torch.from_numpy(a).requires_grad_()
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        TB.matmul(x, torch.from_numpy(a), tb)
+    with torch.no_grad():  # without autograd the route runs (its plain version here)
+        assert TB.matmul(x, torch.from_numpy(a), tb).shape == (64, 64)
+
+
+# ------------------------------------------------------------- mirrors
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
+def test_smoke_forward_and_grad(arch):
+    """tests/test_arch_smoke.py::test_smoke_forward_and_grad on the port."""
+    cfg = tconfigs.get_smoke_config(arch)
+    state = init_train_state(cfg, AdamWConfig(), torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+    logits, _ = TM.apply_train(state.params, batch, cfg)
+    assert logits.shape == (B, S, cfg.vocab) and bool(torch.isfinite(logits).all())
+    loss, _ = TM.loss_fn(state.params, batch, cfg)
+    loss.backward()
+    gnorm = sum(float((p.grad.float() ** 2).sum()) for p in state.params.parameters()
+                if p.grad is not None)
+    assert np.isfinite(float(loss)) and np.isfinite(gnorm) and gnorm > 0.0
+
+
+def test_flash_attention_is_differentiable_and_matches_naive_grad():
+    """tests/test_model_consistency.py's chunked-attention gradient test on the port's op."""
+    q, k, v = (torch.from_numpy(RNG.standard_normal((1, 2, 64, 16)).astype(np.float32))
+               for _ in range(3))
+    q1, q2 = q.clone().requires_grad_(), q.clone().requires_grad_()
+    g1, = torch.autograd.grad((flash_attention(q1, k, v) ** 2).sum(), q1)
+    g2, = torch.autograd.grad((attention_ref(q2, k, v) ** 2).sum(), q2)
+    assert torch.allclose(g1, g2, atol=2e-4, rtol=2e-4)
+    _, vjp = jax.vjp(lambda x: JA.chunked_attention(x, jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
+                                                    q_chunk=16, k_chunk=16), jnp.asarray(q.numpy()))
+    jg, = vjp(2 * JA.chunked_attention(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                                       jnp.asarray(v.numpy()), q_chunk=16, k_chunk=16))
+    np.testing.assert_allclose(g1.numpy(), np.asarray(jg), atol=2e-4, rtol=2e-4)
+
+
+def test_grouped_moe_grad_flows():
+    """tests/test_perf_features.py::test_grouped_moe_grad_flows on the port."""
+    cfg = dataclasses.replace(tconfigs.get_smoke_config("olmoe_1b_7b"), moe_group_dispatch=True,
+                              capacity_factor=2.0)
+    state = init_train_state(cfg, AdamWConfig(), torch.Generator().manual_seed(2))
+    tokens = torch.from_numpy(RNG.integers(0, cfg.vocab, (2, 16)))
+    loss, metrics = TM.loss_fn(state.params, {"tokens": tokens, "labels": tokens}, cfg)
+    loss.backward()
+    gnorm = sum(float((p.grad ** 2).sum()) for p in state.params.parameters() if p.grad is not None)
+    assert np.isfinite(gnorm) and gnorm > 0 and float(metrics["aux"]) > 0
+
+
+# ------------------------------------------------------------- the launcher
+def test_train_cli_trains_summarizes_and_resumes(tmp_path, capsys):
+    ckpt, summary = tmp_path / "ckpt", tmp_path / "summary.json"
+    argv = ["--arch", "phi4_mini_3_8b", "--smoke", "--device", "cpu", "--batch", "4",
+            "--seq", "32", "--ckpt-dir", str(ckpt), "--save-every", "2",
+            "--summary-out", str(summary)]
+    assert ttrain.main(argv + ["--steps", "4"]) == 0
+    out = json.loads(summary.read_text())
+    assert {"arch", "backend", "steps", "wall_s", "loss_first", "loss_last",
+            "median_step_time_s", "steps_run"} <= set(out)
+    assert out["steps_run"] == 4 and out["loss_last"] < out["loss_first"]
+    assert sorted(p.name for p in ckpt.iterdir()) == ["step_00000002", "step_00000004"]
+    assert ttrain.main(argv + ["--steps", "6"]) == 0
+    assert "[resume] from step 4" in capsys.readouterr().out
+    assert json.loads(summary.read_text())["steps_run"] == 2
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ttrain.main(argv + ["--mesh"])
