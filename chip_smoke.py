@@ -398,12 +398,12 @@ ELEMENT_TOL = {("norm", torch.bfloat16): 2**-7, ("flash", torch.bfloat16): 2**-7
                ("flash_bwd", torch.bfloat16): 2**-5, ("norm_bwd", torch.bfloat16): 2**-5}
 # The backward kernels against their plain backwards. fp32 (TOL above): five
 # products and dQ's sum over key tiles in another order than the plain
-# version's, hence 1e-4 x max(1, max|plain|). bf16: the flash kernel rounds
-# P and dS to bf16 for its tensor-core products (2^-9 each) where the plain
-# version keeps them in fp32, and the RMSNorm kernel rounds dx once; each
-# element within 2^-5 x (|plain| + rms(plain)) (ELEMENT_TOL) and the whole
-# gradient normwise within GRAD_NORMWISE. dw (fp32 in both) adds 2048 rows
-# in another order: DW_LIMIT normwise.
+# version's, hence 1e-4 x max(1, max|plain|). bf16: the flash kernel feeds P
+# and dS to its tensor-core products as hi + lo bf16 parts (about 2^-17 of
+# the fp32 value) and rounds dQ, dK and dV once, and the RMSNorm kernel rounds
+# dx once; each element within 2^-5 x (|plain| + rms(plain)) (ELEMENT_TOL)
+# and the whole gradient normwise within GRAD_NORMWISE. dw (fp32 in both)
+# adds 2048 rows in another order: DW_LIMIT normwise.
 GRAD_NORMWISE = 1e-2
 DW_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 # Main path against fp32 torch.matmul, normwise relative error ||C - C_ref|| / ||C_ref||.
@@ -539,6 +539,16 @@ TRAIN_CUT = dict(n_layers=2, vocab=8192)
 CUT_BATCH, CUT_SEQ = 1, 128
 WHISPER_TRAIN = dict(batch=8, seq=128, steps=6, cycle=2)
 WHISPER_TRAIN_OPT = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=WHISPER_TRAIN["steps"])
+# t7: recurrentgemma-9b at full width cut to one block pattern (rglru, rglru,
+# local_attn: 3 layers), bf16, a few steps of 1 x 4096 tokens: the bf16 flash
+# backward at head dim 256 under MQA and a window, on a training path.
+RG_TRAIN = dict(batch=1, seq=4096, steps=3)
+RG_TRAIN_OPT = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=RG_TRAIN["steps"])
+# The bf16 flash backward's D = 256 shapes beside the training paths' (t1):
+# gemma-7b's (MHA 16/16) and recurrentgemma-9b's (MQA 16/1, window 2048), at
+# one sequence of 2048 and 4096 tokens.
+D256_SHAPES = [("gemma-7b", (1, 16, 2048, 256), (1, 16, 2048, 256), True, None),
+               ("recurrentgemma-9b", (1, 16, 4096, 256), (1, 1, 4096, 256), True, 2048)]
 # t2: the card's fp32 step against the CPU port's. Both compute in fp32 (TF32
 # off), in other orders: the loss to 1e-5 relative, each gradient leaf
 # normwise to 1e-4, each update normwise to 1e-3 (AdamW's first updates are
@@ -713,8 +723,8 @@ def phase_build() -> None:
 
 def short_name(mangled: str) -> str:
     """The kernel's own name and template arguments out of a mangled symbol."""
-    for kernel in (*TENSOR_CORE_KERNELS, "flash_kernel", "rmsnorm_kernel", "slstm_seq_kernel",
-                   "signed_sum", "matmul"):
+    for kernel in (*TENSOR_CORE_KERNELS, "flash_kernel", "rmsnorm_kernel", "rmsnorm_bwd_kernel",
+                   "flash_bwd_f32_kernel", "slstm_seq_kernel", "signed_sum", "matmul"):
         if kernel in mangled:
             return mangled[mangled.index(kernel):][:48]
     return mangled[:48]
@@ -724,9 +734,9 @@ def short_name(mangled: str) -> str:
 # each must hold: warpgroup MMA for strassen1 and the tiled matmul, warp-level
 # MMA for flash.
 TENSOR_CORE_KERNELS = {"strassen1_wgmma_kernel": "HGMMA", "matmul_wgmma_kernel": "HGMMA",
-                       "flash_mma_kernel": "HMMA"}
+                       "flash_mma_kernel": "HMMA", "flash_bwd_wgmma_kernel": "HGMMA"}
 # Kernels whose every instance must build without spilling registers.
-NO_SPILL_KERNELS = ("matmul_fma_kernel", "matmul_wgmma_kernel")
+NO_SPILL_KERNELS = ("matmul_fma_kernel", "matmul_wgmma_kernel", "flash_bwd_wgmma_kernel")
 
 
 def check_tensor_cores(lib: Path) -> None:
@@ -1945,13 +1955,15 @@ def phase_strassen_prefill(cfg, params, gen: np.random.Generator) -> None:
         fail(f"strassen_fused prefill: {launches} strassen1 launches, rel_err {err:.3e}")
 
 
-def profile_events(fn) -> list:
+def profile_events(fn, warm: bool = True) -> list:
     """torch.profiler's events of one call of ``fn`` (after one call to warm
-    up), with the tracer on and its profiler annotations, so that each
-    tracer span is a CPU event over the kernels it launched."""
+    up, unless ``warm`` is False), with the tracer on and its profiler
+    annotations, so that each tracer span is a CPU event over the kernels it
+    launched."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     obs.configure(enabled=True, profiler_annotations=True)
     try:
@@ -1977,7 +1989,7 @@ def kernel_class(name: str) -> str:
     name = name.lower()
     if "flash_bwd" in name:
         return "flash backward kernels"
-    if "rmsnorm_bwd_kernel" in name or "rmsnorm_dw_kernel" in name:
+    if "rmsnorm_bwd_kernel" in name:
         return "rmsnorm backward kernels"
     if "flash_kernel" in name or "flash_mma_kernel" in name:
         return "flash kernel"
@@ -2000,13 +2012,14 @@ def _kernels_under(evt) -> list:
     return out
 
 
-def device_split(fn, spans: tuple = ()) -> dict:
-    """Device time (ms) of one call of ``fn`` (after one to warm up): the
-    kernels launched inside each tracer span of ``spans``, then the other
-    kernels by class. Empty when the profiler saw no kernel."""
+def device_split(fn, spans: tuple = (), warm: bool = True) -> dict:
+    """Device time (ms) of one call of ``fn`` (after one to warm up, unless
+    ``warm`` is False): the kernels launched inside each tracer span of
+    ``spans``, then the other kernels by class. Empty when the profiler saw
+    no kernel."""
     from torch.autograd import DeviceType
 
-    events = profile_events(fn)
+    events = profile_events(fn, warm)
     split: dict = {}
     for evt in device_kernels(events):
         key = kernel_class(evt.name)
@@ -2804,24 +2817,39 @@ def phase_fp8_cache(cfg, params, prompts: list, served: list) -> None:
 
 
 # ------------------------------------------------------------- training
-def grad_inputs(gen: np.random.Generator, qs: tuple, ks: tuple, causal: bool, dtype) -> tuple:
+def grad_inputs(gen: np.random.Generator, qs: tuple, ks: tuple, causal: bool, dtype,
+                window=None) -> tuple:
     """q, k, v, the forward kernel's out and lse, and a random output gradient."""
     q, k, v = randn(gen, qs, dtype), randn(gen, ks, dtype), randn(gen, ks, dtype)
-    out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
     return q, k, v, out, lse, randn(gen, qs, dtype)
 
 
 def train_flash_shapes() -> list:
-    """(name, q shape, kv shape, causal) of flash attention on the training
-    paths: phi4's layers at t3's batch, and whisper's encoder, decoder
-    self-attention and cross-attention at t5's."""
+    """(name, q shape, kv shape, causal, window) of flash attention on the
+    training paths: phi4's layers at t3's batch, and whisper's encoder,
+    decoder self-attention and cross-attention at t5's; then the D = 256
+    shapes of D256_SHAPES (recurrentgemma's is t7's)."""
     phi, wh = get_config(TRAIN_ARCH), get_config(WHISPER_ARCH)
     b, s = TRAIN_BATCH, TRAIN_SEQ
     wb, ws, we, h, hd = WHISPER_TRAIN["batch"], WHISPER_TRAIN["seq"], wh.enc_seq, wh.n_heads, wh.head_dim
-    return [("phi4", (b, phi.n_heads, s, phi.head_dim), (b, phi.n_kv_heads, s, phi.head_dim), True),
-            ("whisper encoder", (wb, h, we, hd), (wb, h, we, hd), False),
-            ("whisper decoder", (wb, h, ws, hd), (wb, h, ws, hd), True),
-            ("whisper cross", (wb, h, ws, hd), (wb, h, we, hd), False)]
+    return [("phi4", (b, phi.n_heads, s, phi.head_dim), (b, phi.n_kv_heads, s, phi.head_dim), True, None),
+            ("whisper encoder", (wb, h, we, hd), (wb, h, we, hd), False, None),
+            ("whisper decoder", (wb, h, ws, hd), (wb, h, ws, hd), True, None),
+            ("whisper cross", (wb, h, ws, hd), (wb, h, we, hd), False, None),
+            *D256_SHAPES]
+
+
+def mask_name(causal: bool, window) -> str:
+    return ("causal" if causal else "non-causal") + ("" if window is None else f" window {window}")
+
+
+def bwd_ops(qs: tuple, ks: tuple, causal: bool, window) -> float:
+    """The backward's five products: 2.5 times the forward's QK^T and PV
+    over the live pairs."""
+    if window is not None:
+        return 2.5 * flash_ops(qs[0], qs[1], qs[2], qs[3], window)
+    return 2.5 * attention_ops(qs[0], qs[1], qs[2], ks[2], qs[3], causal)
 
 
 def compare_grad(name: str, got: torch.Tensor, want: torch.Tensor, kind: str) -> float:
@@ -2842,19 +2870,26 @@ def phase_train_kernels(gen: np.random.Generator) -> None:
     phi = get_config(TRAIN_ARCH)
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
-        for name, qs, ks, causal in train_flash_shapes():
-            ins = grad_inputs(gen, qs, ks, causal, dtype)
-            got = flash_attention_bwd_cuda(*ins, causal=causal)
-            want = attention_bwd_ref(*ins, causal=causal)
+        for name, qs, ks, causal, window in train_flash_shapes():
+            ins = grad_inputs(gen, qs, ks, causal, dtype, window)
+            got = flash_attention_bwd_cuda(*ins, causal=causal, window=window)
+            want = attention_bwd_ref(*ins, causal=causal, window=window)
             for part, g, w in zip(("dq", "dk", "dv"), got, want):
-                compare_grad(f"flash bwd {tag} {part} q{qs} kv{ks} "
-                             f"{'causal' if causal else 'non-causal'} ({name})", g, w, "flash_bwd")
-            if name == "phi4":
-                again = flash_attention_bwd_cuda(*ins, causal=causal)
+                compare_grad(f"flash bwd {tag} {part} q{qs} kv{ks} {mask_name(causal, window)} ({name})",
+                             g, w, "flash_bwd")
+            if name == "phi4" or qs[3] == 256:
+                again = flash_attention_bwd_cuda(*ins, causal=causal, window=window)
                 same = all(torch.equal(a, b) for a, b in zip(got, again))
                 log(f"check flash bwd {tag} ({name}): a second run gives the same bits {same}")
                 if not same:
-                    fail(f"flash bwd {tag}: two runs differ")
+                    fail(f"flash bwd {tag} ({name}): two runs differ")
+            if name == "phi4" and dtype == torch.bfloat16:
+                # information, not a gate: the yardstick's own distance from the plain version
+                sdpa = [g.float() for g in sdpa_grad(*ins[:3], ins[5], causal)()]
+                ratios = [(s - w).abs().div(2**-5 * (w.abs() + w.square().mean().sqrt())).max().item()
+                          for s, w in zip(sdpa, want)]
+                log(f"info SDPA autograd bf16 ({name}) against the plain backward under t1's rule: "
+                    f"err/limit dq {ratios[0]:.3f}, dk {ratios[1]:.3f}, dv {ratios[2]:.3f}")
             del ins, got, want
         rows, d = TRAIN_BATCH * TRAIN_SEQ, phi.d_model
         x, dy = randn(gen, (rows, d), dtype), randn(gen, (rows, d), dtype)
@@ -2870,13 +2905,14 @@ def phase_train_kernels(gen: np.random.Generator) -> None:
             f"gives the same bits {same} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"rmsnorm bwd {tag} dw: normwise {rel:.3e} (limit {limit:.0e}), same bits {same}")
-    q = randn(gen, (1, 2, 64, 256), torch.bfloat16)
-    out, lse = flash_attention_cuda(q, q, q, return_lse=True)
-    try:
-        flash_attention_bwd_cuda(q, q, q, out, lse, out)
-        fail("flash bwd bf16 D=256 ran; it should raise (no register room for its accumulators)")
-    except ValueError as e:
-        log(f"check flash bwd bf16 D=256 raises ValueError: {e}")
+    # D = 256 at a ragged length, GQA 2 with a window: few enough key tiles
+    # that the plan splits the group into parts, whose dK and dV add in turn
+    ins = grad_inputs(gen, (1, 4, 100, 256), (1, 2, 100, 256), True, torch.bfloat16, 37)
+    got = flash_attention_bwd_cuda(*ins, causal=True, window=37)
+    want = attention_bwd_ref(*ins, causal=True, window=37)
+    for part, g, w in zip(("dq", "dk", "dv"), got, want):
+        compare_grad(f"flash bwd bf16 {part} D=256 q(1, 4, 100, 256) kv(1, 2, 100, 256) causal window 37",
+                     g, w, "flash_bwd")
 
 
 def state_to(state: TrainState, device) -> TrainState:
@@ -3166,6 +3202,57 @@ def run_whisper_train(seed: int) -> dict:
     return counts
 
 
+def run_rg_train(seed: int) -> dict:
+    """(t7) recurrentgemma-9b at full width, cut to RG_TRAIN's one block
+    pattern (3 layers, one local_attn), bf16: RG_TRAIN steps of 1 x 4096
+    SyntheticLM tokens through launch/train.py's build, each step profiled
+    for its device split. Gates: loss and grad norm finite each step, and
+    the flash backward launched once a step (one attention layer)."""
+    full = get_config(RG_ARCH)
+    cfg = dataclasses.replace(full, n_layers=len(full.block_pattern))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, data, step = train_mod.build(cfg, RG_TRAIN_OPT, batch=RG_TRAIN["batch"], seq=RG_TRAIN["seq"],
+                                        accum=1, seed=seed, device=DEVICE)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    n_attn = sum(cfg.block_kind(i) in ("attn", "local_attn") for i in range(cfg.n_layers))
+    reset_counts()
+    holder = [state]
+    losses, norms = [], []
+    for i in range(RG_TRAIN["steps"]):
+        def one_step(i=i):
+            holder[0], metrics = step(holder[0], data(i))
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        split = device_split(one_step, warm=False)
+        end.record()
+        end.synchronize()
+        log_split(f"t7 step {i} ({RG_TRAIN['batch']} x {RG_TRAIN['seq']} tokens, {cfg.dtype}, under the "
+                  f"profiler)",
+                  start.elapsed_time(end), split)
+    counts = {fn.__name__: fn.launches for fn in ALL_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = counts["flash_attention_bwd_cuda"] / RG_TRAIN["steps"]
+    finite = all(np.isfinite(losses)) and all(np.isfinite(norms))
+    ok = finite and per_step == n_attn and len(losses) == RG_TRAIN["steps"]
+    log(f"t7 {cfg.name} cut to {cfg.n_layers} layers ({', '.join(cfg.block_pattern)}; full depth "
+        f"{full.n_layers}) at full width (d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, window {cfg.local_window}), {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B parameters: {RG_TRAIN['steps']} steps of {RG_TRAIN['batch']} x "
+        f"{RG_TRAIN['seq']} tokens; loss {' '.join(f'{x:.4f}' for x in losses)}; grad norm "
+        f"{' '.join(f'{x:.3f}' for x in norms)}; flash bwd launches per step {per_step:g} (expected "
+        f"{n_attn}); finite {finite}; allocator peak {peak:.2f} GiB {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"t7: losses {losses}, grad norms {norms}, flash bwd launches per step {per_step}")
+    del state, holder, data, step
+    torch.cuda.empty_cache()
+    return counts
+
+
 def time_grads(name, kernel, plain, library, ops, moved, dtype, kind, reps) -> dict:
     """time_kernel() for a kernel that returns several gradients: each
     checked against the plain version's, then the three timed."""
@@ -3180,33 +3267,45 @@ def time_grads(name, kernel, plain, library, ops, moved, dtype, kind, reps) -> d
                 max_abs_err=max(errs))
 
 
-def sdpa_grad(q, k, v, do, causal: bool):
+def sdpa_grad(q, k, v, do, causal: bool, window=None):
     """torch.autograd through scaled_dot_product_attention (the yardstick;
-    the port never calls it): a call of the backward alone."""
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(
-        qg, kg, vg, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
+    the port never calls it): a call of the backward alone. A window goes
+    in as a boolean mask, beside K and V repeated to q's heads."""
+    if window is None:
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
+    else:
+        group = q.shape[1] // k.shape[1]
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k.repeat_interleave(group, 1),
+                                                             v.repeat_interleave(group, 1)))
+        i = torch.arange(q.shape[2], device=q.device)[:, None]
+        j = torch.arange(k.shape[2], device=q.device)[None, :]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=(i >= j) & (i - j < window))
     return lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
 
 
-def phase_train_timing(reps: int, phi_counts: dict, whisper_counts: dict) -> list:
+def phase_train_timing(reps: int, phi_counts: dict, whisper_counts: dict, rg_counts: dict) -> list:
     """(t1) The backward kernels timed at the training paths' shapes (bf16)
     beside their plain versions, torch.autograd through SDPA and F.rms_norm,
-    and their bounds; JSON entries with the paths' launches."""
+    and their bounds; JSON entries with the paths' launches (t3's for phi4,
+    t5's for whisper, t7's for the D = 256 shapes)."""
     gen = np.random.default_rng(8)
     rows = []
-    for name, qs, ks, causal in train_flash_shapes():
-        q, k, v, out, lse, do = grad_inputs(gen, qs, ks, causal, torch.bfloat16)
-        ops = 2.5 * attention_ops(qs[0], qs[1], qs[2], ks[2], qs[3], causal)
+    for name, qs, ks, causal, window in train_flash_shapes():
+        q, k, v, out, lse, do = grad_inputs(gen, qs, ks, causal, torch.bfloat16, window)
         moved = nbytes(q, k, v, out, lse, do) + nbytes(q, k, v)
         stats = time_grads(
-            f"flash bwd bf16 q{qs} kv{ks} {'causal' if causal else 'non-causal'} ({name})",
-            lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal),
-            lambda: attention_bwd_ref(q, k, v, out, lse, do, causal=causal),
-            sdpa_grad(q, k, v, do, causal), ops, moved, torch.bfloat16, "flash_bwd", reps)
-        counts = phi_counts if name == "phi4" else whisper_counts
+            f"flash bwd bf16 q{qs} kv{ks} {mask_name(causal, window)} ({name})",
+            lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal, window=window),
+            lambda: attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window),
+            sdpa_grad(q, k, v, do, causal, window), bwd_ops(qs, ks, causal, window), moved,
+            torch.bfloat16, "flash_bwd", reps)
+        counts = phi_counts if name == "phi4" else rg_counts if qs[3] == 256 else whisper_counts
         rows.append(json_row("flash_attention_bwd_cuda", counts, stats))
         del q, k, v, out, lse, do
+        torch.cuda.empty_cache()
     d = get_config(TRAIN_ARCH).d_model
     shape = (TRAIN_BATCH * TRAIN_SEQ, d)
     w = 1.0 + 0.1 * randn(gen, (d,), torch.float32)
@@ -3230,7 +3329,8 @@ def phase_train_timing(reps: int, phi_counts: dict, whisper_counts: dict) -> lis
 
 def run_training(seed: int, reps: int, smi: str) -> list:
     """The training path: t2, t4 and t6 at phi4's widths cut to 2 layers, t3
-    phi4-mini-3.8B in full, t5 whisper-tiny in full, then t1's timings."""
+    phi4-mini-3.8B in full, t5 whisper-tiny in full, t7 recurrentgemma-9b
+    cut to 3 layers, then t1's timings."""
     t0 = time.perf_counter()
     phase_train_step_vs_cpu(seed)
     phase_checkpoint_round_trip(seed)
@@ -3238,7 +3338,8 @@ def run_training(seed: int, reps: int, smi: str) -> list:
     log(f"t2, t4, t6 done in {time.perf_counter() - t0:.1f} s")
     phi_counts = phase_train_phi4(seed, smi)
     whisper_counts = run_whisper_train(seed)
-    return phase_train_timing(reps, phi_counts, whisper_counts)
+    rg_counts = run_rg_train(seed)
+    return phase_train_timing(reps, phi_counts, whisper_counts, rg_counts)
 
 
 def report_failures() -> int:

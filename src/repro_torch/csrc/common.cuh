@@ -73,6 +73,46 @@ __device__ __forceinline__ void store_vec(T* dst, const float* v) {
   }
 }
 
+// A count in device memory that blocks of one launch take turns on, for
+// sums that must run in a fixed order without two adds racing: a block
+// waits until the count reaches its turn, adds its term, and raises the
+// count. One thread waits and signals; the block's barrier around each call
+// orders the other threads' loads and stores (as CUTLASS's semaphores do).
+// A wait that outlasts WAIT_NS (a turn that never comes) traps, so the launch
+// fails instead of hanging the card.
+constexpr unsigned long long WAIT_NS = 4000000000ull;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+// Waits until *count >= want (this thread only).
+__device__ __forceinline__ void wait_for(const int* count, int want) {
+  if (load_acquire(count) >= want) return;
+  const unsigned long long t0 = global_ns();
+  while (load_acquire(count) < want) {
+    if (global_ns() - t0 > WAIT_NS) __trap();
+  }
+}
+// Adds one to *count, after every store this thread has seen; returns the
+// count before (a ticket: the order of arrival).
+__device__ __forceinline__ int arrive_count(int* count) {
+  int old;
+  asm volatile("fence.acq_rel.gpu;\natom.relaxed.gpu.global.add.s32 %0, [%1], 1;\n"
+               : "=r"(old) : "l"(count) : "memory");
+  return old;
+}
+// Adds one to *count, after every store this thread has seen (cumulative).
+__device__ __forceinline__ void signal_count(int* count) {
+  asm volatile("fence.acq_rel.gpu;\nred.relaxed.gpu.global.add.s32 [%0], 1;\n" ::"l"(count) : "memory");
+}
+
 // True when a pointer allows 16-byte vector loads and stores.
 inline bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 

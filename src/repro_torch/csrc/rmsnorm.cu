@@ -183,23 +183,66 @@ cudaError_t launch(const void* x, const void* w, void* out, int64_t rows, int64_
 // With xh = x * rstd, rstd = rsqrt(mean(x^2) + eps):
 //   dx = rstd * (w * dy - xh * mean(xh * w * dy)),   dw = sum over rows of dy * xh.
 // What bounds it: x and dy read once, dx written once (w and dw are one row
-// each), so device-memory bandwidth, as the forward. Rows are owned as in the
-// forward (ROW threads a row, the row in registers); a block walks rows
-// blockIdx.x, + gridDim.x, ... in its SLOTS row slots, each thread adding
-// dy * xh of its columns into registers. dw is reduced without atomics, so
-// two runs give the same bits: the slots of a block add into shared memory
-// in slot order, each block writes one row of fp32 partials, and a second
-// kernel adds the partials of each column in block order. A thread holds
-// at most BWD_MAXV vectors of x and of dy (and as many of w and of its dw
-// sums), its own constant so that tuning the forward's MAXV leaves it be.
+// each), so device-memory bandwidth, as the forward.
+//
+// Design: one launch of persistent blocks, BWD_PER_SM an SM (the plan,
+// rmsnorm_bwd_plan in rmsnorm.py, sets `groups` to at most that many per
+// SM, so all are resident at once). Rows are owned as in the forward (ROW
+// threads a row, the row in registers); a block of BWD_BLOCK threads walks
+// rows blockIdx.x * SLOTS, + gridDim.x * SLOTS, ... in its SLOTS row slots,
+// each thread adding dy * xh of its columns into registers. dw is reduced
+// without atomics on the data, so two runs give the same bits: the slots of
+// a block add into shared memory in slot order, and each block writes one
+// row of fp32 partials (in L2: 264 x 3072 floats at phi4's width). Each
+// block then takes a ticket from a count; the last `reducers` blocks to
+// arrive wait until every block has, and each adds the partials of its own
+// 64-column slices in block order (BWD_BLOCK / 64 slices of rows, added in
+// slice order), then the last of them resets the count for the next call.
+// One launch, and partial rows few enough to stay in L2. A thread holds at
+// most BWD_MAXV vectors of x and of dy (and as many of w and of its dw sums).
 constexpr int BWD_MAXV = 4;
+constexpr int BWD_THREADS = 256;  // threads of a block, unless a row takes more
 
-template <typename T, typename W, int VEC, int ROW, int BLOCK>
-__global__ void __launch_bounds__(BLOCK)
+template <int ROW>
+struct BwdShape {
+  static constexpr int BLOCK = ROW < BWD_THREADS ? BWD_THREADS : ROW;
+  static constexpr int SLOTS = BLOCK / ROW;
+  static constexpr int PER_SM = BLOCK <= BWD_THREADS ? 2 : 1;  // resident blocks an SM
+};
+
+// The fp32 partial rows of columns [c0, c1), added in block order into dw:
+// slice s of the block's BLOCK / 64 adds partial rows s, s + slices, ... of
+// column c0 + threadIdx.x % 64, and the slices' sums are added in order.
+template <typename W, int BLOCK>
+__device__ __forceinline__ void reduce_columns(const float* __restrict__ partial, W* __restrict__ dw,
+                                               int64_t groups, int64_t d, int64_t c0, int64_t c1) {
+  constexpr int SLICES = BLOCK / 64;
+  __shared__ float red[SLICES][64];
+  const int slice = threadIdx.x / 64;
+  for (int64_t base = c0; base < c1; base += 64) {
+    const int64_t col = base + threadIdx.x % 64;
+    float s = 0.f;
+    if (col < c1) {
+      for (int64_t g = slice; g < groups; g += SLICES) s += __ldcg(partial + g * d + col);
+    }
+    red[slice][threadIdx.x % 64] = s;
+    __syncthreads();
+    if (slice == 0 && col < c1) {
+      float total = 0.f;
+#pragma unroll
+      for (int i = 0; i < SLICES; ++i) total += red[i][threadIdx.x];
+      dw[col] = from_f32<W>(total);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, typename W, int VEC, int ROW>
+__global__ void __launch_bounds__(BwdShape<ROW>::BLOCK, BwdShape<ROW>::PER_SM)
 rmsnorm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w, const T* __restrict__ dy,
-                   T* __restrict__ dx, float* __restrict__ partial, int64_t rows, int64_t d,
-                   float eps) {
-  constexpr int WARPS = ROW / 32, SLOTS = BLOCK / ROW;
+                   T* __restrict__ dx, W* __restrict__ dw_out, float* __restrict__ partial,
+                   int* __restrict__ counts, int64_t rows, int64_t d, int reducers, float eps) {
+  constexpr int BLOCK = BwdShape<ROW>::BLOCK, WARPS = ROW / 32, SLOTS = BwdShape<ROW>::SLOTS;
   const int slot = threadIdx.x / ROW, lane = threadIdx.x % ROW;
   const int nvec = static_cast<int>(d / VEC);
 
@@ -286,7 +329,7 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w, const T* __
       const int i = lane + j * ROW;
       if (i < nvec) {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) prow[static_cast<int64_t>(i) * VEC + e] = dw[j][e];
+        for (int e = 0; e < VEC; ++e) __stcg(prow + static_cast<int64_t>(i) * VEC + e, dw[j][e]);
       }
     }
   } else {
@@ -305,71 +348,60 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w, const T* __
       float s = 0.f;
 #pragma unroll
       for (int k = 0; k < SLOTS; ++k) s += red[k][col];
-      prow[col] = s;
+      __stcg(prow + col, s);
     }
   }
-}
 
-// dw[col] = the blocks' partials of col added in a fixed order: a block owns
-// 32 columns, each of its 8 warps adds every 8th partial row (warp w rows
-// w, w + 8, ...) in row order, coalesced across the columns, and the 8 sums
-// are added in warp order.
-constexpr int DW_COLS = 32, DW_SLICES = 8;
-
-template <typename W>
-__global__ void __launch_bounds__(DW_COLS * DW_SLICES)
-rmsnorm_dw_kernel(const float* __restrict__ partial, W* __restrict__ dw, int64_t groups, int64_t d) {
-  __shared__ float red[DW_SLICES][DW_COLS];
-  const int c = threadIdx.x % DW_COLS, slice = threadIdx.x / DW_COLS;
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * DW_COLS + c;
-  float s = 0.f;
-  if (col < d) {
-    for (int64_t g = slice; g < groups; g += DW_SLICES) s += partial[g * d + col];
-  }
-  red[slice][c] = s;
+  // The last `reducers` blocks to arrive add the partials, a share of the
+  // columns each, once every block's row is in.
+  __shared__ int ticket;
   __syncthreads();
-  if (slice == 0 && col < d) {
-    float total = 0.f;
-#pragma unroll
-    for (int i = 0; i < DW_SLICES; ++i) total += red[i][c];
-    dw[col] = from_f32<W>(total);
+  if (threadIdx.x == 0) ticket = arrive_count(&counts[0]);
+  __syncthreads();
+  const int64_t groups = gridDim.x;
+  const int64_t j = ticket - (groups - reducers);
+  if (j < 0) return;
+  if (threadIdx.x == 0) wait_for(&counts[0], static_cast<int>(groups));
+  __syncthreads();
+  const int64_t per = (d + reducers - 1) / reducers;
+  const int64_t c0 = j * per, c1 = c0 + per < d ? c0 + per : d;
+  reduce_columns<W, BLOCK>(partial, dw_out, groups, d, c0, c1);
+  if (threadIdx.x == 0 && atomicAdd(&counts[1], 1) == reducers - 1) {
+    counts[0] = 0;  // every reducer has passed its wait: ready for the next call
+    counts[1] = 0;
   }
 }
 
 template <typename T, typename W, int VEC, int ROW>
-void launch_bwd_rows(const T* x, const W* w, const T* dy, T* dx, float* partial, int64_t groups,
-                     int64_t rows, int64_t d, float eps, cudaStream_t stream) {
-  constexpr int BLOCK = ROW < BLOCK_MIN ? BLOCK_MIN : ROW;
-  rmsnorm_bwd_kernel<T, W, VEC, ROW, BLOCK><<<static_cast<unsigned>(groups), BLOCK, 0, stream>>>(
-      x, w, dy, dx, partial, rows, d, eps);
+void launch_bwd_rows(const T* x, const W* w, const T* dy, T* dx, W* dw, float* partial, int* counts,
+                     int64_t groups, int reducers, int64_t rows, int64_t d, float eps, cudaStream_t stream) {
+  rmsnorm_bwd_kernel<T, W, VEC, ROW><<<static_cast<unsigned>(groups), BwdShape<ROW>::BLOCK, 0, stream>>>(
+      x, w, dy, dx, dw, partial, counts, rows, d, reducers, eps);
 }
 
 template <typename T, typename W, int VEC>
-cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
-                       float* partial, int64_t groups, int64_t rows, int64_t d, float eps,
+cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw, float* partial,
+                       int* counts, int64_t groups, int reducers, int64_t rows, int64_t d, float eps,
                        cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   const W* wp = static_cast<const W*>(w);
   const T* gp = static_cast<const T*>(dy);
   T* op = static_cast<T*>(dx);
+  W* dwp = static_cast<W*>(dw);
   const int64_t nvec = d / VEC;
   if (nvec <= 32 * BWD_MAXV) {
-    launch_bwd_rows<T, W, VEC, 32>(xp, wp, gp, op, partial, groups, rows, d, eps, stream);
+    launch_bwd_rows<T, W, VEC, 32>(xp, wp, gp, op, dwp, partial, counts, groups, reducers, rows, d, eps, stream);
   } else if (nvec <= 64 * BWD_MAXV) {
-    launch_bwd_rows<T, W, VEC, 64>(xp, wp, gp, op, partial, groups, rows, d, eps, stream);
+    launch_bwd_rows<T, W, VEC, 64>(xp, wp, gp, op, dwp, partial, counts, groups, reducers, rows, d, eps, stream);
   } else if (nvec <= 128 * BWD_MAXV) {
-    launch_bwd_rows<T, W, VEC, 128>(xp, wp, gp, op, partial, groups, rows, d, eps, stream);
+    launch_bwd_rows<T, W, VEC, 128>(xp, wp, gp, op, dwp, partial, counts, groups, reducers, rows, d, eps, stream);
   } else if (nvec <= 256 * BWD_MAXV) {
-    launch_bwd_rows<T, W, VEC, 256>(xp, wp, gp, op, partial, groups, rows, d, eps, stream);
+    launch_bwd_rows<T, W, VEC, 256>(xp, wp, gp, op, dwp, partial, counts, groups, reducers, rows, d, eps, stream);
   } else if (nvec <= 512 * BWD_MAXV) {
-    launch_bwd_rows<T, W, VEC, 512>(xp, wp, gp, op, partial, groups, rows, d, eps, stream);
+    launch_bwd_rows<T, W, VEC, 512>(xp, wp, gp, op, dwp, partial, counts, groups, reducers, rows, d, eps, stream);
   } else {
     return cudaErrorInvalidValue;
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rmsnorm_dw_kernel<W><<<static_cast<unsigned>((d + DW_COLS - 1) / DW_COLS), DW_COLS * DW_SLICES, 0,
-                         stream>>>(partial, static_cast<W*>(dw), groups, d);
   return cudaSuccess;
 }
 
@@ -403,26 +435,29 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* out, int dtype,
 // x, dy, dx: (rows, d) of type dtype; w, dw: (d,) of type wdtype (fp32, or
 // dtype); partial: (groups, d) fp32 scratch, groups the number of blocks.
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
-                                 void* partial, int dtype, int wdtype, int64_t rows, int64_t d,
-                                 int64_t groups, float eps, void* stream) {
+                                 void* partial, void* counts, int dtype, int wdtype, int64_t rows,
+                                 int64_t d, int64_t groups, int reducers, float eps, void* stream) {
   using namespace repro;
-  if (rows < 1 || d < 1 || groups < 1 || groups > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (rows < 1 || d < 1 || groups < 1 || groups > 0x7fffffffLL || reducers < 1 || reducers > groups) {
+    return cudaErrorInvalidValue;
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
+  int* c = static_cast<int*>(counts);
   const bool vec_ok = aligned16(x) && aligned16(w) && aligned16(dy) && aligned16(dx);
   cudaError_t err;
   if (dtype == kF32 && wdtype == kF32) {
     err = vec_ok && d % 4 == 0
-              ? launch_bwd<float, float, 4>(x, w, dy, dx, dw, p, groups, rows, d, eps, s)
-              : launch_bwd<float, float, 1>(x, w, dy, dx, dw, p, groups, rows, d, eps, s);
+              ? launch_bwd<float, float, 4>(x, w, dy, dx, dw, p, c, groups, reducers, rows, d, eps, s)
+              : launch_bwd<float, float, 1>(x, w, dy, dx, dw, p, c, groups, reducers, rows, d, eps, s);
   } else if (dtype == kBF16 && wdtype == kBF16) {
     err = vec_ok && d % 8 == 0
-              ? launch_bwd<__nv_bfloat16, __nv_bfloat16, 8>(x, w, dy, dx, dw, p, groups, rows, d, eps, s)
-              : launch_bwd<__nv_bfloat16, __nv_bfloat16, 1>(x, w, dy, dx, dw, p, groups, rows, d, eps, s);
+              ? launch_bwd<__nv_bfloat16, __nv_bfloat16, 8>(x, w, dy, dx, dw, p, c, groups, reducers, rows, d, eps, s)
+              : launch_bwd<__nv_bfloat16, __nv_bfloat16, 1>(x, w, dy, dx, dw, p, c, groups, reducers, rows, d, eps, s);
   } else if (dtype == kBF16 && wdtype == kF32) {
     err = vec_ok && d % 8 == 0
-              ? launch_bwd<__nv_bfloat16, float, 8>(x, w, dy, dx, dw, p, groups, rows, d, eps, s)
-              : launch_bwd<__nv_bfloat16, float, 1>(x, w, dy, dx, dw, p, groups, rows, d, eps, s);
+              ? launch_bwd<__nv_bfloat16, float, 8>(x, w, dy, dx, dw, p, c, groups, reducers, rows, d, eps, s)
+              : launch_bwd<__nv_bfloat16, float, 1>(x, w, dy, dx, dw, p, c, groups, reducers, rows, d, eps, s);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -73,18 +73,6 @@ __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
 __device__ __forceinline__ void add_release(int* p) {
   asm volatile("red.release.gpu.global.add.s32 [%0], 1;" ::"l"(p) : "memory");
 }

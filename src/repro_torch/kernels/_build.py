@@ -49,15 +49,15 @@ _SIGNATURES = {
     "repro_strassen1": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P, _P],
     # x, w, out, dtype, w dtype, rows, d, eps, stream
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _L, _L, _F, _P],
-    # x, w, dy, dx, dw, partial, dtype, w dtype, rows, d, groups, eps, stream
-    "repro_rmsnorm_bwd": [_P] * 6 + [_I, _I, _L, _L, _L, _F, _P],
+    # x, w, dy, dx, dw, partial, counts, dtype, w dtype, rows, d, groups, reducers, eps, stream
+    "repro_rmsnorm_bwd": [_P] * 7 + [_I, _I, _L, _L, _L, _I, _F, _P],
     # q, k, v, out, lse (or null), dtype, b, hq, hkv, sq, sk, d, causal, window, scale, stream
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _I, _L, _F, _P],
-    # q, k, v, o, dout, lse, delta, dq_acc, dq, dk, dv, dtype, b, hq, hkv, sq, sk, d, causal,
-    # window, scale, stream
-    "repro_flash_attention_bwd": [_P] * 11 + [_I] + [_L] * 6 + [_I, _L, _F, _P],
-    # dtype: keys a block of the backward kernel owns (no stream)
-    "repro_flash_bwd_key_tile": [_I],
+    # q, k, v, o, dout, lse, stats, acc, dkv_acc, counts, dq, dk, dv, dtype, b, hq, hkv, sq, sk,
+    # d, causal, window, scale, parts, stream
+    "repro_flash_attention_bwd": [_P] * 13 + [_I] + [_L] * 6 + [_I, _L, _F, _I, _P],
+    # dtype, d: shared memory a block of the backward kernel takes (no stream)
+    "repro_flash_bwd_smem": [_I, _I],
     # wx, r, h0, c0, n0, m0, c, n, m, hs, counters, b, s, h, dh, blocks, tiles per block,
     # resident, stream
     "repro_slstm_seq": [_P] * 11 + [_L] * 7 + [_P],

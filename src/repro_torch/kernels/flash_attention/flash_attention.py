@@ -7,15 +7,19 @@ Hq % Hkv == 0, with the causal and sliding-window masks of the TPU kernel.
 The CUDA kernel takes D in (16, 32, 64, 128, 256) and any Sq, Sk; asked for
 ``return_lse`` it also writes the row log-sum-exp that the backward reads.
 :func:`flash_attention_bwd_cuda` is its gradient, which the JAX package
-leaves to XLA (it has no Pallas backward): D in (16, 32, 64, 128) for bf16,
-all five for fp32. Its dQ sums each key tile's term in a fixed order, so it
-gives the same bits on every run, from an fp32 scratch of Sk / 64 (fp32:
-Sk / 32) times dQ's size. On a CUDA tensor each wrapper launches its kernel
-or raises; on a CPU tensor it computes the plain version in ``ref.py``.
+leaves to XLA (it has no Pallas backward), at every head dim in fp32 and
+bf16. It gives the same bits on every run: in bf16 the key tiles add their
+dQ terms to one fp32 sum of dQ's size in key-tile order, in fp32 a last pass
+adds per-key-tile partials (Sk / 32 times dQ's size). Its launch plan,
+:func:`flash_bwd_plan`, is a plain function of the shapes and two numbers
+of the device, so that it can be checked without one. On a CUDA tensor each
+wrapper launches its kernel or raises; on a CPU tensor it computes the plain
+version in ``ref.py``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,13 +27,100 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import cdiv, on_cuda
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 
-__all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "HEAD_DIMS", "BWD_HEAD_DIMS"]
+__all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "flash_bwd_plan", "BwdPlan",
+           "HEAD_DIMS", "BWD_HEAD_DIMS"]
 
 # Head dims the kernel is instantiated for: every dense config in configs/.
 HEAD_DIMS = (16, 32, 64, 128, 256)
-# Head dims of the backward kernel by dtype. bf16 stops at 128: a warp's two
-# 16 x 256 fp32 accumulators (dK, dV) would need 256 registers a thread.
-BWD_HEAD_DIMS = {torch.float32: HEAD_DIMS, torch.bfloat16: (16, 32, 64, 128)}
+# Head dims of the backward kernel by dtype.
+BWD_HEAD_DIMS = {torch.float32: HEAD_DIMS, torch.bfloat16: HEAD_DIMS}
+
+# The backward kernels' constants (csrc/flash_attention_bwd.cu): fp32 keys a
+# block and threads; bf16 query rows a step, threads (two consumer
+# warpgroups and a producer), and the bytes of a 64 x 64 bf16 box. The bf16
+# kernel takes 128 keys a block at D <= 64 and 64 above.
+_F32_TILE, _F32_THREADS = 32, 256
+_TILE, _THREADS, _BOX_BYTES = 64, 384, 64 * 64 * 2
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How the backward kernel of one dtype covers a shape on one device.
+
+    ``grid`` blocks each own ``tile`` keys of one KV head of one batch entry
+    and, in bf16, one of ``parts`` equal shares of the KV head's query heads
+    (walked 64 query rows a step);
+    the bf16 kernel streams its query tiles through ``stages`` stages of
+    shared memory. ``scratch`` names the device buffers it needs beside its
+    outputs, in bytes.
+    """
+
+    tile: int
+    grid: int
+    threads: int
+    parts: int
+    stages: int
+    smem_bytes: int
+    scratch: Dict[str, int]
+
+    @property
+    def scratch_bytes(self) -> int:
+        return sum(self.scratch.values())
+
+
+def flash_bwd_plan(b: int, hq: int, hkv: int, sq: int, sk: int, d: int, causal: bool,
+                   window: Optional[int], sms: int, smem_per_block: int,
+                   dtype: torch.dtype = torch.bfloat16) -> BwdPlan:
+    """The launch plan of the backward at q (b, hq, sq, d) against k, v
+    (b, hkv, sk, d) on a device with ``sms`` SMs and ``smem_per_block``
+    bytes of shared memory a block may opt in to.
+
+    bf16: a block a (key tile, part, batch entry, KV head); ``parts`` is the
+    least divisor of the group (hq / hkv) that gives at least ``sms`` blocks,
+    or the whole group, so that MQA at one KV head still fills the card. The
+    scratch is the query tiles' lse and delta, dQ's fp32 sum (none at one key
+    tile), dK's and dV's fp32 sums when parts > 1, and the turn counts: none
+    of it grows with the number of key tiles. fp32: a block a (key tile,
+    KV head, batch entry) and a partial dQ per key tile. The masks do not
+    change the plan.
+    """
+    if min(b, hq, hkv, sq, sk, sms) < 1 or hq % hkv or d not in HEAD_DIMS:
+        raise ValueError(f"bad flash backward shape: b {b}, hq {hq}, hkv {hkv}, sq {sq}, sk {sk}, "
+                         f"d {d}, sms {sms}")
+    del causal, window  # the grid covers every key tile; a block skips dead query tiles
+    if dtype == torch.float32:
+        tile, parts, stages = _F32_TILE, 1, 1
+        grid = cdiv(sk, tile) * hkv * b
+        smem = (4 * tile * (d + 1) + 2 * tile * (tile + 1) + 2 * tile) * 4
+        scratch = {"delta": 4 * b * hq * sq, "dq_part": 4 * cdiv(sk, tile) * b * hq * sq * d}
+        threads = _F32_THREADS
+    elif dtype == torch.bfloat16:
+        dp = max(d, 64)
+        tile, stages = (128 if dp == 64 else 64), (2 if dp == 256 else 3)
+        halves, boxes = tile // 64, dp // 64
+        # alignment slack, K and V, the ring of Q and dO, P^T and dS^T (hi and
+        # lo of each 64-key half), the ring's lse and delta
+        smem = (1024 + (2 * halves + 2 * stages) * boxes * _BOX_BYTES + 4 * halves * _BOX_BYTES
+                + stages * 2 * _TILE * 4)
+        nkt, nt, group = cdiv(sk, tile), cdiv(sq, _TILE), hq // hkv
+        parts = next((p for p in range(1, group + 1) if group % p == 0 and nkt * b * hkv * p >= sms), group)
+        grid = nkt * parts * b * hkv
+        scratch = {"lse_delta": 4 * b * hq * nt * 2 * _TILE,
+                   "dq_acc": 4 * b * hq * sq * d if nkt > 1 else 0,
+                   "dkv_acc": 2 * 4 * b * hkv * sk * d if parts > 1 else 0,
+                   "counts": 4 * (b * hq * nt + (b * hkv * nkt if parts > 1 else 0))}
+        threads = _THREADS
+    else:
+        raise TypeError(f"flash backward takes float32 or bfloat16, got {dtype}")
+    if smem > smem_per_block:
+        raise ValueError(f"flash backward at d {d} needs {smem} bytes of shared memory, the device "
+                         f"has {smem_per_block} a block")
+    if grid > 2**31 - 1:
+        raise ValueError(f"flash backward grid of {grid} blocks is too large")
+    return BwdPlan(tile, grid, threads, parts, stages, smem, scratch)
+
+
+_LIMITS: Dict[torch.device, Tuple[int, int]] = {}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window) -> None:
@@ -114,22 +205,27 @@ def flash_attention_bwd_cuda(
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window, scale=scale)
     if d not in BWD_HEAD_DIMS[q.dtype]:
         raise ValueError(f"flash_attention_bwd_cuda takes head dims {BWD_HEAD_DIMS[q.dtype]} in "
-                         f"{q.dtype}, got {d} (ROADMAP.md queue 1)")
+                         f"{q.dtype}, got {d}")
     if not (_aligned(q, k, v, o, do) and lse.is_contiguous()):
         raise ValueError("flash_attention_bwd_cuda needs contiguous, 16-byte aligned tensors")
     hkv, sk = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    # each key tile's dQ term, added in key-tile order by the kernel's last pass
-    key_tile = _build.build().repro_flash_bwd_key_tile(code)
-    dq_part = torch.empty((cdiv(sk, key_tile), *q.shape), dtype=torch.float32, device=q.device)
+    if q.device not in _LIMITS:
+        _LIMITS[q.device] = _build.device_limits(q.device)
+    plan = flash_bwd_plan(b, hq, hkv, sq, sk, d, causal, window, *_LIMITS[q.device], dtype=q.dtype)
+    bufs = [torch.empty(max(n, 16) // 4, dtype=torch.int32 if name == "counts" else torch.float32,
+                        device=q.device) for name, n in plan.scratch.items()]
+    if q.dtype == torch.float32:
+        bufs += [bufs[0], bufs[0]]  # no dK, dV sums or counts
+    stats, acc, dkv_acc, counts = bufs
     _build.launch(
         "repro_flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_part.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), code, b, hq, hkv, sq, sk, d, int(causal),
-        -1 if window is None else int(window), d**-0.5 if scale is None else float(scale),
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(), stats.data_ptr(), acc.data_ptr(),
+        dkv_acc.data_ptr(), counts.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), code,
+        b, hq, hkv, sq, sk, d, int(causal), -1 if window is None else int(window),
+        d**-0.5 if scale is None else float(scale), plan.parts,
     )
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv

@@ -572,12 +572,7 @@ FLASH_BWD_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", tfa.HEAD_DIMS)
 def test_cuda_flash_attention_bwd_matches_plain(cuda, dtype, d):
-    if d not in tfa.BWD_HEAD_DIMS[dtype]:
-        q = _on(cuda, (1, 2, 8, d), dtype)
-        out, lse = tfa.flash_attention_cuda(q, q, q, return_lse=True)
-        with pytest.raises(ValueError, match="head dims"):
-            tfa.flash_attention_bwd_cuda(q, q, q, out, lse, out)
-        return
+    assert d in tfa.BWD_HEAD_DIMS[dtype]  # bf16 D = 256 too, on wgmma
     for (b, hq, hkv, sq, sk), kw in FLASH_BWD_CASES:
         q = _on(cuda, (b, hq, sq, d), dtype)
         k, v = _on(cuda, (b, hkv, sk, d), dtype), _on(cuda, (b, hkv, sk, d), dtype)
@@ -598,7 +593,46 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda, dtype, d):
         if kw.get("window") == 8:  # rows past 23 have no live key: their dq is 0
             assert torch.count_nonzero(got[0][:, :, 23:]) == 0
         again = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
-        assert all(torch.equal(g, a) for g, a in zip(got, again))  # no atomics: the same bits
+        assert all(torch.equal(g, a) for g, a in zip(got, again))  # ordered sums: the same bits
+
+
+# The training shapes of the D = 256 models: gemma-7b (MHA 16/16) and
+# recurrentgemma-9b (MQA 16/1, window 2048), whose bf16 backward needs the
+# wgmma kernel's split accumulators and, at one KV head, its split of the
+# query heads into parts.
+MODEL_BWD_CASES = {
+    "gemma_7b": ((1, 16, 16, 2048, 2048), dict(causal=True)),
+    "recurrentgemma_9b": ((1, 16, 1, 4096, 4096), dict(causal=True, window=2048)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model", sorted(MODEL_BWD_CASES))
+def test_cuda_flash_attention_bwd_at_d256_model_shapes(cuda, model, dtype):
+    (b, hq, hkv, sq, sk), kw = MODEL_BWD_CASES[model]
+    q = _on(cuda, (b, hq, sq, 256), dtype)
+    k, v = _on(cuda, (b, hkv, sk, 256), dtype), _on(cuda, (b, hkv, sk, 256), dtype)
+    out, lse = tfa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    do = _on(cuda, (b, hq, sq, 256), dtype)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    want = attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert _grad_within(g, w, dtype), (model, name)
+    again = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_bwd_plan_matches_the_kernel(cuda, dtype):
+    from repro_torch.kernels import _build
+
+    sms, smem = _build.device_limits(cuda)
+    code = _build.dtype_code(torch.empty(0, dtype=dtype))
+    for d in tfa.HEAD_DIMS:
+        plan = tfa.flash_bwd_plan(1, 16, 1, 4096, 4096, d, True, 2048, sms, smem, dtype=dtype)
+        assert plan.smem_bytes == _build.build().repro_flash_bwd_smem(code, d), d
 
 
 @pytest.mark.cuda
@@ -622,8 +656,10 @@ def test_cuda_flash_attention_autograd_runs_the_kernels(cuda, dtype):
                                           (torch.bfloat16, torch.float32),
                                           (torch.bfloat16, torch.bfloat16)])
 def test_cuda_rmsnorm_bwd_matches_plain_and_is_deterministic(cuda, dtype, wdtype):
+    # 1000 and 4099 rows: more than one turn of the persistent blocks, and a
+    # row count that their number does not divide
     for r, d in [(1, 3072), (7, 3072), (300, 48), (64, 1000), (5, 250), (2048, 3072),
-                 (33, 8192), (4, 2048)]:
+                 (33, 8192), (4, 2048), (1000, 3072), (4099, 2048), (4099, 8192)]:
         x, dy = _on(cuda, (r, d), dtype), _on(cuda, (r, d), dtype)
         w = 1.0 + _on(cuda, (d,), wdtype)
         n = trn.rmsnorm_bwd_cuda.launches
@@ -635,7 +671,7 @@ def test_cuda_rmsnorm_bwd_matches_plain_and_is_deterministic(cuda, dtype, wdtype
         rel = ((dw.float() - want_dw.float()).norm() / want_dw.float().norm()).item()
         assert rel <= (1e-5 if wdtype == torch.float32 else 1e-2), (r, d, rel)
         dx2, dw2 = trn.rmsnorm_bwd_cuda(x, w, dy, eps=1e-6)
-        assert torch.equal(dx, dx2) and torch.equal(dw, dw2)  # no atomics: the same bits
+        assert torch.equal(dx, dx2) and torch.equal(dw, dw2)  # ordered sums: the same bits
 
 
 @pytest.mark.cuda

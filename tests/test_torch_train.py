@@ -41,8 +41,10 @@ from repro.training import train_step as JTS
 from repro_torch import configs as tconfigs
 from repro_torch.convert import backend_from_fields, params_from_jax, train_state_from_jax
 from repro_torch.core import backend as TB
+from repro_torch.kernels.flash_attention import flash_attention as tfa
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+from repro_torch.kernels.rmsnorm import rmsnorm as trn
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 from repro_torch.launch import train as ttrain
@@ -176,13 +178,24 @@ ATTN_CASES = [
     ((1, 2, 2, 40, 16), dict(causal=True)),             # Sq > Sk
     ((1, 3, 3, 12, 36), dict(causal=False)),
     ((1, 2, 2, 32, 8), dict(causal=True, window=4)),    # rows with no live key
+    ((1, 8, 1, 70, 70), dict(causal=True, window=20)),  # MQA 8/1, a window, ragged
+    ((2, 6, 2, 45, 45), dict(causal=True)),             # GQA 3, ragged
 ]
 
 
 @pytest.mark.parametrize("shape,kw", ATTN_CASES, ids=lambda v: str(v))
 def test_attention_bwd_ref_matches_autograd_and_jax(shape, kw):
+    _check_attention_bwd(shape, kw, 16)
+
+
+@pytest.mark.parametrize("shape,kw", ATTN_CASES, ids=lambda v: str(v))
+def test_attention_bwd_ref_matches_autograd_and_jax_at_head_dim_256(shape, kw):
+    """The bf16 backward kernel's widest head dim (gemma-7b, recurrentgemma-9b)."""
+    _check_attention_bwd(shape, kw, 256)
+
+
+def _check_attention_bwd(shape, kw, d):
     b, hq, hkv, sq, sk = shape
-    d = 16
     q, k, v = (RNG.standard_normal(s).astype(np.float32)
                for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
     do = RNG.standard_normal((b, hq, sq, d)).astype(np.float32)
@@ -202,6 +215,100 @@ def test_attention_bwd_ref_matches_autograd_and_jax(shape, kw):
                                    atol=1e-5 * max(1.0, float(np.abs(j).max())))
     if kw.get("window") == 4:  # rows from 11 on have no live key
         assert not ref[0][:, :, 11:].any()
+
+
+# ----------------------------------------------------- backward launch plans
+H100 = dict(sms=132, smem_per_block=232448)
+
+
+def _train_attention_shapes():
+    """(name, (b, hq, hkv, sq, sk, d, causal, window)) at the training
+    shapes chip_smoke.py's t1 checks: phi4 at t3's 2 x 1024, gemma-7b at
+    2048, recurrentgemma-9b at t7's 4096, whisper's encoder, decoder and
+    cross-attention at t5's 8 x 128 tokens against 1500 frames."""
+    out = []
+    for arch, b, s in (("phi4_mini_3_8b", 2, 1024), ("gemma_7b", 1, 2048), ("recurrentgemma_9b", 1, 4096)):
+        c = tconfigs.get_config(arch)
+        window = c.local_window if "local_attn" in c.block_pattern else None
+        out.append((arch, (b, c.n_heads, c.n_kv_heads, s, s, c.head_dim, True, window)))
+    w = tconfigs.get_config("whisper_tiny")
+    h, hd, enc = w.n_heads, w.head_dim, w.enc_seq
+    out += [("whisper encoder", (8, h, h, enc, enc, hd, False, None)),
+            ("whisper decoder", (8, h, h, 128, 128, hd, True, None)),
+            ("whisper cross", (8, h, h, 128, enc, hd, False, None))]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("name,shape", _train_attention_shapes(), ids=lambda v: str(v))
+def test_flash_bwd_plan_fits_the_h100_at_training_shapes(name, shape, dtype):
+    b, hq, hkv, sq, sk, d, causal, window = shape
+    plan = tfa.flash_bwd_plan(*shape, **H100, dtype=dtype)
+    assert plan.smem_bytes <= H100["smem_per_block"] and plan.threads <= 1024
+    assert (hq // hkv) % plan.parts == 0 and 1 <= plan.grid <= 2**31 - 1
+    dq_bytes = 4 * b * hq * sq * d
+    if dtype == torch.bfloat16:
+        assert plan.tile == (128 if d <= 64 else 64)
+        assert plan.grid == -(-sk // plan.tile) * plan.parts * b * hkv
+        # one fp32 sum of dQ's size, whatever the number of key tiles; dK's
+        # and dV's sums only when the group is split
+        longer = tfa.flash_bwd_plan(b, hq, hkv, sq, 4 * sk, d, causal, window, **H100, dtype=dtype)
+        for p, keys in ((plan, sk), (longer, 4 * sk)):
+            assert p.scratch["dq_acc"] == (dq_bytes if keys > p.tile else 0)  # none at one key tile
+            assert p.scratch["dkv_acc"] == (2 * 4 * b * hkv * keys * d if p.parts > 1 else 0)
+        assert longer.scratch["lse_delta"] == plan.scratch["lse_delta"]
+        assert plan.scratch_bytes < 2 * dq_bytes + 8 * b * hkv * sk * d + 4096 * 64
+    else:  # the fp32 kernel keeps its partial dQ per 32-key tile
+        assert plan.scratch["dq_part"] == -(-sk // 32) * dq_bytes
+
+
+def test_flash_bwd_plan_fills_the_card_under_mqa():
+    """recurrentgemma-9b's MQA (16 query heads on one KV head): 64 key tiles
+    alone leave half the SMs idle, so the group is split into parts."""
+    plan = tfa.flash_bwd_plan(1, 16, 1, 4096, 4096, 256, True, 2048, **H100)
+    assert plan.grid >= H100["sms"] and plan.parts == 4 and plan.stages == 2
+    assert plan.scratch["dkv_acc"] == 2 * 4 * 4096 * 256
+    # enough blocks already: no split, no dK and dV sums
+    gemma = tfa.flash_bwd_plan(1, 16, 16, 2048, 2048, 256, True, None, **H100)
+    assert gemma.parts == 1 and gemma.scratch["dkv_acc"] == 0 and gemma.grid == 32 * 16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+def test_flash_bwd_plan_at_every_head_dim(d, dtype):
+    assert d in tfa.BWD_HEAD_DIMS[dtype]
+    plan = tfa.flash_bwd_plan(1, 4, 2, 100, 100, d, True, None, **H100, dtype=dtype)
+    assert plan.smem_bytes <= H100["smem_per_block"]
+    if dtype == torch.bfloat16:
+        # D < 64 runs as 64 (128 keys a block); K, V, two Q and dO stages at
+        # 256, three below
+        assert plan.stages == (2 if d == 256 else 3) and plan.tile == (128 if d <= 64 else 64)
+        assert plan.smem_bytes == tfa.flash_bwd_plan(1, 4, 2, 100, 100, max(d, 64), True, None,
+                                                     **H100).smem_bytes
+    with pytest.raises(ValueError, match="shared memory"):
+        tfa.flash_bwd_plan(1, 4, 2, 100, 100, d, True, None, sms=132, smem_per_block=plan.smem_bytes - 1,
+                           dtype=dtype)
+
+
+@pytest.mark.parametrize("rows,d,itemsize", [(2048, 3072, 2), (4099, 2048, 2), (1, 3072, 2), (5, 250, 4),
+                                             (33, 8192, 2), (4099, 8192, 4), (300, 48, 4), (4099, 16384, 2)])
+def test_rmsnorm_bwd_plan_is_persistent_and_resident(rows, d, itemsize):
+    plan = trn.rmsnorm_bwd_plan(rows, d, itemsize, H100["sms"])
+    # every block resident at once (the last ones wait for all), each a
+    # partial row of dw, the reducers a share of the columns each
+    assert plan.groups <= plan.per_sm * H100["sms"] and plan.per_sm * plan.block <= 2048
+    assert 1 <= plan.reducers <= plan.groups and plan.reducers * 64 >= min(d, 64 * plan.reducers)
+    assert plan.scratch_bytes == 4 * plan.groups * d and plan.smem_bytes <= 48 * 1024
+    slots = plan.block // plan.row
+    assert plan.groups == min(-(-rows // slots), plan.per_sm * H100["sms"])
+    if (rows, d) == (2048, 3072):  # phi4's rows: 264 blocks of 256 threads, 2 rows each
+        assert (plan.row, plan.block, plan.groups, plan.reducers) == (128, 256, 264, 48)
+
+
+def test_rmsnorm_bwd_plan_refuses_what_the_kernel_refuses():
+    for d, itemsize, vec in ((16384, 4, True), (16392, 2, True), (2049, 2, False)):
+        with pytest.raises(ValueError, match="at most"):  # rows past 2048 vectors of a thread block
+            trn.rmsnorm_bwd_plan(8, d, itemsize, H100["sms"], vec)
 
 
 def test_rmsnorm_bwd_ref_matches_autograd_and_jax():
