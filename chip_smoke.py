@@ -7,7 +7,8 @@ toolkit. It uses ``repro_torch`` only, never JAX or ``repro``. The first path
 is Stark's Strassen multiply:
 
 1. builds every kernel in ``src/repro_torch/csrc`` (into ``build/``), logs
-   their registers and spills (the tiled matmul kernels must not spill), and
+   their registers and spills (the tiled matmul, bf16 flash backward and
+   sLSTM backward kernels must not spill), and
    checks in the SASS that the bf16 strassen1, tiled matmul and flash
    kernels run on the tensor cores (HGMMA, HGMMA, HMMA);
 2. holds each kernel against its plain PyTorch version, in fp32 and bf16,
@@ -241,25 +242,41 @@ w5. prints encode and prefill ms, the decode step's wall (host clock),
     four shapes beside SDPA and its bound.
 
 The seventh path trains (``repro_torch.launch.train``, the train step,
-AdamW, remat), on the flash and RMSNorm backward kernels:
+AdamW, remat), on the flash, RMSNorm and sLSTM backward kernels:
 
 t1. (with the kernel checks) holds the flash backward kernel against its
     plain backward at phi4's q (2, 24, 1024, 128), kv (2, 8, 1024, 128)
     causal and whisper's encoder (8, 6, 1500, 64), decoder self-attention
     (8, 6, 128, 64) causal and cross-attention q (8, 6, 128, 64) against kv
-    (8, 6, 1500, 64), and the RMSNorm backward at (2048, 3072) with w in
-    fp32, in fp32 and bf16 (dq, dk, dv, dx element by element, bf16 also
-    normwise; dw normwise); both give the same bits on a second run, and
-    bf16 flash at head dim 256 raises ``ValueError``;
+    (8, 6, 1500, 64), then gemma-7b's and recurrentgemma-9b's head dim 256
+    shapes, and the RMSNorm backward at (2048, 3072) with w in fp32, in fp32
+    and bf16 (dq, dk, dv, dx element by element, bf16 also normwise; dw
+    normwise); both give the same bits on a second run. Then the sLSTM
+    backward (fp32): fed the saved tensors its saving forward wrote, against
+    the plain backward fed the same, element by element (dwx, dr and the
+    initial state's dc, dn, dm, dh; 1e-4 x max(1, max|plain|)), and the
+    kernel pair (saving forward, backward) against the plain pair normwise,
+    at xlstm's training rows (2, 1024, 4, 4, 512) from zero state, a carried
+    state with final-state gradients, S = 1, 6 rows, 8 heads whose r is
+    streamed, and dh 48; the same bits on a rerun, and one backward device
+    kernel a call in the profiler;
 t2. one fp32 train step at phi4's widths cut to 2 layers and vocab 8192,
     batch 1 x 128, on the card against the CPU port from the same state:
     the loss, each gradient leaf and each parameter's update; then the same
     model in bf16 against the fp32 loss;
 t4. a checkpoint after step 2 restored into a fresh state: step 3's loss
     and the state after it bit for bit the uninterrupted run's;
-t6. ``strassen_fused`` and an xLSTM smoke config's sLSTM raise under
-    autograd on the card, and a kind ``strassen`` depth-1 train step
-    matches kind naive;
+t6. ``strassen_fused`` raises under autograd on the card, and a kind
+    ``strassen`` depth-1 train step matches kind naive;
+t8. one fp32 train step at xlstm-1.3b's width cut to one block pattern (7
+    mLSTM and 1 sLSTM layers, remat over the 8) and vocab 8192, batch 1 x
+    128, on the card (the saving sLSTM forward twice, the backward kernel
+    once) against the CPU port from the same state: the loss to 1e-5, each
+    gradient leaf and r's to 1e-4 normwise (a leaf below 1e-6 of the whole
+    gradient, zero in exact arithmetic, absolutely), each update to 1e-3
+    from the same gradients (AdamW's lr g / (|g| + eps) is ill-conditioned
+    at |g| near eps, where this config has an element), and each side's
+    update from its own gradients printed;
 t3. phi4-mini-3.8B at full width and depth (bf16, remat every 4 layers)
     trained 8 steps of 2 x 1024 tokens through ``train_loop``: losses and
     grad norms finite, the last loss below the first, RMSNorm backward 65
@@ -270,9 +287,29 @@ t3. phi4-mini-3.8B at full width and depth (bf16, remat every 4 layers)
 t5. whisper-tiny at full width and depth (bf16) trained 6 steps of 8 x
     1500 frames and 128 decoder tokens: the loss falls, 12 flash backward
     launches a step, the device splits as t3's;
+t7. recurrentgemma-9b at full width cut to one block pattern (3 layers),
+    bf16, 3 profiled steps of 1 x 4096 tokens through ``launch/train.py``'s
+    build: loss and grad norm finite, one flash backward (head dim 256, MQA,
+    window 2048) a step, each step's device split;
+t9. xlstm-1.3b at full width and depth (48 layers, 6 sLSTM; bf16, remat
+    every 8 layers, the chunkwise mLSTM at chunk 64) trained 6 steps of 2 x
+    1024 tokens cycling 2 batches through ``train_loop``: losses and grad
+    norms finite, the last loss below the first, 6 sLSTM backward and 12
+    forward launches a step; step time, tokens/s, the allocator's peak and
+    one step's device split (the sLSTM forward and backward kernels and the
+    dr product, span ``slstm.dr``, apart) with its idle share;
 then the backward kernels are timed at t1's shapes (bf16) beside their
 plain versions, torch.autograd through SDPA and through ``F.rms_norm``,
-and their bounds.
+and their bounds, and the sLSTM backward at (2, 1024, 4, 4, 512) beside its
+plain version and its bound (no single PyTorch call computes it), with the
+saving and serving forwards and the dr product alone beside it.
+
+The examples (``repro_torch.examples``) run last, each once on the card
+through its ``main``: ex1 quickstart (four routes, each within 2e-2 of
+``torch.matmul``), ex2 strassen_distributed (three strategies within 1e-4
+of max|torch.matmul|, with ``mesh.traffic``'s bytes), ex3 serve
+(recurrentgemma's smoke config: requests end by length or their eviction,
+no page left in use) and ex4 train_e2e ``--ci`` (its loss must fall).
 
 RMSNorm is timed with its rows in L2 (the same x again) and cold (x and out
 rotating over more than 100 MB, past the 50 MB L2); the JSON line holds
@@ -285,7 +322,8 @@ fused runs at that stripe, and for the later entries of a serving kernel
 those of the serving run of its model (xLSTM's sLSTM, olmoe's flash,
 recurrentgemma's RMSNorm and flash, whisper's flash at its four shapes,
 and the backward kernels' of the training run at their shapes: t3's at
-phi4's, t5's at whisper's);
+phi4's, t5's at whisper's, t7's at head dim 256, t9's for the sLSTM
+backward);
 the out-of-core path's launches are
 printed on its own lines. The last lines are the card's name and power limit, a
 JSON line with one entry per kernel, and ``{"ok": true, "device": ...}``.
@@ -293,8 +331,10 @@ JSON line with one entry per kernel, and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import re
 import statistics
@@ -316,7 +356,7 @@ from repro_torch.blocks.scheduler import (  # noqa: E402
     min_depth_for_budget,
     strassen_oot_matmul,
 )
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import autotune, distributed  # noqa: E402
 from repro_torch.core.backend import (  # noqa: E402
     MatmulBackend,
@@ -345,8 +385,8 @@ from repro_torch.kernels.matmul.matmul import batched_matmul_cuda, matmul_cuda  
 from repro_torch.kernels.matmul.ref import batched_matmul_ref, matmul_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda  # noqa: E402
-from repro_torch.kernels.slstm.ref import slstm_seq_ref  # noqa: E402
-from repro_torch.kernels.slstm.slstm import slstm_seq_cuda  # noqa: E402
+from repro_torch.kernels.slstm.ref import slstm_dr, slstm_seq_bwd_ref, slstm_seq_ref  # noqa: E402
+from repro_torch.kernels.slstm.slstm import slstm_seq_bwd_cuda, slstm_seq_cuda  # noqa: E402
 from repro_torch.kernels.strassen.ops import strassen_matmul_stages  # noqa: E402
 from repro_torch.kernels.strassen.ref import combine_ref, divide_ref, strassen1_matmul_ref  # noqa: E402
 from repro_torch.kernels.strassen.strassen import (  # noqa: E402
@@ -355,6 +395,10 @@ from repro_torch.kernels.strassen.strassen import (  # noqa: E402
     strassen1_matmul_cuda,
 )
 from repro_torch import obs  # noqa: E402
+from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
+from repro_torch.examples import serve as ex_serve  # noqa: E402
+from repro_torch.examples import strassen_distributed as ex_distributed  # noqa: E402
+from repro_torch.examples import train_e2e as ex_train_e2e  # noqa: E402
 from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -387,6 +431,7 @@ TOL = {
     ("norm", torch.float32): 1e-5, ("flash", torch.float32): 2e-5,
     ("slstm", torch.float32): 2e-5,
     ("flash_bwd", torch.float32): 1e-4, ("norm_bwd", torch.float32): 1e-4,
+    ("slstm_bwd", torch.float32): 1e-4,
 }
 # In bf16, RMSNorm and flash attention compute in fp32 from the same inputs as
 # their plain versions and round once, so each element is held to its own
@@ -403,8 +448,13 @@ ELEMENT_TOL = {("norm", torch.bfloat16): 2**-7, ("flash", torch.bfloat16): 2**-7
 # the fp32 value) and rounds dQ, dK and dV once, and the RMSNorm kernel rounds
 # dx once; each element within 2^-5 x (|plain| + rms(plain)) (ELEMENT_TOL)
 # and the whole gradient normwise within GRAD_NORMWISE. dw (fp32 in both)
-# adds 2048 rows in another order: DW_LIMIT normwise.
+# adds 2048 rows in another order: DW_LIMIT normwise. The sLSTM backward
+# (fp32) takes the fp32 rule element by element when fed the saved tensors
+# its own forward wrote; the kernel pair (saving forward, backward) against
+# the plain pair differs also by the forward's rounding, carried back through
+# the recurrence: each gradient within SLSTM_PAIR_LIMIT normwise.
 GRAD_NORMWISE = 1e-2
+SLSTM_PAIR_LIMIT = 1e-4
 DW_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 # Main path against fp32 torch.matmul, normwise relative error ||C - C_ref|| / ||C_ref||.
 MAIN_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -454,7 +504,7 @@ MATMUL_EDGES = [(2, 130, 72, 200), (1, 257, 520, 136), (3, 33, 65, 17), (2, 64, 
                 (1, 200, 1000, 260)]
 COUNTED = (strassen1_matmul_cuda, batched_matmul_cuda, divide_cuda, combine_cuda)
 ALL_KERNELS = (*COUNTED, matmul_cuda, rmsnorm_cuda, flash_attention_cuda, slstm_seq_cuda,
-               rmsnorm_bwd_cuda, flash_attention_bwd_cuda)
+               rmsnorm_bwd_cuda, flash_attention_bwd_cuda, slstm_seq_bwd_cuda)
 REPLACES = {
     "strassen1_matmul_cuda": "src/repro/kernels/strassen/strassen.py:155",
     "batched_matmul_cuda": "src/repro/kernels/matmul/matmul.py:95",
@@ -468,6 +518,7 @@ REPLACES = {
     # functions, which the backward kernels stand in for.
     "rmsnorm_bwd_cuda": "src/repro/models/layers.py:61",
     "flash_attention_bwd_cuda": "src/repro/models/attention.py:44",
+    "slstm_seq_bwd_cuda": "src/repro/models/xlstm.py:248",
 }
 SOURCES = {
     "strassen1_matmul_cuda": "src/repro_torch/csrc/strassen1.cu",
@@ -480,6 +531,7 @@ SOURCES = {
     "slstm_seq_cuda": "src/repro_torch/csrc/slstm.cu",
     "rmsnorm_bwd_cuda": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_attention_bwd_cuda": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "slstm_seq_bwd_cuda": "src/repro_torch/csrc/slstm_bwd.cu",
 }
 
 # The served model and its traffic: prompt lengths and max_new_tokens of
@@ -549,6 +601,28 @@ RG_TRAIN_OPT = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=RG_TRAIN["steps"
 # one sequence of 2048 and 4096 tokens.
 D256_SHAPES = [("gemma-7b", (1, 16, 2048, 256), (1, 16, 2048, 256), True, None),
                ("recurrentgemma-9b", (1, 16, 4096, 256), (1, 1, 4096, 256), True, 2048)]
+# t8: xlstm-1.3b at full width cut to one block pattern (7 mLSTM and 1 sLSTM
+# layers) and vocab 8192, fp32, batch CUT_BATCH x CUT_SEQ: the card's train
+# step against the CPU port's, as t2 (STEP_LIMITS). t9: xlstm-1.3b whole
+# (48 layers, 6 sLSTM), bf16, remat every 8 layers, the exact chunkwise mLSTM
+# (chunk 64; the shipped sequential loop under autograd would run 42 x 1024
+# Python steps twice a step), a few steps of 2 x 1024 tokens cycling 2
+# batches through train_loop, as t3.
+XLSTM_TRAIN_CUT = dict(n_layers=8, vocab=8192)
+XLSTM_TRAIN = dict(batch=2, seq=1024, steps=6, cycle=2)
+XLSTM_TRAIN_OPT = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=XLSTM_TRAIN["steps"])
+XLSTM_TRAIN_CHUNK = 64
+# t1's sLSTM backward shapes (name, b, s, h, dh, carried state, final-state
+# gradients): xlstm's training rows (t9's) from zero state; a carried state
+# with final-state gradients; S = 1; 6 rows (two passes over a tile); 8 heads,
+# whose r does not fit the SMs' shared memory and is read from L2 in part; dh 48.
+SLSTM_BWD_SHAPES = [("xlstm-1.3b training rows", 2, 1024, 4, 512, False, False),
+                    ("carried state", 2, 64, 4, 512, True, True), ("S = 1", 2, 1, 4, 512, True, True),
+                    ("6 rows", 6, 64, 4, 512, True, True), ("8 heads, r streamed", 2, 64, 8, 512, True, True),
+                    ("dh 48", 2, 64, 4, 48, True, True)]
+# The examples (ex1-ex4), each run once on the card through its main():
+# train_e2e at its CI scale for the steps of its own CI-scale recipe.
+EXAMPLE_TRAIN_STEPS = 120
 # t2: the card's fp32 step against the CPU port's. Both compute in fp32 (TF32
 # off), in other orders: the loss to 1e-5 relative, each gradient leaf
 # normwise to 1e-4, each update normwise to 1e-3 (AdamW's first updates are
@@ -556,6 +630,7 @@ D256_SHAPES = [("gemma-7b", (1, 16, 2048, 256), (1, 16, 2048, 256), True, None),
 # update is compared as a whole). bf16 against fp32: the loss of a bf16
 # forward lies a few bf16 roundings (2^-8 each) from the fp32 one.
 STEP_LIMITS = dict(loss=1e-5, grad=1e-4, update=1e-3)
+NOISE_SHARE = 1e-6
 BF16_LOSS_LIMIT = 2e-2
 # t6: kind strassen at depth 1 against naive, fp32: Strassen's operand sums
 # and 7-term combines move each projection by about 1e-6 relative.
@@ -736,7 +811,7 @@ def short_name(mangled: str) -> str:
 TENSOR_CORE_KERNELS = {"strassen1_wgmma_kernel": "HGMMA", "matmul_wgmma_kernel": "HGMMA",
                        "flash_mma_kernel": "HMMA", "flash_bwd_wgmma_kernel": "HGMMA"}
 # Kernels whose every instance must build without spilling registers.
-NO_SPILL_KERNELS = ("matmul_fma_kernel", "matmul_wgmma_kernel", "flash_bwd_wgmma_kernel")
+NO_SPILL_KERNELS = ("matmul_fma_kernel", "matmul_wgmma_kernel", "flash_bwd_wgmma_kernel", "slstm_seq_bwd_kernel")
 
 
 def check_tensor_cores(lib: Path) -> None:
@@ -1999,6 +2074,8 @@ def kernel_class(name: str) -> str:
         return "rmsnorm kernel"
     if "slstm_seq_kernel" in name:
         return "sLSTM kernel"
+    if "slstm_seq_bwd_kernel" in name:
+        return "sLSTM backward kernel"
     if any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul (cuBLAS)"
     return "other kernels"
@@ -2913,6 +2990,66 @@ def phase_train_kernels(gen: np.random.Generator) -> None:
     for part, g, w in zip(("dq", "dk", "dv"), got, want):
         compare_grad(f"flash bwd bf16 {part} D=256 q(1, 4, 100, 256) kv(1, 2, 100, 256) causal window 37",
                      g, w, "flash_bwd")
+    phase_slstm_bwd_kernels(gen)
+
+
+SLSTM_GRADS = ("dwx", "dr", "dc0", "dn0", "dm0", "dh0")
+
+
+def slstm_grads(out: tuple) -> list:
+    """(dwx, dr, {c, n, m, h}) as a list in SLSTM_GRADS' order."""
+    dwx, dr, d0 = out
+    return [dwx, dr, d0["c"], d0["n"], d0["m"], d0["h"]]
+
+
+def slstm_bwd_inputs(gen: np.random.Generator, b: int, s: int, h: int, dh: int, carried: bool,
+                     final: bool) -> tuple:
+    """wx, r, the state, the saving forward kernel's (final state, hs, saved),
+    a random gradient of hs and the final state's gradient (random, or zeros
+    as in training, where the final state is unused)."""
+    wx, r, state = slstm_inputs(gen, b, s, h, dh, carried)
+    fwd = slstm_seq_cuda(wx, r, state, save=True)
+    dhs = randn(gen, (b, s, h, dh), torch.float32)
+    dfin = {k: randn(gen, (b, h, dh), torch.float32) if final else torch.zeros((b, h, dh), device=DEVICE)
+            for k in ("c", "n", "m", "h")}
+    return wx, r, state, fwd, dhs, dfin
+
+
+def phase_slstm_bwd_kernels(gen: np.random.Generator) -> None:
+    """(t1) The sLSTM backward kernel at SLSTM_BWD_SHAPES: fed the saved
+    tensors its saving forward wrote, against the plain backward fed the same,
+    element by element (the fp32 backward rule); the kernel pair (saving
+    forward, backward) against the plain pair, normwise; the same bits on a
+    rerun; and one backward device kernel a call in the profiler."""
+    for name, b, s, h, dh, carried, final in SLSTM_BWD_SHAPES:
+        wx, r, state, (_, hs, saved), dhs, dfin = slstm_bwd_inputs(gen, b, s, h, dh, carried, final)
+        tag = f"slstm bwd fp32 {(b, s, 4, h, dh)} ({name})"
+        got = slstm_grads(slstm_seq_bwd_cuda(r, state, hs, saved, dhs, dfin))
+        want = slstm_grads(slstm_seq_bwd_ref(r, state, hs, saved, dhs, dfin))
+        for part, g, w in zip(SLSTM_GRADS, got, want):
+            compare(f"{tag}: {part}", g, w, "slstm_bwd")
+        _, hs_p, saved_p = slstm_seq_ref(wx, r, state, save=True)
+        pair = slstm_grads(slstm_seq_bwd_ref(r, state, hs_p, saved_p, dhs, dfin))
+        rels = {part: rel_norm(g, w) for part, g, w in zip(SLSTM_GRADS, got, pair) if w.norm() > 0}
+        worst = max(rels, key=rels.get)
+        again = slstm_grads(slstm_seq_bwd_cuda(r, state, hs, saved, dhs, dfin))
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        ok = rels[worst] <= SLSTM_PAIR_LIMIT and same
+        log(f"check {tag}: kernel pair (saving forward + backward) vs plain pair, worst normwise "
+            f"{worst} {rels[worst]:.3e} limit {SLSTM_PAIR_LIMIT:.0e}; a second run gives the same bits "
+            f"{same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{tag}: pair normwise {worst} {rels[worst]:.3e}, same bits {same}")
+        del wx, r, state, hs, saved, dhs, dfin, got, want, pair, again
+    _, r, state, (_, hs, saved), dhs, dfin = slstm_bwd_inputs(gen, 2, 64, 4, 512, True, True)
+    events = profile_events(lambda: slstm_seq_bwd_cuda(r, state, hs, saved, dhs, dfin))
+    names = [evt.name for evt in device_kernels(events)]
+    found = [n for n in names if "slstm" in n.lower()]
+    ok = len(found) == 1 and "bwd" in found[0]
+    log(f"slstm bwd device kernels in one call of (2, 64, 4, 4, 512): {len(found)} ({found}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"slstm_seq_bwd_cuda ran {len(found)} sLSTM kernels in one call, want 1: {names}")
 
 
 def state_to(state: TrainState, device) -> TrainState:
@@ -3034,28 +3171,19 @@ def phase_checkpoint_round_trip(seed: int) -> None:
 
 
 def phase_fenced_routes(seed: int) -> None:
-    """(t6) strassen_fused and the sLSTM kernel raise under autograd on the
-    card; a kind-strassen depth-1 train step matches kind naive."""
+    """(t6) strassen_fused raises under autograd on the card (it has no
+    gradient, nor has the reference's Pallas level); a kind-strassen depth-1
+    train step matches kind naive."""
     a = torch.randn(256, 256, device=DEVICE, requires_grad=True)
     w = torch.randn(256, 256, device=DEVICE)
-    xcfg = get_smoke_config(XLSTM_ARCH)
-    xs = init_train_state(xcfg, TRAIN_OPT, torch.Generator(device=DEVICE).manual_seed(seed))
-    xbatch = SyntheticLM(xcfg, DataConfig(2, 16, seed), device=DEVICE)(0)
-    for name, fn, match in (
-        ("strassen_fused", lambda: matmul(a, w, MatmulBackend(kind="strassen_fused", depth=1, min_dim=64)),
-         "no gradient"),
-        ("sLSTM (xlstm smoke)", lambda: M.loss_fn(xs.params, xbatch, xcfg), "sLSTM backward"),
-    ):
-        try:
-            fn()
-            fail(f"{name} under autograd on the card ran; it should raise")
-        except NotImplementedError as e:
-            ok = match in str(e)
-            log(f"check {name} under autograd raises NotImplementedError ({e}) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"{name}: unexpected message {e}")
-    del xs
+    try:
+        matmul(a, w, MatmulBackend(kind="strassen_fused", depth=1, min_dim=64))
+        fail("strassen_fused under autograd on the card ran; it should raise")
+    except NotImplementedError as e:
+        ok = "no gradient" in str(e)
+        log(f"check strassen_fused under autograd raises NotImplementedError ({e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"strassen_fused: unexpected message {e}")
     cfg = cut_config()
     cfg_s = dataclasses.replace(cfg, matmul_backend=STRASSEN_TRAIN)
     naive = init_train_state(cfg, TRAIN_OPT, torch.Generator(device=DEVICE).manual_seed(seed))
@@ -3072,6 +3200,85 @@ def phase_fenced_routes(seed: int) -> None:
     if not ok:
         fail(f"t6 strassen train step: loss rel {rel:.2e}")
     del naive, strassen
+    torch.cuda.empty_cache()
+
+
+def xlstm_cut_config():
+    """xlstm-1.3b at full width, cut to XLSTM_TRAIN_CUT (one block pattern:
+    7 mLSTM and 1 sLSTM layers, vocab 8192), fp32."""
+    return dataclasses.replace(get_config(XLSTM_ARCH), dtype="float32", **XLSTM_TRAIN_CUT)
+
+
+def phase_xlstm_step_vs_cpu(seed: int) -> None:
+    """(t8) One fp32 train step at xlstm-1.3b's width (XLSTM_TRAIN_CUT) on the
+    card, whose sLSTM layer runs the saving forward and the backward kernel,
+    against the CPU port from the same state and batch: the loss, each
+    gradient leaf (r's named apart) and each update, as t2, the update from
+    the same gradients (see below)."""
+    cfg = xlstm_cut_config()
+    cpu = init_train_state(cfg, TRAIN_OPT, torch.Generator().manual_seed(seed))
+    dev, dev_same = state_to(cpu, DEVICE), state_to(cpu, DEVICE)
+    batch = SyntheticLM(cfg, DataConfig(CUT_BATCH, CUT_SEQ, seed), device="cpu")(0)
+    dbatch = {k: t.to(DEVICE) for k, t in batch.items()}
+    p0 = {n: p.detach().clone() for n, p in cpu.params.named_parameters()}
+    reset_counts()
+    dloss, dgrads = loss_and_grads(dev.params, dbatch, cfg)
+    torch.cuda.synchronize()
+    launched = (slstm_seq_cuda.launches, slstm_seq_bwd_cuda.launches)
+    t = time.perf_counter()
+    closs, cgrads = loss_and_grads(cpu.params, batch, cfg)
+    cpu_s = time.perf_counter() - t
+    apply_updates(dev.params, dgrads, dev.opt, TRAIN_OPT)
+    apply_updates(dev_same.params, {n: g.to(DEVICE) for n, g in cgrads.items()}, dev_same.opt, TRAIN_OPT)
+    apply_updates(cpu.params, cgrads, cpu.opt, TRAIN_OPT)
+    loss_rel = abs(dloss.item() - closs.item()) / abs(closs.item())
+    # A leaf below NOISE_SHARE of the whole gradient is zero in exact
+    # arithmetic and fp32 roundoff in both runs (the mLSTM input-gate bias:
+    # the stabilizer cancels a shift of a head's input gates), as the CPU
+    # tests find: it is held to that share absolutely, and its update, about
+    # lr x the sign of roundoff, is not compared.
+    total = torch.sqrt(sum(g.double().square().sum() for g in cgrads.values())).item()
+    noise = {n for n, g in cgrads.items() if g.double().norm().item() <= NOISE_SHARE * total}
+    noise_err = max([(dgrads[n].detach().cpu().double() - cgrads[n].double()).norm().item() for n in noise],
+                    default=0.0)
+    g_rel, g_name = worst_rel({n: dgrads[n] for n in cgrads if n not in noise},
+                              {n: g for n, g in cgrads.items() if n not in noise})
+    r_names = [n for n in cgrads if n.endswith(".r")]
+    r_rel = max(rel_norm(dgrads[n].detach().cpu(), cgrads[n]) for n in r_names)
+    # The update is gated with the same gradients on both sides: AdamW's
+    # first update, lr g / (|g| + eps), is ill-conditioned where |g| is near
+    # eps (1e-8), and an element of a leaf may sit there (xlstm's cut config
+    # has one in layers.3.ln1.scale, which the log line prints), where a
+    # gradient difference of 1e-9 moves the leaf's update by 1e-3 normwise.
+    # Each side's own update
+    # is compared too, and printed with the element nearest 0.
+    d_cpu = {n: p.detach() - p0[n] for n, p in cpu.params.named_parameters() if n not in noise}
+    d_same = {n: p.detach() - p0[n].to(DEVICE) for n, p in dev_same.params.named_parameters() if n not in noise}
+    u_rel, u_name = worst_rel(d_same, d_cpu)
+    d_dev = {n: p.detach() - p0[n].to(DEVICE) for n, p in dev.params.named_parameters() if n not in noise}
+    own_rel, own_name = worst_rel(d_dev, d_cpu)
+    g_min = cgrads[own_name].abs().min().item()
+    n_slstm = sum(cfg.block_kind(i) == "slstm" for i in range(cfg.n_layers))
+    want = (n_slstm * (2 if cfg.remat else 1), n_slstm)
+    ok = (loss_rel <= STEP_LIMITS["loss"] and g_rel <= STEP_LIMITS["grad"] and r_rel <= STEP_LIMITS["grad"]
+          and noise_err <= NOISE_SHARE * total and u_rel <= STEP_LIMITS["update"] and launched == want
+          and len(r_names) == n_slstm)
+    log(f"t8 xLSTM train step fp32 on the card vs the CPU port ({cfg.name} widths, {cfg.n_layers} layers "
+        f"({', '.join(cfg.block_pattern)}), vocab {cfg.vocab}, "
+        f"{sum(x.numel() for x in p0.values()) / 1e6:.1f} M parameters, batch {CUT_BATCH} x {CUT_SEQ}, remat "
+        f"{cfg.remat}): loss {dloss.item():.6f} vs {closs.item():.6f} rel {loss_rel:.2e} (limit "
+        f"{STEP_LIMITS['loss']:.0e}); worst gradient leaf {g_name} normwise {g_rel:.2e}, r {r_rel:.2e} "
+        f"(limit {STEP_LIMITS['grad']:.0e}); {len(noise)} leaves below {NOISE_SHARE:.0e} of the gradient "
+        f"({', '.join(sorted(noise))}) within {noise_err:.2e} (limit {NOISE_SHARE * total:.2e}); worst "
+        f"update leaf from the same gradients {u_name} normwise {u_rel:.2e} (limit "
+        f"{STEP_LIMITS['update']:.0e}); from each side's own gradients {own_name} {own_rel:.2e} (printed; "
+        f"its smallest |g| {g_min:.2e}); sLSTM launches forward {launched[0]}, backward {launched[1]} "
+        f"(expected {want}); the CPU step took {cpu_s:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"t8 xLSTM train step vs CPU: loss {loss_rel:.2e}, grad {g_rel:.2e} ({g_name}), r {r_rel:.2e}, "
+             f"noise leaves {noise_err:.2e}, update {u_rel:.2e} ({u_name}), launches {launched} "
+             f"(expected {want})")
+    del cpu, dev, dev_same, dgrads, cgrads, d_dev, d_cpu, d_same
     torch.cuda.empty_cache()
 
 
@@ -3253,6 +3460,59 @@ def run_rg_train(seed: int) -> dict:
     return counts
 
 
+def run_xlstm_train(seed: int, smi: str) -> dict:
+    """(t9) xlstm-1.3b at full width and depth (48 layers, 6 sLSTM), bf16,
+    remat every 8 layers, the chunkwise mLSTM (XLSTM_TRAIN_CHUNK), trained
+    XLSTM_TRAIN's steps through train_loop (launch/train.py's build). Gates:
+    losses and grad norms finite, the last loss below the first, and per step
+    6 sLSTM backward launches and 12 forward ones (twice under remat). Then
+    the step time, tokens/s, the allocator's peak and one more step's device
+    split, the sLSTM forward and backward kernels and the dr product (span
+    slstm.dr) apart."""
+    cfg = dataclasses.replace(get_config(XLSTM_ARCH), mlstm_chunk=XLSTM_TRAIN_CHUNK)
+    run = dict(XLSTM_TRAIN)
+    state, history, stats, counts, peak, wall = run_train_loop(
+        cfg, XLSTM_TRAIN_OPT, run, seed, f"t9 {cfg.name} full ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}, remat every {len(cfg.block_pattern)}, mlstm_chunk {cfg.mlstm_chunk})")
+    n_slstm = sum(cfg.block_kind(i) == "slstm" for i in range(cfg.n_layers))
+    per_step = {k: v / run["steps"] for k, v in counts.items() if v}
+    want = {"slstm_seq_bwd_cuda": n_slstm, "slstm_seq_cuda": n_slstm * (2 if cfg.remat else 1),
+            "rmsnorm_bwd_cuda": per_forward(cfg)["rmsnorm_cuda"]}
+    ok = all(per_step.get(k) == v for k, v in want.items())
+    log(f"t9 launches per step (remat runs each layer's forward twice): "
+        f"{', '.join(f'{k} {v:g}' for k, v in sorted(per_step.items()))}; expected {want} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"t9 launches per step {per_step}, expected {want}")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    tokens = run["batch"] * run["seq"]
+    step_s = stats["median_step_time_s"]
+    log(f"t9 numbers on {smi}: {n_params / 1e9:.3f} B parameters; median step {step_s * 1e3:.1f} ms "
+        f"(host clock, train_loop's watchdog), {tokens / step_s:.0f} tokens/s, 6NT "
+        f"{6 * n_params * tokens / step_s / 1e12:.1f} TFLOP/s; {run['steps']} steps in {wall:.1f} s; allocator "
+        f"peak {peak:.2f} GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+    step = make_train_step(cfg, XLSTM_TRAIN_OPT)
+    data = SyntheticLM(cfg, DataConfig(run["batch"], run["seq"], seed), device=DEVICE)(0)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], data)
+
+    # the state is warm from train_loop: one step timed, one profiled
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    one_step()
+    end.record()
+    end.synchronize()
+    t = time.perf_counter()
+    log_split(f"t9 one train step ({run['batch']} x {run['seq']} tokens, {cfg.dtype})", start.elapsed_time(end),
+              device_split(one_step, spans=("slstm.dr",), warm=False))
+    log(f"t9 profiled step and its events took {time.perf_counter() - t:.1f} s")
+    del state, holder, data, step
+    torch.cuda.empty_cache()
+    return counts
+
+
 def time_grads(name, kernel, plain, library, ops, moved, dtype, kind, reps) -> dict:
     """time_kernel() for a kernel that returns several gradients: each
     checked against the plain version's, then the three timed."""
@@ -3286,11 +3546,13 @@ def sdpa_grad(q, k, v, do, causal: bool, window=None):
     return lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
 
 
-def phase_train_timing(reps: int, phi_counts: dict, whisper_counts: dict, rg_counts: dict) -> list:
-    """(t1) The backward kernels timed at the training paths' shapes (bf16)
-    beside their plain versions, torch.autograd through SDPA and F.rms_norm,
-    and their bounds; JSON entries with the paths' launches (t3's for phi4,
-    t5's for whisper, t7's for the D = 256 shapes)."""
+def phase_train_timing(reps: int, phi_counts: dict, whisper_counts: dict, rg_counts: dict,
+                       xlstm_counts: dict) -> list:
+    """(t1) The backward kernels timed at the training paths' shapes (bf16;
+    sLSTM's fp32) beside their plain versions, torch.autograd through SDPA
+    and F.rms_norm, and their bounds; JSON entries with the paths' launches
+    (t3's for phi4, t5's for whisper, t7's for the D = 256 shapes, t9's for
+    the sLSTM backward)."""
     gen = np.random.default_rng(8)
     rows = []
     for name, qs, ks, causal, window in train_flash_shapes():
@@ -3324,22 +3586,105 @@ def phase_train_timing(reps: int, phi_counts: dict, whisper_counts: dict, rg_cou
         10 * shape[0] * shape[1], 3 * shape[0] * shape[1] * 2 + 2 * nbytes(w), torch.float32,
         "norm_bwd", reps)
     rows.append(json_row("rmsnorm_bwd_cuda", phi_counts, stats))
+    del xs, pairs, graphs
+    rows.append(time_slstm_bwd(gen, reps, xlstm_counts))
     return rows
 
 
+def time_slstm_bwd(gen: np.random.Generator, reps: int, counts: dict) -> dict:
+    """The sLSTM backward at t9's rows, (2, 1024, 4, 4, 512) from zero state,
+    beside its plain version on the card and its bound; no single PyTorch
+    call computes it. The timed function is the wrapper: the kernel, r's
+    transpose and the dr product. Its bound counts the recurrence's and dr's
+    fp32 operations (2 x 2 x 4 x B x S x H x dh^2) and the bytes of r, the
+    saved tensors, hs, dhs and the state in, and dwx, dr and the initial
+    state's gradients out. The saving forward, the serving forward and the dr
+    product alone are timed beside it (printed)."""
+    cfg = get_config(XLSTM_ARCH)
+    b, s, h, dh = XLSTM_TRAIN["batch"], XLSTM_TRAIN["seq"], cfg.n_heads, cfg.d_model // cfg.n_heads
+    wx, r, state, (_, hs, saved), dhs, dfin = slstm_bwd_inputs(gen, b, s, h, dh, False, False)
+    kernel = lambda: slstm_seq_bwd_cuda(r, state, hs, saved, dhs, dfin)  # noqa: E731
+    plain = lambda: slstm_seq_bwd_ref(r, state, hs, saved, dhs, dfin)  # noqa: E731
+    errs = [compare(f"slstm bwd fp32 {(b, s, 4, h, dh)} at t9's shape: {part}", g, w, "slstm_bwd")
+            for part, g, w in zip(SLSTM_GRADS, slstm_grads(kernel()), slstm_grads(plain()))]
+    ms, plain_ms = time_ms(kernel, reps, queued=True), time_ms(plain, reps, queued=True)
+    ops = 2 * 2 * 4 * b * s * h * dh * dh
+    moved = (nbytes(r, hs, dhs, *saved.values(), *state.values(), *dfin.values())
+             + nbytes(saved["pre"], r, *state.values()))
+    bms, by = bound_ms(ops, moved, torch.float32)
+    fwd_save = time_ms(lambda: slstm_seq_cuda(wx, r, state, save=True), reps, queued=True)
+    fwd = time_ms(lambda: slstm_seq_cuda(wx, r, state), reps, queued=True)
+    dwx = kernel()[0]
+    dr_ms = time_ms(lambda: slstm_dr(state["h"], hs, dwx), reps, queued=True)
+    rec_bound = bound_ms(ops / 2, 0, torch.float32)[0]
+    log(f"time slstm bwd fp32 {(b, s, 4, h, dh)}: kernel {ms:.5g} ms, plain {plain_ms:.5g} ms, library n/a, "
+        f"bound {bms:.5g} ms ({by}), kernel at {bms / ms:.1%} of bound; the recurrence's ops alone bound "
+        f"{rec_bound:.5g} ms; dr product alone {dr_ms:.5g} ms; forward at this shape: saving {fwd_save:.5g} ms, "
+        f"serving {fwd:.5g} ms; {(ms - dr_ms) / s * 1e3:.3f} us a step without dr")
+    return json_row("slstm_seq_bwd_cuda", counts, dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                                                        bound_by=by, max_abs_err=max(errs)))
+
+
 def run_training(seed: int, reps: int, smi: str) -> list:
-    """The training path: t2, t4 and t6 at phi4's widths cut to 2 layers, t3
-    phi4-mini-3.8B in full, t5 whisper-tiny in full, t7 recurrentgemma-9b
-    cut to 3 layers, then t1's timings."""
+    """The training path: t2, t4 and t6 at phi4's widths cut to 2 layers, t8
+    at xlstm's width cut to 8 layers, t3 phi4-mini-3.8B in full, t5
+    whisper-tiny in full, t7 recurrentgemma-9b cut to 3 layers, t9
+    xlstm-1.3b in full, then t1's timings."""
     t0 = time.perf_counter()
     phase_train_step_vs_cpu(seed)
     phase_checkpoint_round_trip(seed)
     phase_fenced_routes(seed)
     log(f"t2, t4, t6 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_xlstm_step_vs_cpu(seed)
+    log(f"t8 done in {time.perf_counter() - t0:.1f} s")
     phi_counts = phase_train_phi4(seed, smi)
     whisper_counts = run_whisper_train(seed)
     rg_counts = run_rg_train(seed)
-    return phase_train_timing(reps, phi_counts, whisper_counts, rg_counts)
+    t0 = time.perf_counter()
+    xlstm_counts = run_xlstm_train(seed, smi)
+    log(f"t9 done in {time.perf_counter() - t0:.1f} s")
+    return phase_train_timing(reps, phi_counts, whisper_counts, rg_counts, xlstm_counts)
+
+
+# ------------------------------------------------------------- examples
+def run_example(tag: str, module, argv: list) -> str:
+    """One example's main(argv) on the card: its exit code must be 0 and it
+    must not raise; returns what it printed (echoed to the log)."""
+    out = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = module.main(argv)
+    except AssertionError as e:  # train_e2e's falling-loss check
+        rc = f"AssertionError: {e}"
+    for line in out.getvalue().splitlines():
+        log(f"  {tag} | {line}")
+    ok = rc == 0
+    log(f"{tag} python -m {module.__name__} {' '.join(argv)}: exit {rc} in {time.perf_counter() - t:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{tag} {module.__name__} {argv}: exit {rc}")
+    return out.getvalue()
+
+
+def run_examples() -> None:
+    """(ex1-ex4) The port's four examples, each once on the card through its
+    main(): quickstart's four routes (each within 2e-2 of torch.matmul),
+    strassen_distributed's three strategies (each within 1e-4 of
+    max|torch.matmul|, with mesh.traffic's bytes), serve's requests
+    (recurrentgemma's smoke config; every request ends by length or by its
+    eviction, no page left in use), and train_e2e at its CI scale (its loss
+    must fall)."""
+    run_example("ex1", ex_quickstart, [])
+    run_example("ex2", ex_distributed, [])
+    out = run_example("ex3", ex_serve, [])
+    reasons = [ln.split("reason=")[1].split()[0] for ln in out.splitlines() if ln.startswith("req ")]
+    ok = len(reasons) == 5 and set(reasons) <= {"length", "evicted"} and "pool: 0 pages in use" in out
+    log(f"ex3 requests ended by {reasons}, no page left in use {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"ex3 serve: requests ended by {reasons}")
+    run_example("ex4", ex_train_e2e, ["--ci", "--steps", str(EXAMPLE_TRAIN_STEPS)])
 
 
 def report_failures() -> int:
@@ -3454,6 +3799,8 @@ def main() -> int:
     log(f"whisper path done at {time.perf_counter() - t0:.1f} s")
     entries += run_training(args.seed, args.reps, smi)
     log(f"training path done at {time.perf_counter() - t0:.1f} s")
+    run_examples()
+    log(f"examples done at {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t0:.1f} s")
 
     if FAILURES:

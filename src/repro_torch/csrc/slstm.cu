@@ -54,39 +54,10 @@
 // Numerics: fp32 throughout, precise expf/tanhf/log1pf (no fast math); the
 // log-sigmoid is the stable min(x, 0) - log1p(exp(-|x|)). With m = -1e30 at
 // the first step, log_f + m - m' underflows exp to 0 and f = 0, never NaN.
-#include "common.cuh"
+#include "slstm.cuh"
 
 namespace repro {
 namespace {
-
-constexpr int COLS = 16;                // output columns per tile, all four gates
-constexpr int BT = 4;                   // batch rows per pass over a tile, at most
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int CGROUPS = COLS / 4;       // four adjacent columns a thread
-constexpr int SLICES = THREADS / CGROUPS;  // parts of each dot product's length
-constexpr int RED_FLOATS = WARPS * BT * 4 * COLS;
-constexpr int kMaxSmem = 227 * 1024;
-constexpr unsigned long long kWaitLimitNs = 2000000000ull;
-
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ void add_release(int* p) {
-  asm volatile("red.release.gpu.global.add.s32 [%0], 1;" ::"l"(p) : "memory");
-}
-
-// Thread 0 waits until *ctr >= target; then the whole block goes on.
-__device__ __forceinline__ void wait_count(const int* ctr, int target) {
-  if (threadIdx.x == 0) {
-    const unsigned long long t0 = global_ns();
-    while (load_acquire(ctr) < target) {
-      if (global_ns() - t0 > kWaitLimitNs) __trap();
-    }
-  }
-  __syncthreads();
-}
 
 // The 4 x COLS x ROWS dot products of one tile, reduced within each warp
 // into red[warp][bb][g][col]. A thread owns four adjacent columns (cg) and
@@ -181,11 +152,16 @@ __device__ __forceinline__ void tile_dots(const float* rs, const float* __restri
   }
 }
 
-template <int ROWS>
+// SAVE (training): each step also writes what the backward reads, the gate
+// pre-activations pre (B, S, 4, H, dh) and the state after the step, c_all,
+// n_all, m_all (B, S, H, dh); hs holds h. Without it (serving) the pointers
+// are null and never touched.
+template <int ROWS, bool SAVE>
 __global__ void __launch_bounds__(THREADS, 1)
 slstm_seq_kernel(const float* __restrict__ wx, const float* __restrict__ r, const float* h0,
                  const float* __restrict__ c0, const float* __restrict__ n0, const float* __restrict__ m0,
-                 float* c, float* n, float* m, float* hs, int* counters, int batch, int steps, int heads, int dh,
+                 float* c, float* n, float* m, float* hs, float* pre_all, float* c_all, float* n_all,
+                 float* m_all, int* counters, int batch, int steps, int heads, int dh,
                  int tiles_per_block, int resident, bool vec) {
   extern __shared__ __align__(16) float smem[];
   const int tile_floats = 4 * dh * COLS;
@@ -298,7 +274,17 @@ slstm_seq_kernel(const float* __restrict__ wx, const float* __restrict__ r, cons
           c[sidx] = c_new;
           n[sidx] = n_new;
           m[sidx] = m_new;
-          hs[row * hs_row + (static_cast<int64_t>(t) * heads + head) * dh + e] = o * c_new / fmaxf(n_new, 1.f);
+          const int64_t tidx = row * hs_row + (static_cast<int64_t>(t) * heads + head) * dh + e;
+          hs[tidx] = o * c_new / fmaxf(n_new, 1.f);
+          if constexpr (SAVE) {
+            float* pp = pre_all + row * wx_row + static_cast<int64_t>(t) * 4 * heads * dh +
+                        static_cast<int64_t>(head) * dh + e;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) pp[static_cast<int64_t>(g) * heads * dh] = pre[g];
+            c_all[tidx] = c_new;
+            n_all[tidx] = n_new;
+            m_all[tidx] = m_new;
+          }
         }
         __syncthreads();  // sh_h and red are refilled next; h_t is written
       }
@@ -330,12 +316,15 @@ extern "C" int repro_device_limits(int device, int* sms, int* smem_per_block) {
 
 // wx (B, S, 4, H, dh), r (4, H, dh, dh), and the state at t = 0, h0, c0,
 // n0, m0 (B, H, dh): read only. c, n, m (B, H, dh): written, the state after
-// step S - 1. hs (B, S, H, dh): written, hs[:, S-1] is the final h. All fp32,
-// contiguous. counters: H int32, zero. The plan (blocks, tiles_per_block,
-// resident) comes from the wrapper; one cooperative launch runs all S steps,
-// and a grid that cannot be co-resident is refused, not run.
+// step S - 1. hs (B, S, H, dh): written, hs[:, S-1] is the final h. pre
+// (B, S, 4, H, dh) and c_all, n_all, m_all (B, S, H, dh): null (serving), or
+// all four written, every step's gate pre-activations and state (training).
+// All fp32, contiguous. counters: H int32, zero. The plan (blocks,
+// tiles_per_block, resident) comes from the wrapper; one cooperative launch
+// runs all S steps, and a grid that cannot be co-resident is refused, not run.
 extern "C" int repro_slstm_seq(const void* wx, const void* r, const void* h0, const void* c0,
                                const void* n0, const void* m0, void* c, void* n, void* m, void* hs,
+                               void* pre, void* c_all, void* n_all, void* m_all,
                                void* counters, int64_t b, int64_t s, int64_t h, int64_t dh, int64_t blocks,
                                int64_t tiles_per_block, int64_t resident, void* stream) {
   using namespace repro;
@@ -346,12 +335,19 @@ extern "C" int repro_slstm_seq(const void* wx, const void* r, const void* h0, co
       blocks * s > INT32_MAX) {  // a head's counter reaches its blocks x S
     return cudaErrorInvalidValue;
   }
+  const bool save = pre != nullptr;
+  if (save != (c_all != nullptr) || save != (n_all != nullptr) || save != (m_all != nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   const int64_t smem = slstm_smem_bytes(dh, resident);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   // One row a pass at B = 1 (a prefill's shape), BT otherwise: the B = 1
   // kernel's loop is a quarter of the code.
-  const void* kernel = b == 1 ? reinterpret_cast<const void*>(slstm_seq_kernel<1>)
-                              : reinterpret_cast<const void*>(slstm_seq_kernel<BT>);
+  const void* kernel =
+      save ? (b == 1 ? reinterpret_cast<const void*>(slstm_seq_kernel<1, true>)
+                     : reinterpret_cast<const void*>(slstm_seq_kernel<BT, true>))
+           : (b == 1 ? reinterpret_cast<const void*>(slstm_seq_kernel<1, false>)
+                     : reinterpret_cast<const void*>(slstm_seq_kernel<BT, false>));
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -363,11 +359,13 @@ extern "C" int repro_slstm_seq(const void* wx, const void* r, const void* h0, co
               *m0p = static_cast<const float*>(m0);
   float *cp = static_cast<float*>(c), *np = static_cast<float*>(n), *mp = static_cast<float*>(m);
   float* hsp = static_cast<float*>(hs);
+  float *prep = static_cast<float*>(pre), *cap = static_cast<float*>(c_all), *nap = static_cast<float*>(n_all),
+        *map = static_cast<float*>(m_all);
   int* ctr = static_cast<int*>(counters);
   int bi = static_cast<int>(b), si = static_cast<int>(s), hi = static_cast<int>(h), di = static_cast<int>(dh);
   int tpb = static_cast<int>(tiles_per_block), res = static_cast<int>(resident);
-  void* args[] = {&wxp, &rp, &h0p, &c0p, &n0p, &m0p, &cp, &np, &mp, &hsp, &ctr, &bi, &si, &hi, &di, &tpb, &res,
-                  const_cast<bool*>(&vec)};
+  void* args[] = {&wxp, &rp, &h0p, &c0p, &n0p, &m0p, &cp, &np, &mp, &hsp, &prep, &cap, &nap, &map, &ctr,
+                  &bi, &si, &hi, &di, &tpb, &res, const_cast<bool*>(&vec)};
   err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)), dim3(THREADS), args,
                                     static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;

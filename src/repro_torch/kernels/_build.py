@@ -58,9 +58,12 @@ _SIGNATURES = {
     "repro_flash_attention_bwd": [_P] * 13 + [_I] + [_L] * 6 + [_I, _L, _F, _I, _P],
     # dtype, d: shared memory a block of the backward kernel takes (no stream)
     "repro_flash_bwd_smem": [_I, _I],
-    # wx, r, h0, c0, n0, m0, c, n, m, hs, counters, b, s, h, dh, blocks, tiles per block,
-    # resident, stream
-    "repro_slstm_seq": [_P] * 11 + [_L] * 7 + [_P],
+    # wx, r, h0, c0, n0, m0, c, n, m, hs, pre, c_all, n_all, m_all (or four nulls), counters,
+    # b, s, h, dh, blocks, tiles per block, resident, stream
+    "repro_slstm_seq": [_P] * 15 + [_L] * 7 + [_P],
+    # rt, pre, c_all, n_all, m_all, c0, n0, m0, dhs, dh, dc, dn, dm (final), dwx, dh0, dc0, dn0,
+    # dm0, counters, b, s, h, dh, blocks, tiles per block, resident, stream
+    "repro_slstm_seq_bwd": [_P] * 19 + [_L] * 7 + [_P],
     # device, SM count (out), shared memory a block may opt in to (out)
     "repro_device_limits": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
 }

@@ -1,17 +1,22 @@
-"""Wrapper of the sLSTM sequence kernel (``csrc/slstm.cu``).
+"""Wrappers of the sLSTM sequence kernels (``csrc/slstm.cu``, ``csrc/slstm_bwd.cu``).
 
-The counterpart of ``slstm_seq_pallas``: the whole sLSTM recurrence over S
-steps, wx (B, S, 4, H, dh) input pre-activations (z/i/f/o order), r
-(4, H, dh, dh) per-head recurrent mixing, state {c, n, m, h} (B, H, dh), all
-fp32. Returns (final state, hs (B, S, H, dh)). The inputs are not changed:
-the kernel reads the initial state and writes the final one apart. On a CUDA
-tensor the wrapper launches the kernel or raises (a grid that cannot be
-resident at once is refused by the launch); on a CPU tensor it computes the
-plain version in ``ref.py``.
+:func:`slstm_seq_cuda` is the counterpart of ``slstm_seq_pallas``: the whole
+sLSTM recurrence over S steps, wx (B, S, 4, H, dh) input pre-activations
+(z/i/f/o order), r (4, H, dh, dh) per-head recurrent mixing, state {c, n, m,
+h} (B, H, dh), all fp32. Returns (final state, hs (B, S, H, dh)); with
+``save`` also what the backward reads. :func:`slstm_seq_bwd_cuda` is its
+gradient, which the JAX package forms in XLA (the VJP of its scan; no
+Pallas backward): the backward kernel's reverse-time recurrence gives dwx
+and the initial state's gradients, and dr is one fp32 batched product after
+it (tracer span ``slstm.dr``). The inputs are not changed. On a CUDA tensor
+each wrapper launches its kernel or raises (a grid that cannot be resident
+at once is refused by the launch); on a CPU tensor it computes the plain
+version in ``ref.py``.
 
-The kernel runs all S steps in one cooperative launch, one block an SM. Its
-launch plan, :func:`slstm_plan`, is a plain function of the shape and two
-numbers of the device, so that it can be checked without one.
+Each kernel runs all S steps in one cooperative launch, one block an SM.
+Their launch plans, :func:`slstm_plan` and :func:`slstm_bwd_plan`, are plain
+functions of the shape and two numbers of the device, so that they can be
+checked without one.
 """
 from __future__ import annotations
 
@@ -22,16 +27,20 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import cdiv, on_cuda
-from repro_torch.kernels.slstm.ref import slstm_seq_ref
+from repro_torch.kernels.slstm.ref import slstm_dr, slstm_seq_bwd_ref, slstm_seq_ref
+from repro_torch.obs.tracer import get_tracer
 
-__all__ = ["slstm_seq_cuda", "slstm_plan", "SlstmPlan"]
+__all__ = ["slstm_seq_cuda", "slstm_seq_bwd_cuda", "slstm_plan", "slstm_bwd_plan", "SlstmPlan"]
 
 _STATE = ("c", "n", "m", "h")
 
-# The kernel's constants (csrc/slstm.cu): output columns per tile, batch rows
-# per pass, and the floats of its reduction buffer (8 warps x BT x 4 x COLS).
+# The kernels' constants (csrc/slstm.cuh): columns per tile, batch rows per
+# pass, and the floats of their reduction buffers (8 warps x BT x 4 x COLS in
+# the forward, 8 x BT x COLS in the backward).
 COLS, BT = 16, 4
 _RED_FLOATS = 8 * BT * 4 * COLS
+_BWD_RED_FLOATS = 8 * BT * COLS
+_SAVED = ("pre", "c", "n", "m")
 
 
 @dataclass(frozen=True)
@@ -70,13 +79,25 @@ def slstm_plan(heads: int, dh: int, steps: int, sms: int, smem_per_block: int) -
     the reduction buffer. A single step (a decode step) reads each element
     of r once, so there nothing is copied to shared memory first.
     """
+    return _plan(heads, dh, steps, sms, smem_per_block, (BT * dh + _RED_FLOATS) * 4)
+
+
+def slstm_bwd_plan(heads: int, dh: int, steps: int, sms: int, smem_per_block: int) -> SlstmPlan:
+    """The backward kernel's plan, made as :func:`slstm_plan`'s: a tile is
+    COLS columns of r's d index (its slice of r, transposed, is the
+    forward's size), and a pass stages four gates of dpre a row (BT x 4 x
+    dh). Over S steps it forms S dot-product passes (none at t = S-1, one at
+    t = -1), so at S = 1 r is read once and nothing is made resident."""
+    return _plan(heads, dh, steps, sms, smem_per_block, (BT * 4 * dh + _BWD_RED_FLOATS) * 4)
+
+
+def _plan(heads: int, dh: int, steps: int, sms: int, smem_per_block: int, fixed: int) -> SlstmPlan:
     if heads < 1 or dh < 1 or steps < 1 or sms < 1:
         raise ValueError(f"bad sLSTM plan input: heads {heads}, dh {dh}, steps {steps}, sms {sms}")
     per_head = cdiv(dh, COLS)
     units = heads * per_head
     tiles_per_block = cdiv(units, sms)
     blocks = cdiv(units, tiles_per_block)
-    fixed = (BT * dh + _RED_FLOATS) * 4
     tile = 4 * dh * COLS * 4
     if fixed > smem_per_block:
         raise ValueError(f"sLSTM dh {dh} needs {fixed} bytes of shared memory, the device has "
@@ -88,36 +109,98 @@ def slstm_plan(heads: int, dh: int, steps: int, sms: int, smem_per_block: int) -
     return SlstmPlan(blocks, tiles_per_block, resident, fixed + resident * tile, blocks_per_head)
 
 
-def slstm_seq_cuda(
-    wx: torch.Tensor, r: torch.Tensor, state: Dict[str, torch.Tensor]
-) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    if wx.ndim != 5 or wx.shape[2] != 4:
-        raise ValueError(f"wx must be (B, S, 4, H, dh), got {tuple(wx.shape)}")
-    b, s, _, h, dh = wx.shape
+def _check(wx_shape, r: torch.Tensor, state: Dict[str, torch.Tensor]) -> None:
+    if len(wx_shape) != 5 or wx_shape[2] != 4:
+        raise ValueError(f"wx must be (B, S, 4, H, dh), got {tuple(wx_shape)}")
+    b, _, _, h, dh = wx_shape
     if tuple(r.shape) != (4, h, dh, dh):
         raise ValueError(f"r must be {(4, h, dh, dh)}, got {tuple(r.shape)}")
+    for k in _STATE:
+        if tuple(state[k].shape) != (b, h, dh):
+            raise ValueError(f"state {k!r} must be {(b, h, dh)}, got {tuple(state[k].shape)}")
+
+
+def slstm_seq_cuda(wx: torch.Tensor, r: torch.Tensor, state: Dict[str, torch.Tensor], *, save: bool = False):
+    """Returns (final state, hs); with ``save`` (training) also {pre (B, S, 4,
+    H, dh), c, n, m (B, S, H, dh)}, each step's gate pre-activations and the
+    state after it, which :func:`slstm_seq_bwd_cuda` reads."""
+    _check(tuple(wx.shape), r, state)
+    b, s, _, h, dh = wx.shape
     states = [state[k] for k in _STATE]
-    for k, t in zip(_STATE, states):
-        if tuple(t.shape) != (b, h, dh):
-            raise ValueError(f"state {k!r} must be {(b, h, dh)}, got {tuple(t.shape)}")
     if any(t.dtype != torch.float32 for t in (wx, r, *states)):
         raise TypeError("slstm_seq_cuda takes float32 wx, r and state")
     if not on_cuda(wx, r, *states):
-        return slstm_seq_ref(wx, r, state)
+        return slstm_seq_ref(wx, r, state, save=save)
     if not all(t.is_contiguous() for t in (wx, r, *states)):
         raise ValueError("slstm_seq_cuda needs contiguous wx, r and state")
     c, n, m = (torch.empty_like(t) for t in states[:3])
     hs = torch.empty((b, s, h, dh), dtype=torch.float32, device=wx.device)
+    saved = None
+    if save:
+        saved = {"pre": torch.empty_like(wx),
+                 **{k: torch.empty_like(hs) for k in ("c", "n", "m")}}
     counters = torch.zeros(h, dtype=torch.int32, device=wx.device)
     plan = slstm_plan(h, dh, s, *_build.device_limits(wx.device))
     _build.launch(
         "repro_slstm_seq", wx.device, wx.data_ptr(), r.data_ptr(), states[3].data_ptr(),
         *(t.data_ptr() for t in states[:3]), c.data_ptr(), n.data_ptr(), m.data_ptr(),
-        hs.data_ptr(), counters.data_ptr(), b, s, h, dh,
-        plan.blocks, plan.tiles_per_block, plan.resident,
+        hs.data_ptr(), *((saved[k].data_ptr() for k in _SAVED) if save else (None,) * 4),
+        counters.data_ptr(), b, s, h, dh, plan.blocks, plan.tiles_per_block, plan.resident,
     )
     slstm_seq_cuda.launches += 1
-    return {"c": c, "n": n, "m": m, "h": hs[:, -1].clone()}, hs
+    final = {"c": c, "n": n, "m": m, "h": hs[:, -1].clone()}
+    return (final, hs, saved) if save else (final, hs)
 
 
 slstm_seq_cuda.launches = 0
+
+
+def slstm_seq_bwd_cuda(
+    r: torch.Tensor,
+    state: Dict[str, torch.Tensor],
+    hs: torch.Tensor,
+    saved: Dict[str, torch.Tensor],
+    dhs: torch.Tensor,
+    dstate: Dict[str, torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """The gradients of ``slstm_seq_cuda(wx, r, state)``: given the saving
+    forward's ``hs`` and ``saved``, ``dhs`` (B, S, H, dh) and the final
+    state's ``dstate`` {c, n, m, h}, returns (dwx (B, S, 4, H, dh), dr (4, H,
+    dh, dh), the initial state's gradients {c, n, m, h}), all fp32. The
+    kernel's sums run in a fixed order: a rerun gives the same bits."""
+    _check(tuple(saved["pre"].shape), r, state)
+    b, s, _, h, dh = saved["pre"].shape
+    seq = (b, s, h, dh)
+    for name, t in (("hs", hs), ("dhs", dhs), *((f"saved {k!r}", saved[k]) for k in ("c", "n", "m"))):
+        if tuple(t.shape) != seq:
+            raise ValueError(f"{name} must be {seq}, got {tuple(t.shape)}")
+    for k in _STATE:
+        if tuple(dstate[k].shape) != (b, h, dh):
+            raise ValueError(f"dstate {k!r} must be {(b, h, dh)}, got {tuple(dstate[k].shape)}")
+    tensors = (r, hs, dhs, *(state[k] for k in _STATE), *(saved[k] for k in _SAVED),
+               *(dstate[k] for k in _STATE))
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("slstm_seq_bwd_cuda takes float32 tensors")
+    if not on_cuda(*tensors):
+        return slstm_seq_bwd_ref(r, state, hs, saved, dhs, dstate)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("slstm_seq_bwd_cuda needs contiguous tensors")
+    rt = r.transpose(-1, -2).contiguous()  # rt[g, h, e, d] = r[g, h, d, e]
+    dwx = torch.empty_like(saved["pre"])
+    d0 = {k: torch.empty_like(state[k]) for k in _STATE}
+    counters = torch.zeros(h, dtype=torch.int32, device=r.device)
+    plan = slstm_bwd_plan(h, dh, s, *_build.device_limits(r.device))
+    _build.launch(
+        "repro_slstm_seq_bwd", r.device, rt.data_ptr(), *(saved[k].data_ptr() for k in _SAVED),
+        *(state[k].data_ptr() for k in ("c", "n", "m")), dhs.data_ptr(),
+        *(dstate[k].data_ptr() for k in ("h", "c", "n", "m")), dwx.data_ptr(),
+        *(d0[k].data_ptr() for k in ("h", "c", "n", "m")), counters.data_ptr(), b, s, h, dh,
+        plan.blocks, plan.tiles_per_block, plan.resident,
+    )
+    slstm_seq_bwd_cuda.launches += 1
+    with get_tracer().span("slstm.dr", cat="slstm"):  # a span a profiled step can attribute
+        dr = slstm_dr(state["h"], hs, dwx)
+    return dwx, dr, d0
+
+
+slstm_seq_bwd_cuda.launches = 0

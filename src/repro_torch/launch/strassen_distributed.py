@@ -40,16 +40,13 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("repro_torch.launch.strassen_distributed: no CUDA device; pass --device cpu",
-              file=sys.stderr)
-        return 2
-    rng = np.random.default_rng(args.seed)
-    a = torch.from_numpy(rng.standard_normal((args.n, args.n), dtype=np.float32)).to(device)
-    b = torch.from_numpy(rng.standard_normal((args.n, args.n), dtype=np.float32)).to(device)
+def run_strategies(n: int, seed: int, device: torch.device) -> list:
+    """The three strategies on n x n fp32 operands from ``seed``: for each
+    (name, max|err| against ``torch.matmul``, max|want|, the mesh's traffic
+    {(movement, axes): Traffic} of that run)."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((n, n), dtype=np.float32)).to(device)
+    b = torch.from_numpy(rng.standard_normal((n, n), dtype=np.float32)).to(device)
     with matmul_precision(None):
         want = torch.matmul(a, b)
 
@@ -62,13 +59,28 @@ def main(argv=None) -> int:
         ("strassen_2d", mesh, lambda: strassen_2d(a, b, mesh=mesh, depth=1)),
         ("shardmap(7)", mesh7, lambda: strassen_shardmap(a, b, mesh=mesh7)),
     ]
+    out = []
     for name, m, run in runs:
         m.reset()
         got = run()
-        err = (got - want).abs().max().item()
-        print(f"{name:<13} max|err| = {err:.3e}  collective bytes: logical "
-              f"{m.logical_bytes}, physical {m.physical_bytes} ({m.count()} movements)")
+        out.append((name, (got - want).abs().max().item(), want.abs().max().item(), dict(m.traffic)))
         m.reset()
+    return out
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("repro_torch.launch.strassen_distributed: no CUDA device; pass --device cpu",
+              file=sys.stderr)
+        return 2
+    for name, err, _, traffic in run_strategies(args.n, args.seed, device):
+        logical = sum(t.logical_bytes for t in traffic.values())
+        physical = sum(t.physical_bytes for t in traffic.values())
+        count = sum(t.count for t in traffic.values())
+        print(f"{name:<13} max|err| = {err:.3e}  collective bytes: logical "
+              f"{logical}, physical {physical} ({count} movements)")
     return 0
 
 

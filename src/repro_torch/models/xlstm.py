@@ -11,7 +11,13 @@ configured matmul backend. Parameter names are the JAX package's, so
 * sLSTM runs :func:`repro_torch.kernels.slstm.ops.slstm_seq` for every
   sequence length, one decode token included: the hand-written CUDA kernel
   on the card (where the JAX block runs a ``lax.scan`` of the same step),
-  its plain version on the CPU.
+  its plain version on the CPU. Under autograd (training) the op saves each
+  step's gate pre-activations and state, and its gradient is the backward
+  kernel (``csrc/slstm_bwd.cu``, the reverse-time recurrence; the JAX
+  package differentiates its scan) with dr one batched product after it.
+  ``r`` trains like every other leaf: ``init_train_state`` turns its
+  ``requires_grad`` on. Both kernels sum in a fixed order, so remat's
+  recompute of the forward gives the saved tensors the same bits.
 
 Precision follows the JAX code: q, k, v and the output gate are projected
 in the model dtype and cast to fp32; the i/f gate projections (``wi``,
@@ -131,7 +137,11 @@ def mlstm_chunkwise(
         m_rows = torch.maximum(m_st[..., None] + bj, bj + cmx)  # (B, H, L)
         e = torch.exp(m_st[..., None] + bj - m_rows)
         logw = bj[..., :, None] - bj[..., None, :] + lij[..., None, :] - m_rows[..., :, None]
-        w = torch.where(tri, torch.exp(logw), 0.0)  # (B, H, L, L)
+        # masked before the exp: above the diagonal logw grows with the decay
+        # summed over j - i steps and exp overflows to inf, whose gradient
+        # under a later mask is 0 * inf = NaN (the JAX form, where(tri,
+        # exp(logw), 0), gives NaN gradients so); exp(-inf) is the same 0
+        w = torch.exp(torch.where(tri, logw, -torch.inf))  # (B, H, L, L)
         scores = torch.einsum("bhld,bhmd->bhlm", qj, kj) * w
         num = (e[..., None] * torch.einsum("bhld,bhdv->bhlv", qj, c_st)
                + torch.einsum("bhlm,bhmv->bhlv", scores, vj))

@@ -676,18 +676,95 @@ def test_cuda_rmsnorm_bwd_matches_plain_and_is_deterministic(cuda, dtype, wdtype
 
 @pytest.mark.cuda
 def test_cuda_fused_and_slstm_raise_under_grad(cuda):
+    """strassen_fused has no gradient (nor has the reference's Pallas level).
+    The sLSTM op no longer raises: it has a backward kernel, held by
+    test_cuda_xlstm_loss_backward_runs_the_slstm_backward_kernel."""
     from repro_torch.core.backend import MatmulBackend, matmul
-    from repro_torch.kernels.slstm.ops import slstm_seq
 
     a = _on(cuda, (64, 64), torch.float32).requires_grad_()
     with pytest.raises(NotImplementedError, match="no gradient"):
         matmul(a, _on(cuda, (64, 64), torch.float32),
                MatmulBackend(kind="strassen_fused", depth=1, min_dim=16))
-    b, s, h, dh = 1, 4, 2, 8
-    wx = _on(cuda, (b, s, 4, h, dh), torch.float32).requires_grad_()
-    state = {n: torch.zeros((b, h, dh), device=cuda) for n in ("c", "n", "m", "h")}
-    with pytest.raises(NotImplementedError, match="sLSTM backward"):
-        slstm_seq(wx, _on(cuda, (4, h, dh, dh), torch.float32), state)
+
+
+# (b, s, h, dh, carried, final-state gradients) of the sLSTM backward: xlstm's
+# training rows from zero state, a carried state with final-state gradients,
+# S = 1, 6 rows (two passes over a tile), 8 heads whose r is streamed, dh 48
+# and a dh that is not a multiple of 16.
+SLSTM_BWD_CASES = [(2, 256, 4, 512, False, False), (2, 64, 4, 512, True, True), (2, 1, 4, 512, True, True),
+                   (6, 32, 4, 512, True, True), (2, 16, 8, 512, True, True), (2, 64, 4, 48, True, True),
+                   (3, 9, 2, 40, True, True), (1, 40, 2, 8, False, True)]
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_bwd_matches_plain_and_is_deterministic(cuda):
+    """The backward kernel fed the saving forward's tensors against its plain
+    version fed the same (the fp32 backward rule, 1e-4 x max(1, max|plain|)),
+    the saved tensors against the plain forward's, the same bits on a rerun,
+    one launch and one device kernel a call."""
+    from repro_torch.kernels.slstm.ref import slstm_seq_bwd_ref
+
+    for b, s, h, dh, carried, final in SLSTM_BWD_CASES:
+        wx = _on(cuda, (b, s, 4, h, dh), torch.float32)
+        r = _on(cuda, (4, h, dh, dh), torch.float32) * dh**-0.5
+        state = _slstm_state(cuda, b, h, dh, carried)
+        fin, hs, saved = tsl.slstm_seq_cuda(wx, r, state, save=True)
+        fin2, hs2 = tsl.slstm_seq_cuda(wx, r, state)
+        assert torch.equal(hs, hs2) and all(torch.equal(fin[k], fin2[k]) for k in fin)
+        _, _, saved_ref = slstm_seq_ref(wx, r, state, save=True)
+        assert all(_within(saved[k], saved_ref[k], 2e-5) for k in saved), (b, s, h, dh)
+        dhs = _on(cuda, (b, s, h, dh), torch.float32)
+        dfin = {k: _on(cuda, (b, h, dh), torch.float32) if final else torch.zeros((b, h, dh), device=cuda)
+                for k in ("c", "n", "m", "h")}
+        n = tsl.slstm_seq_bwd_cuda.launches
+        dwx, dr, d0 = tsl.slstm_seq_bwd_cuda(r, state, hs, saved, dhs, dfin)
+        assert tsl.slstm_seq_bwd_cuda.launches == n + 1
+        want = slstm_seq_bwd_ref(r, state, hs, saved, dhs, dfin)
+        pairs = [(dwx, want[0]), (dr, want[1])] + [(d0[k], want[2][k]) for k in d0]
+        assert all(g.shape == w.shape and _within(g, w, 1e-4) for g, w in pairs), (b, s, h, dh)
+        again = tsl.slstm_seq_bwd_cuda(r, state, hs, saved, dhs, dfin)
+        assert torch.equal(dwx, again[0]) and torch.equal(dr, again[1])
+        assert all(torch.equal(d0[k], again[2][k]) for k in d0)
+    names = _slstm_device_kernels(lambda: tsl.slstm_seq_bwd_cuda(r, state, hs, saved, dhs, dfin))
+    assert len(names) == 1 and "bwd" in names[0]
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_loss_backward_runs_the_slstm_backward_kernel(cuda):
+    """The xlstm smoke model's loss and gradients on the card, where the sLSTM
+    layers run the saving forward and the backward kernel (once a layer),
+    against the CPU port's: loss to 1e-5 relative, each leaf (r included)
+    normwise to 1e-4."""
+    import copy
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    cfg = get_smoke_config("xlstm_1_3b")
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0))
+    for p in cpu.parameters():
+        p.requires_grad_(True)
+    dev = copy.deepcopy(cpu).to(cuda)
+    batch = SyntheticLM(cfg, DataConfig(batch=2, seq_len=32, seed=3), device="cpu")(0)
+    n_slstm = sum(cfg.block_kind(i) == "slstm" for i in range(cfg.n_layers))
+    n, nf = tsl.slstm_seq_bwd_cuda.launches, tsl.slstm_seq_cuda.launches
+    dloss, _ = M.loss_fn(dev, {k: t.to(cuda) for k, t in batch.items()}, cfg)
+    dloss.backward()
+    torch.cuda.synchronize()
+    assert tsl.slstm_seq_bwd_cuda.launches == n + n_slstm
+    assert tsl.slstm_seq_cuda.launches == nf + n_slstm
+    closs, _ = M.loss_fn(cpu, batch, cfg)
+    closs.backward()
+    assert abs(dloss.item() - closs.item()) <= 1e-5 * abs(closs.item())
+    want = {name: p.grad.double() for name, p in cpu.named_parameters()}
+    # a leaf below 1e-6 of the whole gradient (the mLSTM input-gate bias, zero
+    # in exact arithmetic) is held to that absolutely, as the CPU tests hold it
+    noise = 1e-6 * torch.sqrt(sum(w.square().sum() for w in want.values())).item()
+    for name, p in dev.named_parameters():
+        w, diff = want[name], (p.grad.cpu().double() - want[name]).norm().item()
+        if w.norm().item() <= noise:
+            assert diff <= noise, (name, diff)
+        else:
+            assert diff <= 1e-4 * w.norm().item(), (name, diff / w.norm().item())
 
 
 def _state_on(state, device):

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of repro_torch, nor chip_smoke.py, imports
-JAX or anything of the JAX package ``repro``."""
+"""The port stands alone: no module of repro_torch (its examples included),
+nor chip_smoke.py, imports JAX or anything of the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -17,6 +17,10 @@ PORT = ROOT / "src" / "repro_torch"
 def _banned(name: str) -> bool:
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "repro")
+
+
+# The port's entry points beside the launchers (python -m repro_torch.examples.<name>).
+EXAMPLES = ("quickstart", "strassen_distributed", "serve", "train_e2e")
 
 
 def _port_files():
@@ -47,10 +51,11 @@ def test_port_files_exist():
         "models/encdec.py", "configs/whisper_tiny.py",
         "optim/adamw.py", "training/train_step.py", "data/pipeline.py",
         "runtime/checkpoint.py", "runtime/elastic.py", "launch/train.py",
+        "configs/stark.py", "examples/__init__.py", *(f"examples/{m}.py" for m in EXAMPLES),
     } <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"rmsnorm.cu", "flash_attention.cu", "matmul.cu", "signed_sum.cu",
-            "strassen1.cu", "slstm.cu", "flash_attention_bwd.cu"} <= csrc
+            "strassen1.cu", "slstm.cu", "slstm_bwd.cu", "flash_attention_bwd.cu"} <= csrc
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -99,6 +104,21 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_importing_an_example_loads_no_jax(name):
+    code = (
+        "import sys\n"
+        f"import repro_torch.examples.{name}, repro_torch.configs.stark\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 # The out-of-core path: what the card's machine runs for kind strassen_oot and
 # the solvers. That machine has no ml_dtypes, so none of it may import it.
 OOT_PATH = ["blocks/__init__.py", "blocks/tags.py", "blocks/plan.py", "blocks/blockmatrix.py",
@@ -111,7 +131,11 @@ TRAIN_PATH = ["optim/adamw.py", "training/train_step.py", "data/pipeline.py",
               "runtime/checkpoint.py", "runtime/elastic.py", "launch/train.py"]
 
 
-@pytest.mark.parametrize("rel", OOT_PATH + TRAIN_PATH)
+# The examples and their tables, which chip_smoke.py runs there too.
+EXAMPLE_PATH = ["configs/stark.py", *(f"examples/{m}.py" for m in EXAMPLES)]
+
+
+@pytest.mark.parametrize("rel", OOT_PATH + TRAIN_PATH + EXAMPLE_PATH)
 def test_oot_path_imports_no_ml_dtypes(rel):
     tree = ast.parse((PORT / rel).read_text())
     for node in ast.walk(tree):

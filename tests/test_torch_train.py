@@ -96,9 +96,16 @@ def _port_grads(tp, tcfg, batch):
     return loss, metrics, {n: p.grad for n, p in tp.named_parameters()}
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_loss_and_every_gradient_leaf_match_jax(arch):
-    jcfg, tcfg, jp, tp = _models(arch)
+# Each family's smoke config, and xlstm's with the chunkwise mLSTM (chunk 8
+# of the 16 tokens), the route a long training sequence takes.
+LEAF_CASES = {**{arch: (arch, {}) for arch in FAMILIES},
+              "xlstm_1_3b-mlstm_chunk8": ("xlstm_1_3b", dict(mlstm_chunk=8))}
+
+
+@pytest.mark.parametrize("case", list(LEAF_CASES))
+def test_loss_and_every_gradient_leaf_match_jax(case):
+    arch, overrides = LEAF_CASES[case]
+    jcfg, tcfg, jp, tp = _models(arch, **overrides)
     batch = _batch(jcfg)
     (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(JM.loss_fn, has_aux=True), static_argnums=2)(
         jp, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
@@ -122,12 +129,15 @@ def test_loss_and_every_gradient_leaf_match_jax(arch):
             continue
         worst = max(worst, _rel(got, w))
         assert _rel(got, w) <= 1e-4, (name, _rel(got, w))
-    print(f"{arch}: loss {loss.item():.6f}, worst leaf {worst:.2e}")
+    print(f"{case}: loss {loss.item():.6f}, worst leaf {worst:.2e}")
 
 
 @pytest.mark.parametrize("arch,overrides", [
     ("phi4_mini_3_8b", dict(n_layers=3, block_pattern=("attn", "attn"))),  # a group and a tail
     ("whisper_tiny", {}),
+    # one 8-layer group of xlstm-1.3b's pattern: 7 mLSTM and the sLSTM, whose
+    # saving forward runs again under remat
+    ("xlstm_1_3b", dict(n_layers=8, block_pattern=tconfigs.get_config("xlstm_1_3b").block_pattern)),
 ])
 def test_remat_changes_no_gradient(arch, overrides):
     _, tcfg, _, tp = _models(arch, **overrides)

@@ -17,6 +17,14 @@ The same seeded numpy inputs go through both packages in fp32:
 In bf16, the blocks are held to the JAX blocks within a quarter of the
 spread that one rounding placed elsewhere causes, and the whole model's
 distance from its own fp32 logits to the JAX model's.
+
+The sLSTM backward's plain version (``slstm_seq_bwd_ref``, fed the saving
+forward's tensors) is held to ``torch.autograd`` through ``slstm_seq_ref``
+and to ``jax.grad`` of the JAX oracle, each gradient normwise to 1e-5, from
+a zero and a carried state, with and without final-state gradients, at
+S = 1 and dh 48 (the m tie of the step against autograd alone); ``SlstmSeq`` on the CPU gives
+autograd's gradients; and the backward kernel's launch plan
+(``slstm_bwd_plan``) is checked as the forward's is.
 """
 import dataclasses
 
@@ -37,8 +45,8 @@ from repro.models import xlstm as JX
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import params_from_jax, tensor_from_numpy
 from repro_torch.kernels.slstm import slstm as tsl
-from repro_torch.kernels.slstm.ops import slstm_seq
-from repro_torch.kernels.slstm.ref import slstm_seq_ref
+from repro_torch.kernels.slstm.ops import SlstmSeq, slstm_seq
+from repro_torch.kernels.slstm.ref import slstm_seq_bwd_ref, slstm_seq_ref
 from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 from repro_torch.models import xlstm as TX
@@ -193,6 +201,162 @@ def test_slstm_plan_covers_every_tile_with_at_most_one_block_an_sm():
         tsl.slstm_plan(1, 100_000, 64, **H100)
 
 
+# --------------------------------------------------------- sLSTM backward
+# (b, s, h, dh, state, final-state gradients): a zero state (the first
+# step's n' = 1 sits on max(n', 1)'s tie), a carried one, S = 1 and dh 48.
+SLSTM_BWD_CASES = [(2, 8, 4, 16, "zero", False), (2, 8, 2, 16, "carried", False),
+                   (2, 8, 2, 16, "carried", True), (3, 1, 2, 8, "carried", True),
+                   (2, 5, 1, 48, "carried", True), (2, 6, 2, 8, "zero", True)]
+BWD_REL = 1e-5
+
+
+def _slstm_bwd_inputs(b, s, h, dh, kind, final):
+    wx, r, state = _slstm_inputs(b, s, h, dh, carried=kind == "carried")
+    if kind == "tie_m":
+        # h0 = 0, so pre = wx at t = 0; log_sigmoid(-100) is -100 in fp32, and
+        # -100 + 100.5 == 0.5 == pre_i exactly
+        wx[:, 0, 1], wx[:, 0, 2], state["m"][:] = 0.5, -100.0, 100.5
+    dhs = _np((b, s, h, dh))
+    dfin = {k: _np((b, h, dh)) if final else np.zeros((b, h, dh), np.float32) for k in STATE}
+    return wx, r, state, dhs, dfin
+
+
+def _torch_grads(fn, wx, r, state, dhs, dfin):
+    leaves = [_t(wx).requires_grad_(), _t(r).requires_grad_(), *(_t(state[k]).requires_grad_() for k in STATE)]
+    st, hs = fn(leaves[0], leaves[1], dict(zip(STATE, leaves[2:])))
+    loss = (hs * _t(dhs)).sum() + sum((st[k] * _t(dfin[k])).sum() for k in STATE)
+    return torch.autograd.grad(loss, leaves)
+
+
+def _jax_grads(wx, r, state, dhs, dfin):
+    def loss(wx, r, state):
+        st, hs = jax_slstm_seq_ref(wx, r, state)
+        return jnp.sum(hs * dhs) + sum(jnp.sum(st[k] * dfin[k]) for k in STATE)
+
+    gwx, gr, gst = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(wx), jnp.asarray(r),
+                                                     {k: jnp.asarray(v) for k, v in state.items()})
+    return [gwx, gr, *(gst[k] for k in STATE)]
+
+
+def _assert_grads(got, want, names=("wx", "r", *STATE)):
+    """Each gradient normwise within BWD_REL; one whose norm is below 1e-6 of
+    all the gradients' (zero in exact arithmetic, left with fp32 roundoff:
+    dm0 at the m tie) is held to that absolutely, as the training
+    tests hold such a leaf."""
+    want = [np.asarray(w, np.float64) for w in want]
+    noise = 1e-6 * np.sqrt(sum(float(np.sum(w**2)) for w in want))
+    for name, g, w in zip(names, got, want):
+        err = np.linalg.norm(g.detach().double().numpy() - w)
+        if np.linalg.norm(w) <= noise:
+            assert err <= noise, (name, err)
+        else:
+            assert err <= BWD_REL * np.linalg.norm(w), (name, err / np.linalg.norm(w))
+
+
+@pytest.mark.parametrize("b,s,h,dh,kind,final", SLSTM_BWD_CASES)
+def test_slstm_seq_bwd_ref_matches_autograd_and_jax(b, s, h, dh, kind, final):
+    wx, r, state, dhs, dfin = _slstm_bwd_inputs(b, s, h, dh, kind, final)
+    st = {k: _t(v) for k, v in state.items()}
+    _, hs, saved = slstm_seq_ref(_t(wx), _t(r), st, save=True)
+    if kind == "zero":  # the first step sits on max(n', 1)'s tie
+        assert bool((saved["n"][:, 0] == 1.0).all())
+    dwx, dr, d0 = slstm_seq_bwd_ref(_t(r), st, hs, saved, _t(dhs), {k: _t(v) for k, v in dfin.items()})
+    got = [dwx, dr, *(d0[k] for k in STATE)]
+    _assert_grads(got, _torch_grads(slstm_seq_ref, wx, r, state, dhs, dfin))
+    _assert_grads(got, _jax_grads(wx, r, state, dhs, dfin))
+
+
+def test_slstm_seq_bwd_ref_splits_the_m_tie_as_autograd_does():
+    """log_f + m == pre_i exactly at the first step: the plain backward splits
+    m''s gradient in halves there, as torch.maximum's does. (The JAX oracle's
+    gradient at this point gives all of it to pre_i, another subgradient of
+    the same max: the two lie 4e-2 apart in dwx, so this case is held to
+    PyTorch's autograd alone.)"""
+    wx, r, state, dhs, dfin = _slstm_bwd_inputs(1, 4, 2, 8, "tie_m", True)
+    st = {k: _t(v) for k, v in state.items()}
+    _, hs, saved = slstm_seq_ref(_t(wx), _t(r), st, save=True)
+    assert bool((saved["m"][:, 0] == 0.5).all())
+    dwx, dr, d0 = slstm_seq_bwd_ref(_t(r), st, hs, saved, _t(dhs), {k: _t(v) for k, v in dfin.items()})
+    _assert_grads([dwx, dr, *(d0[k] for k in STATE)], _torch_grads(slstm_seq_ref, wx, r, state, dhs, dfin))
+
+
+@pytest.mark.parametrize("b,s,h,dh,kind,final", SLSTM_BWD_CASES[:4])
+def test_slstm_function_on_cpu_gives_autograds_gradients(b, s, h, dh, kind, final):
+    wx, r, state, dhs, dfin = _slstm_bwd_inputs(b, s, h, dh, kind, final)
+    n, nb = tsl.slstm_seq_cuda.launches, tsl.slstm_seq_bwd_cuda.launches
+    got = _torch_grads(slstm_seq, wx, r, state, dhs, dfin)
+    assert (tsl.slstm_seq_cuda.launches, tsl.slstm_seq_bwd_cuda.launches) == (n, nb)  # plain versions
+    _assert_grads(got, _torch_grads(slstm_seq_ref, wx, r, state, dhs, dfin))
+
+
+def test_slstm_op_runs_as_the_function_only_where_autograd_records():
+    wx, r, state = _slstm_inputs(1, 3, 2, 8)
+    leaves = [_t(wx).requires_grad_(), _t(r)]
+    st, hs = slstm_seq(leaves[0], leaves[1], {k: _t(v) for k, v in state.items()})
+    assert type(hs.grad_fn).__name__ == f"{SlstmSeq.__name__}Backward"
+    with torch.no_grad():
+        _, hs = slstm_seq(leaves[0], leaves[1], {k: _t(v) for k, v in state.items()})
+    assert hs.grad_fn is None
+    # r alone needs a gradient, as in training: dr only, and the input is untouched
+    r_leaf = _t(r).requires_grad_()
+    _, hs = slstm_seq(_t(wx), r_leaf, {k: _t(v) for k, v in state.items()})
+    (g,) = torch.autograd.grad(hs.sum(), [r_leaf])
+    assert g.shape == r_leaf.shape and bool(torch.isfinite(g).all())
+    np.testing.assert_array_equal(r_leaf.detach().numpy(), r)
+
+
+def test_slstm_bwd_cuda_rejects_bad_inputs():
+    wx, r, state = _slstm_inputs(1, 4, 2, 8)
+    st = {k: _t(v) for k, v in state.items()}
+    _, hs, saved = slstm_seq_ref(_t(wx), _t(r), st, save=True)
+    dst = {k: torch.zeros_like(v) for k, v in st.items()}
+    with pytest.raises(ValueError, match="dhs must be"):
+        tsl.slstm_seq_bwd_cuda(_t(r), st, hs, saved, hs[:, :2], dst)
+    with pytest.raises(ValueError, match="dstate 'n'"):
+        tsl.slstm_seq_bwd_cuda(_t(r), st, hs, saved, hs, {**dst, "n": dst["n"][:, :1]})
+    with pytest.raises(TypeError, match="float32"):
+        tsl.slstm_seq_bwd_cuda(_t(r).double(), st, hs, saved, hs, dst)
+
+
+def test_slstm_bwd_plan_keeps_r_resident_at_xlstm_width():
+    """xlstm-1.3b's training shape, 4 heads of 512 on an H100: the forward's
+    grid (128 blocks, 32 a head, 16 columns of r's d index each), each
+    block's 128 KiB slice of r resident beside four gates of dpre a row."""
+    plan = tsl.slstm_bwd_plan(4, 512, 1024, **H100)
+    fwd = tsl.slstm_plan(4, 512, 1024, **H100)
+    assert (plan.blocks, plan.blocks_per_head, plan.tiles_per_block) == (fwd.blocks, 32, 1)
+    assert plan.r_resident and 128 * 1024 + tsl.BT * 4 * 512 * 4 < plan.smem_bytes <= H100["smem_per_block"]
+    assert plan.smem_bytes > fwd.smem_bytes
+    step = tsl.slstm_bwd_plan(4, 512, 1, **H100)  # one dot-product pass: r read once
+    assert (step.blocks, step.resident) == (128, 0)
+
+
+def test_slstm_bwd_plan_streams_r_that_does_not_fit():
+    plan = tsl.slstm_bwd_plan(8, 512, 16, **H100)
+    assert plan.tiles_per_block == 2 and plan.resident == 1 and not plan.r_resident
+    assert plan.smem_bytes <= H100["smem_per_block"]
+
+
+@pytest.mark.parametrize("heads,dh", [(4, 48), (2, 40), (3, 100), (4, 16)])
+def test_slstm_bwd_plan_masks_a_ragged_dh(heads, dh):
+    plan = tsl.slstm_bwd_plan(heads, dh, 64, **H100)
+    tiles = heads * -(-dh // tsl.COLS)
+    assert plan.blocks * plan.tiles_per_block >= tiles and plan.r_resident
+    assert plan.smem_bytes == (tsl.BT * 4 * dh + 8 * tsl.BT * tsl.COLS + 4 * dh * tsl.COLS) * 4
+
+
+def test_slstm_bwd_plan_covers_every_tile_with_at_most_one_block_an_sm():
+    for heads, dh, sms in [(200, 4, 132), (5, 512, 132), (3, 48, 2), (1, 2048, 132), (7, 100, 16)]:
+        plan = tsl.slstm_bwd_plan(heads, dh, 64, sms, H100["smem_per_block"])
+        tiles = heads * -(-dh // tsl.COLS)
+        assert plan.blocks <= sms and (plan.blocks - 1) * plan.tiles_per_block < tiles
+        assert plan.blocks * plan.tiles_per_block >= tiles
+        assert 0 <= plan.resident <= plan.tiles_per_block
+        assert plan.smem_bytes <= H100["smem_per_block"]
+    with pytest.raises(ValueError, match="shared memory"):
+        tsl.slstm_bwd_plan(1, 8192, 64, **H100)  # four gates of 8192 a row, four rows: 512 KiB
+
+
 # ------------------------------------------------------------------ mLSTM
 def _mlstm_streams(b, s, h, dk, dv):
     """q, k (B, S, H, dk), v (B, S, H, dv), i, f (B, S, H) and a carried state."""
@@ -230,6 +394,41 @@ def test_mlstm_chunkwise_matches_reference(chunk):
     for n in ("C", "n", "m"):
         np.testing.assert_allclose(st[n].numpy(), np.asarray(jst[n]), atol=1e-5, rtol=1e-5,
                                    err_msg=n)
+
+
+def test_mlstm_chunkwise_gradient_is_finite_where_the_reference_overflows():
+    """Forget gates near 0 (f_pre -60): above the chunk's diagonal the decay
+    exponent reaches 60 x 7, exp overflows, and the JAX chunkwise form
+    (where(tri, exp(logw), 0)) returns NaN gradients. The port masks the
+    exponent first: the same outputs, and gradients equal to the sequential
+    scan's (the JAX package's own scan under jax.grad) normwise to 1e-5."""
+    (q, k, v, i_pre, f_pre), state = _mlstm_streams(2, 16, 2, 8, 16)
+    f_pre = (f_pre - 62.0).astype(np.float32)
+    g_h = _np((2, 2, 16, 16))
+    hf = lambda t: np.ascontiguousarray(np.moveaxis(t, 2, 1))  # (B, S, H, *) -> (B, H, S, *)
+    args = [hf(t) for t in (q, k, v, i_pre, f_pre)]
+
+    def jax_loss(form):
+        def loss(q, k, v, i, f):
+            st = {n: jnp.asarray(a) for n, a in state.items()}
+            if form == "chunk":
+                _, h = JX.mlstm_chunkwise(q, k, v, i, f, st, 8)
+            else:
+                xs = tuple(jnp.moveaxis(t, 2, 0) for t in (q, k, v, i, f))
+                _, h = jax.lax.scan(JX._mlstm_step, st, xs)
+                h = jnp.moveaxis(h, 0, 2)
+            return jnp.sum(h * g_h)
+        return jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, args))
+
+    assert any(np.isnan(np.asarray(g)).any() for g in jax_loss("chunk"))  # the reference's fault
+    want = jax_loss("scan")
+    leaves = [_t(a).requires_grad_() for a in args]
+    _, h = TX.mlstm_chunkwise(*leaves, {n: _t(a) for n, a in state.items()}, 8)
+    got = torch.autograd.grad((h * _t(g_h)).sum(), leaves)
+    assert all(np.isfinite(g.numpy()).all() for g in got)
+    # i's gradient is 0 in exact arithmetic here (with f near 0 each step's
+    # output is invariant to the scale of its input gate): held absolutely
+    _assert_grads(got, want, names=("q", "k", "v", "i", "f"))
 
 
 # ----------------------------------------------------------------- blocks

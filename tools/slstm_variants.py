@@ -64,7 +64,8 @@ VARIANTS = {
         ("#pragma unroll 1\n    for (int d = slice;", "#pragma unroll 2\n    for (int d = slice;"),
     ]),
     "rows_4": ("the four-row kernel at B = 1 too", [
-        ("  const void* kernel = b == 1 ?", "  const void* kernel = false ?"),
+        ("           : (b == 1 ? reinterpret_cast<const void*>(slstm_seq_kernel<1, false>)",
+         "           : (false ? reinterpret_cast<const void*>(slstm_seq_kernel<1, false>)"),
     ]),
 }
 SHAPE = dict(h=4, dh=512)  # xlstm-1.3b's sLSTM heads
@@ -99,7 +100,8 @@ def run(lib: ctypes.CDLL, wx: torch.Tensor, r: torch.Tensor, state: dict) -> tor
     err = lib.repro_slstm_seq(
         wx.data_ptr(), r.data_ptr(), state["h"].data_ptr(), *(state[k].data_ptr() for k in "cnm"),
         c.data_ptr(), n.data_ptr(), m.data_ptr(),
-        hs.data_ptr(), counters.data_ptr(), b, s, h, dh, plan.blocks, plan.tiles_per_block,
+        hs.data_ptr(), None, None, None, None, counters.data_ptr(), b, s, h, dh, plan.blocks,
+        plan.tiles_per_block,
         plan.resident, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"repro_slstm_seq: CUDA error {err}")
