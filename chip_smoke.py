@@ -615,11 +615,16 @@ XLSTM_TRAIN_CHUNK = 64
 # t1's sLSTM backward shapes (name, b, s, h, dh, carried state, final-state
 # gradients): xlstm's training rows (t9's) from zero state; a carried state
 # with final-state gradients; S = 1; 6 rows (two passes over a tile); 8 heads,
-# whose r does not fit the SMs' shared memory and is read from L2 in part; dh 48.
+# whose r does not fit the SMs' shared memory and is read from L2 in part (two
+# tiles a block); dh 48; each ROWS template (1, 2 and 4 rows at B = 1, 2, 3)
+# at an odd S (the ring's last slot is 0, where an even S ends on 1); dh 50,
+# whose ring rows are padded to 52 floats.
 SLSTM_BWD_SHAPES = [("xlstm-1.3b training rows", 2, 1024, 4, 512, False, False),
                     ("carried state", 2, 64, 4, 512, True, True), ("S = 1", 2, 1, 4, 512, True, True),
                     ("6 rows", 6, 64, 4, 512, True, True), ("8 heads, r streamed", 2, 64, 8, 512, True, True),
-                    ("dh 48", 2, 64, 4, 48, True, True)]
+                    ("dh 48", 2, 64, 4, 48, True, True), ("1 row, odd S", 1, 65, 4, 512, True, True),
+                    ("2 rows, odd S", 2, 63, 4, 512, True, True), ("3 rows, odd S", 3, 33, 4, 512, True, True),
+                    ("dh 50, ring rows padded", 2, 64, 4, 50, True, True)]
 # The examples (ex1-ex4), each run once on the card through its main():
 # train_e2e at its CI scale for the steps of its own CI-scale recipe.
 EXAMPLE_TRAIN_STEPS = 120
@@ -799,7 +804,7 @@ def phase_build() -> None:
 def short_name(mangled: str) -> str:
     """The kernel's own name and template arguments out of a mangled symbol."""
     for kernel in (*TENSOR_CORE_KERNELS, "flash_kernel", "rmsnorm_kernel", "rmsnorm_bwd_kernel",
-                   "flash_bwd_f32_kernel", "slstm_seq_kernel", "signed_sum", "matmul"):
+                   "flash_bwd_f32_kernel", "slstm_seq_kernel", "slstm_seq_bwd_kernel", "signed_sum", "matmul"):
         if kernel in mangled:
             return mangled[mangled.index(kernel):][:48]
     return mangled[:48]
@@ -3620,7 +3625,8 @@ def time_slstm_bwd(gen: np.random.Generator, reps: int, counts: dict) -> dict:
     log(f"time slstm bwd fp32 {(b, s, 4, h, dh)}: kernel {ms:.5g} ms, plain {plain_ms:.5g} ms, library n/a, "
         f"bound {bms:.5g} ms ({by}), kernel at {bms / ms:.1%} of bound; the recurrence's ops alone bound "
         f"{rec_bound:.5g} ms; dr product alone {dr_ms:.5g} ms; forward at this shape: saving {fwd_save:.5g} ms, "
-        f"serving {fwd:.5g} ms; {(ms - dr_ms) / s * 1e3:.3f} us a step without dr")
+        f"serving {fwd:.5g} ms; a step: backward without dr {(ms - dr_ms) / s * 1e3:.3f} us, forward saving "
+        f"{fwd_save / s * 1e3:.3f} us, serving {fwd / s * 1e3:.3f} us")
     return json_row("slstm_seq_bwd_cuda", counts, dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
                                                         bound_by=by, max_abs_err=max(errs)))
 

@@ -25,14 +25,18 @@ __device__ __forceinline__ void add_release(int* p) {
   asm volatile("red.release.gpu.global.add.s32 [%0], 1;" ::"l"(p) : "memory");
 }
 
+// The calling thread waits, with acquire loads, until *ctr >= target; a wait
+// longer than kWaitLimitNs traps.
+__device__ __forceinline__ void spin_until(const int* ctr, int target) {
+  const unsigned long long t0 = global_ns();
+  while (load_acquire(ctr) < target) {
+    if (global_ns() - t0 > kWaitLimitNs) __trap();
+  }
+}
+
 // Thread 0 waits until *ctr >= target; then the whole block goes on.
 __device__ __forceinline__ void wait_count(const int* ctr, int target) {
-  if (threadIdx.x == 0) {
-    const unsigned long long t0 = global_ns();
-    while (load_acquire(ctr) < target) {
-      if (global_ns() - t0 > kWaitLimitNs) __trap();
-    }
-  }
+  if (threadIdx.x == 0) spin_until(ctr, target);
   __syncthreads();
 }
 

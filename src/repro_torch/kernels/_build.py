@@ -62,8 +62,8 @@ _SIGNATURES = {
     # b, s, h, dh, blocks, tiles per block, resident, stream
     "repro_slstm_seq": [_P] * 15 + [_L] * 7 + [_P],
     # rt, pre, c_all, n_all, m_all, c0, n0, m0, dhs, dh, dc, dn, dm (final), dwx, dh0, dc0, dn0,
-    # dm0, counters, b, s, h, dh, blocks, tiles per block, resident, stream
-    "repro_slstm_seq_bwd": [_P] * 19 + [_L] * 7 + [_P],
+    # dm0, counters, ring, b, s, h, dh, blocks, tiles per block, resident, rows, stream
+    "repro_slstm_seq_bwd": [_P] * 20 + [_L] * 8 + [_P],
     # device, SM count (out), shared memory a block may opt in to (out)
     "repro_device_limits": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
 }

@@ -4,10 +4,11 @@ A loop over S of the port of ``_slstm_step`` (``repro/models/xlstm.py:248-263``:
 the gate pre-activations, then the gates), in fp32 with TF32 off. With ``save`` it
 also returns what the backward reads: every step's gate pre-activations and
 state. :func:`slstm_seq_bwd_ref` is the reverse-time recurrence of the
-backward kernel (``csrc/slstm_bwd.cu:slstm_seq_bwd_kernel``), step by step with
-the kernel's arithmetic (:func:`step_vjp`); the JAX package differentiates
-its scan in XLA. The wrappers use these for CPU tensors; ``chip_smoke.py``
-holds the CUDA kernels against them.
+backward kernel (``csrc/slstm_bwd.cu:slstm_seq_bwd_kernel``), step by step
+with the direct VJP of a step (:func:`step_vjp`); :func:`step_vjp_affine` is
+the kernel's own order of the same arithmetic, which the tests hold to it.
+The JAX package differentiates its scan in XLA. The wrappers use these for
+CPU tensors; ``chip_smoke.py`` holds the CUDA kernels against them.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from torch.nn import functional as F
 
 from repro_torch.core.precision import matmul_precision
 
-__all__ = ["slstm_seq_ref", "step_vjp", "slstm_dr", "slstm_seq_bwd_ref"]
+__all__ = ["slstm_seq_ref", "step_vjp", "step_vjp_affine", "slstm_dr", "slstm_seq_bwd_ref"]
 
 _STATE = ("c", "n", "m", "h")
 
@@ -69,7 +70,7 @@ def slstm_seq_ref(wx: torch.Tensor, r: torch.Tensor, state: Dict[str, torch.Tens
 
 
 def step_vjp(p, c, n, m, c1, n1, m1, dh, dc, dn, dm):
-    """The VJP of one step, elementwise; the backward kernel's ``step_vjp``.
+    """The VJP of one step, elementwise, in the order of the chain rule.
 
     p (B, 4, H, dh): the gate pre-activations; c, n, m: the state before the
     step; c1, n1, m1: after it; dh: the gradient of h_t; dc, dn, dm: those of
@@ -104,6 +105,42 @@ def step_vjp(p, c, n, m, c1, n1, m1, dh, dc, dn, dm):
     return dp, dc1 * fg, dn1 * fg, ga + share_a
 
 
+def step_vjp_affine(p, c, n, m, c1, n1, m1, dh, dc, dn, dm):
+    """:func:`step_vjp` in the backward kernel's order: the saved values and
+    the carried gradients first reduce the step to coefficients affine in dh
+    (each output x0 + dh * x1), which the kernel forms before it waits for
+    the other blocks; dh, which the exchange completes, then enters each
+    output once. The same arguments and results as :func:`step_vjp`, to
+    rounding. At the zero-state tie (n' = 1, m' = pre_i, f = 0) the two terms
+    of pre_i's gradient cancel exactly in dh's coefficient and in
+    :func:`step_vjp`'s order in the constant part.
+    """
+    z = torch.tanh(p[:, 0])
+    lf = F.logsigmoid(p[:, 2])
+    o = torch.sigmoid(p[:, 3])
+    a = lf + m
+    ig = torch.exp(p[:, 1] - m1)
+    fg = torch.exp(a - m1)
+    nn = torch.clamp_min(n1, 1.0)
+    q = 1.0 / nn
+    h = o * c1 / nn
+    kc = q * o  # dc1 = dc + dh * kc
+    kn = torch.where(n1 >= 1.0, -q * h, 0.0)  # dn1 = dn + dh * kn
+    df0, df1 = dc * c + dn * n, kc * c + kn * n
+    di0, di1 = dc * z + dn, kc * z + kn
+    ga0, ga1 = df0 * fg, df1 * fg
+    gi0, gi1 = di0 * ig, di1 * ig
+    dmt0, dmt1 = dm - ga0 - gi0, -ga1 - gi1
+    ta = torch.where(a > p[:, 1], 1.0, torch.where(a == p[:, 1], 0.5, 0.0))
+    ti = torch.where(a < p[:, 1], 1.0, torch.where(a == p[:, 1], 0.5, 0.0))
+    dlf0, dlf1 = ga0 + ta * dmt0, ga1 + ta * dmt1
+    kz = ig * (1.0 - z * z)
+    sf = 1.0 / (1.0 + torch.exp(p[:, 2]))
+    p0 = torch.stack([dc * kz, gi0 + ti * dmt0, dlf0 * sf, torch.zeros_like(dc)], dim=1)
+    p1 = torch.stack([kc * kz, gi1 + ti * dmt1, dlf1 * sf, q * c1 * o * (1.0 - o)], dim=1)
+    return p0 + dh[:, None] * p1, dc * fg + dh * (kc * fg), dn * fg + dh * (kn * fg), dlf0 + dh * dlf1
+
+
 def slstm_dr(h0: torch.Tensor, hs: torch.Tensor, dwx: torch.Tensor) -> torch.Tensor:
     """dr[g,h,d,e] = sum_{b,t} h_{t-1}[b,h,d] dwx[b,t,g,h,e]: one fp32 batched
     product per head over the B * S rows (TF32 off), as XLA forms it in the
@@ -123,11 +160,15 @@ def slstm_seq_bwd_ref(
     saved: Dict[str, torch.Tensor],
     dhs: torch.Tensor,
     dstate: Dict[str, torch.Tensor],
+    *,
+    vjp=step_vjp,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """The gradients of ``slstm_seq_ref(wx, r, state)``'s outputs, given the
     saving forward's ``hs`` and ``saved``, the gradient ``dhs`` of hs and
     ``dstate`` of the final state. Returns (dwx (B, S, 4, H, dh), dr (4, H,
-    dh, dh), the initial state's gradients {c, n, m, h}), all fp32."""
+    dh, dh), the initial state's gradients {c, n, m, h}), all fp32. ``vjp``
+    is a step's VJP: :func:`step_vjp`, or the kernel's order of it,
+    :func:`step_vjp_affine`."""
     r32 = r.float()
     pre = saved["pre"]
     s = pre.shape[1]
@@ -136,8 +177,8 @@ def slstm_seq_bwd_ref(
     dwx = []
     for t in range(s - 1, -1, -1):
         prev = {k: state[k].float() if t == 0 else saved[k][:, t - 1] for k in ("c", "n", "m")}
-        dp, dc, dn, dm = step_vjp(pre[:, t], prev["c"], prev["n"], prev["m"], saved["c"][:, t],
-                                  saved["n"][:, t], saved["m"][:, t], dhs[:, t] + rec, dc, dn, dm)
+        dp, dc, dn, dm = vjp(pre[:, t], prev["c"], prev["n"], prev["m"], saved["c"][:, t],
+                             saved["n"][:, t], saved["m"][:, t], dhs[:, t] + rec, dc, dn, dm)
         dwx.append(dp)
         with matmul_precision("highest"):
             rec = torch.einsum("bghe,ghde->bhd", dp, r32)

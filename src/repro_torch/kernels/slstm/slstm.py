@@ -20,7 +20,7 @@ checked without one.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import Dict, Tuple
 
 import torch
@@ -30,16 +30,15 @@ from repro_torch.kernels.common import cdiv, on_cuda
 from repro_torch.kernels.slstm.ref import slstm_dr, slstm_seq_bwd_ref, slstm_seq_ref
 from repro_torch.obs.tracer import get_tracer
 
-__all__ = ["slstm_seq_cuda", "slstm_seq_bwd_cuda", "slstm_plan", "slstm_bwd_plan", "SlstmPlan"]
+__all__ = ["slstm_seq_cuda", "slstm_seq_bwd_cuda", "slstm_plan", "slstm_bwd_plan", "SlstmPlan", "SlstmBwdPlan"]
 
 _STATE = ("c", "n", "m", "h")
 
 # The kernels' constants (csrc/slstm.cuh): columns per tile, batch rows per
-# pass, and the floats of their reduction buffers (8 warps x BT x 4 x COLS in
-# the forward, 8 x BT x COLS in the backward).
+# pass at most, and the floats of the forward's reduction buffer (8 warps x
+# BT x 4 x COLS; the backward's is 8 x ROWS x COLS).
 COLS, BT = 16, 4
 _RED_FLOATS = 8 * BT * 4 * COLS
-_BWD_RED_FLOATS = 8 * BT * COLS
 _SAVED = ("pre", "c", "n", "m")
 
 
@@ -68,6 +67,22 @@ class SlstmPlan:
         return self.resident == self.tiles_per_block
 
 
+@dataclass(frozen=True)
+class SlstmBwdPlan(SlstmPlan):
+    """The backward kernel's plan: :class:`SlstmPlan` and
+
+    ``rows``, the batch rows a pass (the kernel's ROWS template: 1 at B = 1,
+    2 at B = 2, else BT); ``ring_floats``, the size of the ring through which
+    the blocks exchange dpre, 2 slots x H x B x 4 gates x ``dh_pad`` (dh
+    rounded up to 4 floats, so that every block's staging is one 16-byte
+    aligned run of float4 loads).
+    """
+
+    rows: int = BT
+    dh_pad: int = 0
+    ring_floats: int = 0
+
+
 def slstm_plan(heads: int, dh: int, steps: int, sms: int, smem_per_block: int) -> SlstmPlan:
     """The launch plan of ``steps`` steps at H heads of width dh on a device
     with ``sms`` SMs and ``smem_per_block`` bytes of shared memory a block may
@@ -82,13 +97,20 @@ def slstm_plan(heads: int, dh: int, steps: int, sms: int, smem_per_block: int) -
     return _plan(heads, dh, steps, sms, smem_per_block, (BT * dh + _RED_FLOATS) * 4)
 
 
-def slstm_bwd_plan(heads: int, dh: int, steps: int, sms: int, smem_per_block: int) -> SlstmPlan:
-    """The backward kernel's plan, made as :func:`slstm_plan`'s: a tile is
-    COLS columns of r's d index (its slice of r, transposed, is the
-    forward's size), and a pass stages four gates of dpre a row (BT x 4 x
-    dh). Over S steps it forms S dot-product passes (none at t = S-1, one at
-    t = -1), so at S = 1 r is read once and nothing is made resident."""
-    return _plan(heads, dh, steps, sms, smem_per_block, (BT * 4 * dh + _BWD_RED_FLOATS) * 4)
+def slstm_bwd_plan(heads: int, dh: int, steps: int, sms: int, smem_per_block: int, *,
+                   batch: int) -> SlstmBwdPlan:
+    """The backward kernel's plan for ``batch`` rows, made as
+    :func:`slstm_plan`'s: a tile is COLS columns of r's d index (its slice
+    of r, transposed, is the forward's size), and a pass stages four gates
+    of dpre a row (rows x 4 x dh_pad floats) from the exchange ring. Over S steps it forms S dot-product passes
+    (none at t = S-1, one at t = -1), so at S = 1 r is read once and nothing
+    is made resident."""
+    if batch < 1:
+        raise ValueError(f"bad sLSTM backward batch {batch}")
+    rows = batch if batch <= 2 else BT
+    dh_pad = cdiv(dh, 4) * 4
+    plan = _plan(heads, dh, steps, sms, smem_per_block, (rows * 4 * dh_pad + 8 * rows * COLS) * 4)
+    return SlstmBwdPlan(**asdict(plan), rows=rows, dh_pad=dh_pad, ring_floats=2 * heads * batch * 4 * dh_pad)
 
 
 def _plan(heads: int, dh: int, steps: int, sms: int, smem_per_block: int, fixed: int) -> SlstmPlan:
@@ -188,14 +210,15 @@ def slstm_seq_bwd_cuda(
     rt = r.transpose(-1, -2).contiguous()  # rt[g, h, e, d] = r[g, h, d, e]
     dwx = torch.empty_like(saved["pre"])
     d0 = {k: torch.empty_like(state[k]) for k in _STATE}
+    plan = slstm_bwd_plan(h, dh, s, *_build.device_limits(r.device), batch=b)
     counters = torch.zeros(h, dtype=torch.int32, device=r.device)
-    plan = slstm_bwd_plan(h, dh, s, *_build.device_limits(r.device))
+    ring = torch.empty(plan.ring_floats, dtype=torch.float32, device=r.device)  # the kernel writes before it reads
     _build.launch(
         "repro_slstm_seq_bwd", r.device, rt.data_ptr(), *(saved[k].data_ptr() for k in _SAVED),
         *(state[k].data_ptr() for k in ("c", "n", "m")), dhs.data_ptr(),
         *(dstate[k].data_ptr() for k in ("h", "c", "n", "m")), dwx.data_ptr(),
-        *(d0[k].data_ptr() for k in ("h", "c", "n", "m")), counters.data_ptr(), b, s, h, dh,
-        plan.blocks, plan.tiles_per_block, plan.resident,
+        *(d0[k].data_ptr() for k in ("h", "c", "n", "m")), counters.data_ptr(), ring.data_ptr(), b, s, h, dh,
+        plan.blocks, plan.tiles_per_block, plan.resident, plan.rows,
     )
     slstm_seq_bwd_cuda.launches += 1
     with get_tracer().span("slstm.dr", cat="slstm"):  # a span a profiled step can attribute

@@ -689,11 +689,15 @@ def test_cuda_fused_and_slstm_raise_under_grad(cuda):
 
 # (b, s, h, dh, carried, final-state gradients) of the sLSTM backward: xlstm's
 # training rows from zero state, a carried state with final-state gradients,
-# S = 1, 6 rows (two passes over a tile), 8 heads whose r is streamed, dh 48
-# and a dh that is not a multiple of 16.
+# S = 1, 6 rows (two passes over a tile), 8 heads whose r is streamed (two
+# tiles a block), dh 48 and a dh that is not a multiple of 16; each ROWS
+# template (B = 1, 2, 3, 4) at odd and even S (the ring's slot parity); dh
+# 10, whose ring rows are padded to 12 floats and whose r is read without
+# float4 loads.
 SLSTM_BWD_CASES = [(2, 256, 4, 512, False, False), (2, 64, 4, 512, True, True), (2, 1, 4, 512, True, True),
                    (6, 32, 4, 512, True, True), (2, 16, 8, 512, True, True), (2, 64, 4, 48, True, True),
-                   (3, 9, 2, 40, True, True), (1, 40, 2, 8, False, True)]
+                   (3, 9, 2, 40, True, True), (1, 40, 2, 8, False, True), (2, 63, 4, 512, True, True),
+                   (1, 33, 4, 512, True, False), (4, 18, 2, 64, False, True), (2, 7, 2, 10, True, True)]
 
 
 @pytest.mark.cuda

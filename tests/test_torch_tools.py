@@ -1,9 +1,10 @@
 """The port's tools that run on the card, checked here where they can be.
 
 ``tools/matmul_variants.py``, ``tools/slstm_variants.py``,
-``tools/rmsnorm_variants.py`` and ``tools/signed_sum_variants.py`` build
-design variants of the tiled matmul, sLSTM, RMSNorm and divide/combine
-kernels by replacing lines of their ``csrc/*.cu``; each
+``tools/slstm_bwd_variants.py``, ``tools/rmsnorm_variants.py`` and
+``tools/signed_sum_variants.py`` build design variants of the tiled matmul,
+sLSTM forward and backward, RMSNorm and divide/combine kernels by replacing
+lines of their ``csrc/*.cu``; each
 replacement must still find its line in the shipped source, or the tool
 stops on the card.
 """
@@ -51,6 +52,22 @@ def test_every_slstm_variant_applies_and_refuses_without_a_gpu(monkeypatch):
     assert "wait_count(counters" not in tool.variant_source("no_wait")
     monkeypatch.setattr(tool.torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr("sys.argv", ["slstm_variants.py"])
+    assert tool.main() == 2
+
+
+def test_every_slstm_bwd_variant_applies_and_refuses_without_a_gpu(monkeypatch):
+    tool = _tool("slstm_bwd_variants")
+    shipped = (tool.CSRC / "slstm_bwd.cu").read_text()
+    for name in tool.VARIANTS:
+        text = tool.variant_source(name)
+        assert text is not None and text != shipped and "repro_slstm_seq_bwd" in text, name
+    assert tool.has_ring(shipped)
+    assert "tile_dots_bwd<ROWS, true>" not in tool.variant_source("exchange_only")
+    assert "spin_until(counters" not in tool.variant_source("no_wait")
+    assert "for (int bb = 0; bb < nb; ++bb)" in tool.variant_source("serial_staging")
+    assert '"n"(STAGERS)' not in tool.variant_source("block_staging")
+    monkeypatch.setattr(tool.torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["slstm_bwd_variants.py"])
     assert tool.main() == 2
 
 

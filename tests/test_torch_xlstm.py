@@ -22,9 +22,12 @@ The sLSTM backward's plain version (``slstm_seq_bwd_ref``, fed the saving
 forward's tensors) is held to ``torch.autograd`` through ``slstm_seq_ref``
 and to ``jax.grad`` of the JAX oracle, each gradient normwise to 1e-5, from
 a zero and a carried state, with and without final-state gradients, at
-S = 1 and dh 48 (the m tie of the step against autograd alone); ``SlstmSeq`` on the CPU gives
-autograd's gradients; and the backward kernel's launch plan
-(``slstm_bwd_plan``) is checked as the forward's is.
+S = 1 and dh 48 (the m tie of the step against autograd alone), with the
+kernel's affine step (``step_vjp_affine``) and the direct one
+(``step_vjp``), which are also held to each other at both ties; ``SlstmSeq``
+on the CPU gives autograd's gradients; and the backward kernel's launch plan
+(``slstm_bwd_plan``: rows a pass, the exchange ring, shared memory) is
+checked as the forward's is.
 """
 import dataclasses
 
@@ -46,7 +49,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import params_from_jax, tensor_from_numpy
 from repro_torch.kernels.slstm import slstm as tsl
 from repro_torch.kernels.slstm.ops import SlstmSeq, slstm_seq
-from repro_torch.kernels.slstm.ref import slstm_seq_bwd_ref, slstm_seq_ref
+from repro_torch.kernels.slstm.ref import _gates, slstm_seq_bwd_ref, slstm_seq_ref, step_vjp, step_vjp_affine
 from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 from repro_torch.models import xlstm as TX
@@ -253,31 +256,79 @@ def _assert_grads(got, want, names=("wx", "r", *STATE)):
             assert err <= BWD_REL * np.linalg.norm(w), (name, err / np.linalg.norm(w))
 
 
+VJPS = {"affine": step_vjp_affine, "direct": step_vjp}
+
+
+@pytest.mark.parametrize("form", list(VJPS))
 @pytest.mark.parametrize("b,s,h,dh,kind,final", SLSTM_BWD_CASES)
-def test_slstm_seq_bwd_ref_matches_autograd_and_jax(b, s, h, dh, kind, final):
+def test_slstm_seq_bwd_ref_matches_autograd_and_jax(b, s, h, dh, kind, final, form):
     wx, r, state, dhs, dfin = _slstm_bwd_inputs(b, s, h, dh, kind, final)
     st = {k: _t(v) for k, v in state.items()}
     _, hs, saved = slstm_seq_ref(_t(wx), _t(r), st, save=True)
     if kind == "zero":  # the first step sits on max(n', 1)'s tie
         assert bool((saved["n"][:, 0] == 1.0).all())
-    dwx, dr, d0 = slstm_seq_bwd_ref(_t(r), st, hs, saved, _t(dhs), {k: _t(v) for k, v in dfin.items()})
+    dwx, dr, d0 = slstm_seq_bwd_ref(_t(r), st, hs, saved, _t(dhs), {k: _t(v) for k, v in dfin.items()},
+                                    vjp=VJPS[form])
     got = [dwx, dr, *(d0[k] for k in STATE)]
     _assert_grads(got, _torch_grads(slstm_seq_ref, wx, r, state, dhs, dfin))
     _assert_grads(got, _jax_grads(wx, r, state, dhs, dfin))
 
 
-def test_slstm_seq_bwd_ref_splits_the_m_tie_as_autograd_does():
+@pytest.mark.parametrize("form", list(VJPS))
+def test_slstm_seq_bwd_ref_splits_the_m_tie_as_autograd_does(form):
     """log_f + m == pre_i exactly at the first step: the plain backward splits
-    m''s gradient in halves there, as torch.maximum's does. (The JAX oracle's
-    gradient at this point gives all of it to pre_i, another subgradient of
-    the same max: the two lie 4e-2 apart in dwx, so this case is held to
-    PyTorch's autograd alone.)"""
+    m''s gradient in halves there, as torch.maximum's does, in either form of
+    the step. (The JAX oracle's gradient at this point gives all of it to
+    pre_i, another subgradient of the same max: the two lie 4e-2 apart in
+    dwx, so this case is held to PyTorch's autograd alone.)"""
     wx, r, state, dhs, dfin = _slstm_bwd_inputs(1, 4, 2, 8, "tie_m", True)
     st = {k: _t(v) for k, v in state.items()}
     _, hs, saved = slstm_seq_ref(_t(wx), _t(r), st, save=True)
     assert bool((saved["m"][:, 0] == 0.5).all())
-    dwx, dr, d0 = slstm_seq_bwd_ref(_t(r), st, hs, saved, _t(dhs), {k: _t(v) for k, v in dfin.items()})
+    dwx, dr, d0 = slstm_seq_bwd_ref(_t(r), st, hs, saved, _t(dhs), {k: _t(v) for k, v in dfin.items()},
+                                    vjp=VJPS[form])
     _assert_grads([dwx, dr, *(d0[k] for k in STATE)], _torch_grads(slstm_seq_ref, wx, r, state, dhs, dfin))
+
+
+def _step_point(kind, b=2, h=2, dh=8):
+    """One step's pre-activations (h_prev = 0, so pre = wx_t), the state
+    before it and the cotangents of the state after: from a zero state (n' =
+    1, m' = pre_i), at the m tie (log_f + m == pre_i, c and n carried) or
+    from a carried state."""
+    wx, _, state, _, _ = _slstm_bwd_inputs(b, 1, h, dh, kind, False)
+    if kind == "tie_m":
+        state["c"], state["n"] = _np((b, h, dh)), np.abs(_np((b, h, dh))) + 1.0
+    cot = {k: _np((b, h, dh)) for k in STATE}
+    return wx[:, 0], {k: state[k] for k in ("c", "n", "m")}, cot
+
+
+@pytest.mark.parametrize("kind", ["zero", "tie_m", "carried"])
+def test_step_vjp_affine_matches_step_vjp_and_autograd(kind):
+    """One step's VJP in the kernel's affine form against the direct form (to
+    rounding) and against autograd through the step: PyTorch's everywhere,
+    and JAX's except at the m tie, where it takes another subgradient (see
+    the test above). At the zero state pre_i's two terms cancel."""
+    wx, st, cot = _step_point(kind)
+    leaves = [_t(wx).requires_grad_(), *(_t(st[k]).requires_grad_() for k in ("c", "n", "m"))]
+    new = _gates(leaves[0], dict(zip(("c", "n", "m"), leaves[1:])))
+    if kind == "zero":
+        assert bool((new["n"] == 1.0).all())
+    if kind == "tie_m":
+        assert bool((torch.nn.functional.logsigmoid(leaves[0][:, 2]) + leaves[3] == leaves[0][:, 1]).all())
+    want = torch.autograd.grad(sum((new[k] * _t(cot[k])).sum() for k in STATE), leaves)
+    args = (*(x.detach() for x in leaves), *(new[k].detach() for k in ("c", "n", "m")),
+            _t(cot["h"]), *(_t(cot[k]) for k in ("c", "n", "m")))
+    got, direct = step_vjp_affine(*args), step_vjp(*args)
+    for g, d in zip(got, direct):
+        _close(g, d.numpy(), rel=1e-6)
+    _assert_grads(got, want, names=("wx", "c", "n", "m"))
+    if kind != "tie_m":
+        def step(wx, c, n, m):  # h_prev = 0: r plays no part
+            r = jnp.zeros((4, *c.shape[1:], c.shape[-1]))
+            return JX._slstm_step(r, {"c": c, "n": n, "m": m, "h": jnp.zeros_like(c)}, wx)[0]
+
+        _, pull = jax.vjp(step, *(jnp.asarray(x) for x in (wx, st["c"], st["n"], st["m"])))
+        _assert_grads(got, pull({k: jnp.asarray(cot[k]) for k in STATE}), names=("wx", "c", "n", "m"))
 
 
 @pytest.mark.parametrize("b,s,h,dh,kind,final", SLSTM_BWD_CASES[:4])
@@ -322,24 +373,24 @@ def test_slstm_bwd_plan_keeps_r_resident_at_xlstm_width():
     """xlstm-1.3b's training shape, 4 heads of 512 on an H100: the forward's
     grid (128 blocks, 32 a head, 16 columns of r's d index each), each
     block's 128 KiB slice of r resident beside four gates of dpre a row."""
-    plan = tsl.slstm_bwd_plan(4, 512, 1024, **H100)
+    plan = tsl.slstm_bwd_plan(4, 512, 1024, **H100, batch=2)
     fwd = tsl.slstm_plan(4, 512, 1024, **H100)
     assert (plan.blocks, plan.blocks_per_head, plan.tiles_per_block) == (fwd.blocks, 32, 1)
-    assert plan.r_resident and 128 * 1024 + tsl.BT * 4 * 512 * 4 < plan.smem_bytes <= H100["smem_per_block"]
+    assert plan.r_resident and 128 * 1024 + plan.rows * 4 * 512 * 4 < plan.smem_bytes <= H100["smem_per_block"]
     assert plan.smem_bytes > fwd.smem_bytes
-    step = tsl.slstm_bwd_plan(4, 512, 1, **H100)  # one dot-product pass: r read once
+    step = tsl.slstm_bwd_plan(4, 512, 1, **H100, batch=2)  # one dot-product pass: r read once
     assert (step.blocks, step.resident) == (128, 0)
 
 
 def test_slstm_bwd_plan_streams_r_that_does_not_fit():
-    plan = tsl.slstm_bwd_plan(8, 512, 16, **H100)
+    plan = tsl.slstm_bwd_plan(8, 512, 16, **H100, batch=2)
     assert plan.tiles_per_block == 2 and plan.resident == 1 and not plan.r_resident
     assert plan.smem_bytes <= H100["smem_per_block"]
 
 
 @pytest.mark.parametrize("heads,dh", [(4, 48), (2, 40), (3, 100), (4, 16)])
 def test_slstm_bwd_plan_masks_a_ragged_dh(heads, dh):
-    plan = tsl.slstm_bwd_plan(heads, dh, 64, **H100)
+    plan = tsl.slstm_bwd_plan(heads, dh, 64, **H100, batch=4)
     tiles = heads * -(-dh // tsl.COLS)
     assert plan.blocks * plan.tiles_per_block >= tiles and plan.r_resident
     assert plan.smem_bytes == (tsl.BT * 4 * dh + 8 * tsl.BT * tsl.COLS + 4 * dh * tsl.COLS) * 4
@@ -347,14 +398,41 @@ def test_slstm_bwd_plan_masks_a_ragged_dh(heads, dh):
 
 def test_slstm_bwd_plan_covers_every_tile_with_at_most_one_block_an_sm():
     for heads, dh, sms in [(200, 4, 132), (5, 512, 132), (3, 48, 2), (1, 2048, 132), (7, 100, 16)]:
-        plan = tsl.slstm_bwd_plan(heads, dh, 64, sms, H100["smem_per_block"])
+        plan = tsl.slstm_bwd_plan(heads, dh, 64, sms, H100["smem_per_block"], batch=4)
         tiles = heads * -(-dh // tsl.COLS)
         assert plan.blocks <= sms and (plan.blocks - 1) * plan.tiles_per_block < tiles
         assert plan.blocks * plan.tiles_per_block >= tiles
         assert 0 <= plan.resident <= plan.tiles_per_block
         assert plan.smem_bytes <= H100["smem_per_block"]
     with pytest.raises(ValueError, match="shared memory"):
-        tsl.slstm_bwd_plan(1, 8192, 64, **H100)  # four gates of 8192 a row, four rows: 512 KiB
+        tsl.slstm_bwd_plan(1, 8192, 64, **H100, batch=4)  # four gates of 8192 a row, four rows: 512 KiB
+
+
+@pytest.mark.parametrize("batch,rows", [(1, 1), (2, 2), (3, 4), (4, 4), (6, 4)])
+def test_slstm_bwd_plan_picks_the_rows_template_for_the_batch(batch, rows):
+    """One row a pass at B = 1, two at B = 2 (xlstm's training rows), BT
+    otherwise (B = 6 takes two passes); the shared memory holds r's tile,
+    the pass's staged rows and its reduction buffer."""
+    plan = tsl.slstm_bwd_plan(4, 512, 64, **H100, batch=batch)
+    assert plan.rows == rows and plan.tiles_per_block == 1
+    assert plan.smem_bytes == (4 * 512 * tsl.COLS + rows * 4 * 512 + 8 * rows * tsl.COLS) * 4
+
+
+@pytest.mark.parametrize("heads,dh,batch,dh_pad", [(4, 512, 2, 512), (2, 50, 3, 52), (1, 7, 1, 8), (3, 48, 6, 48)])
+def test_slstm_bwd_plan_sizes_the_ring_and_the_staging_in_whole_16_bytes(heads, dh, batch, dh_pad):
+    """The dpre ring holds 2 slots x H x B x 4 gates x dh_pad floats, dh
+    rounded up to 4, so that a pass's rows are one 16-byte-aligned run of
+    whole float4s (128 KiB at xlstm's training rows, which L2 keeps); the
+    shared memory counts the staged rows at dh_pad too."""
+    plan = tsl.slstm_bwd_plan(heads, dh, 64, **H100, batch=batch)
+    assert plan.dh_pad == dh_pad and plan.ring_floats == 2 * heads * batch * 4 * dh_pad
+    assert (plan.rows * 4 * plan.dh_pad * 4) % 16 == 0
+    fixed = (plan.rows * 4 * dh_pad + 8 * plan.rows * tsl.COLS) * 4
+    assert plan.smem_bytes == fixed + plan.resident * 4 * dh * tsl.COLS * 4
+    if (heads, dh, batch) == (4, 512, 2):
+        assert plan.ring_floats * 4 == 128 * 1024
+    with pytest.raises(ValueError, match="batch"):
+        tsl.slstm_bwd_plan(heads, dh, 64, **H100, batch=0)
 
 
 # ------------------------------------------------------------------ mLSTM
