@@ -101,6 +101,52 @@ o7. SPIN at 8192^2 fp32 under 128 MiB: ``backend.inverse(kind="spin_oot")``
 o8. kind auto with ``device_budget`` at 16384^2: each out-of-core candidate's
     predicted against measured seconds, and the decision.
 
+The sharded path runs the models on a (data 2, model 2) mesh of positions
+on the card (``launch/mesh.py:make_mesh_for(4, model_parallel=2)``, under
+``models.sharding.use_sharding``): every projection that carries
+``w_logical``, every attention core and every expert FFN runs once per
+distinct slab on its positions, with the collectives in ``mesh.traffic``.
+Each phase prints its times beside the unsharded run's, ``mesh.traffic`` by
+kind and axes, and the card's name and power limit; every launch count it
+checks is computed from the specs (``core.mesh.distinct_slabs``):
+
+s1. (after m7) ``backend.matmul`` with ``w_logical`` at phi4's shapes, x
+    (2048, 3072) against wq (3072, 3072) ``("fsdp", "heads")`` and x (2048,
+    8192) against down (8192, 3072) ``("d_ff", "fsdp")``, kinds naive,
+    strassen and strassen_fused at depth 1, fp32 and bf16: each against the
+    same call with no context at the matmul-type kernel bounds (bf16
+    Strassen kinds: both against the fp32 product, the sharded one within
+    MAIN_LIMIT and BF16_SPREAD times the unsharded one's error), strassen1
+    launches equal to the distinct slab pairs, and ``mesh.traffic`` equal
+    to its closed form ((data - 1) x w's bytes all-gathered over data; 2
+    (model - 1) x each data group's output bytes summed over model);
+s2. (after f1) phi4-mini-3.8B served through ``launch/serve.py``'s mesh
+    path (``launcher_mesh``, ``place``): phase (b)'s 8 requests under its
+    ``ServeConfig``, every one ending by length with no page left in use,
+    flash launches per prefill equal to the specs' head slabs, and two
+    requests' served tokens within phase (c)'s near-tie rule of the
+    unsharded dense route; TTFT, TPOT, tokens/s, the 1024-token prefill and
+    the decode step with their device splits, beside the unsharded run's;
+s3. a 1024-token phi4 prefill through kind strassen_fused depth 1 under the
+    mesh: strassen1 launches equal to the specs' slab pairs, and, as (e)
+    holds the unsharded fused prefill, logits within STRASSEN_LIMIT of the
+    naive prefill and no more than BF16_SPREAD times as far from it as the
+    unsharded fused prefill (the distance between the two fused prefills is
+    printed);
+s4. (after the training path) one fp32 train step at t2's widths (2 layers,
+    vocab 8192, batch 2 x 128) under the mesh against the unsharded step on
+    the card from the same state, at t2's limits, with the backward kernels'
+    launches from the specs; then accum 2 against accum 1, both through
+    ``launch/train.py``'s ``build(mesh=...)``: updates within 1e-3 normwise;
+s5. phi4 at full width cut to 4 layers, bf16: 3 steps of 2 x 1024 tokens
+    through ``train_loop`` with the mesh, losses and grad norms finite, the
+    flash backward's launches per step from the specs; the step time beside
+    the unsharded loop's, ``mesh.traffic`` per step and the allocator peak;
+s6. olmoe-1b-7b at full width cut to 2 layers, bf16, per-row dispatch
+    groups: a 1024-token prefill under the mesh with ``moe_expert_parallel``
+    on and then off, logits within SHARD_LIMIT normwise of the
+    unsharded prefill, and the dispatch and combine reshard bytes.
+
 The second path serves phi4-mini-3.8B (random weights from ``--seed``, bf16,
 full width and depth) through the continuous-batching ``Engine``:
 
@@ -363,10 +409,11 @@ from repro_torch.core.backend import (  # noqa: E402
     inverse,
     is_oom_error,
     matmul,
+    sharded_layouts,
     solve_triangular,
 )
 from repro_torch.core.coefficients import get_scheme  # noqa: E402
-from repro_torch.core.mesh import make_mesh  # noqa: E402
+from repro_torch.core.mesh import distinct_slabs, make_mesh  # noqa: E402
 from repro_torch.core.strassen import (  # noqa: E402
     combine_level,
     divide_level,
@@ -405,7 +452,11 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.frontends import make_stub_frames  # noqa: E402
 from repro_torch.models.rglru import init_rglru_state, rglru_block  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.launch.mesh import format_traffic, launcher_mesh, make_mesh_for  # noqa: E402
+from repro_torch.launch.specs import place  # noqa: E402
+from repro_torch.models.sharding import DEFAULT_RULES, use_sharding  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, OptState, apply_updates  # noqa: E402
 from repro_torch.runtime.checkpoint import load_pytree, save_pytree  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
@@ -684,6 +735,28 @@ def route_limit(cand, dtype: torch.dtype) -> float:
     return ROUTE_LIMIT.get((cand.kind, cand.depth, dtype), MAIN_LIMIT[dtype])
 
 # Where every tensor of the run lives.
+# The sharded path (s1-s6): a (data 2, model 2) mesh of positions on the card.
+SHARD_POSITIONS, SHARD_MODEL = 4, 2
+SHARD_PROJECTIONS = (("attn.wq", 2048, 3072, 3072, ("fsdp", "heads")),
+                     ("mlp.down", 2048, 8192, 3072, ("d_ff", "fsdp")))
+SHARD_KINDS = ("naive", "strassen", "strassen_fused")
+SHARD_FUSED = MatmulBackend(kind="strassen_fused", depth=1, min_dim=1024)
+# Sharded logits against the unsharded ones, normwise, where both take the
+# plain products (s6): the positions round their slabs' products as the
+# whole product does, but a row-parallel projection adds its partial
+# products in bf16 (as the JAX package's psum of bf16 dot outputs does), one
+# more bf16 rounding per projection. Where the projections run Strassen in
+# bf16 (s1's strassen kinds, s3), a slab's quadrants are other blocks than
+# the whole matrix's, so the two routes round different operand sums, each
+# about as far from exact as Strassen's bf16 rounding takes it (phase (e):
+# 3.1e-2 from the plain prefill). There each route is held to the plain
+# (fp32 or naive) result: the sharded one within the route's limit and no
+# more than BF16_SPREAD times as far as the unsharded one.
+SHARD_LIMIT = 2e-2
+SHARD_STEP = dict(batch=2, seq=128)
+SHARD_TRAIN = dict(n_layers=4, steps=3, batch=2, seq=1024, cycle=1)
+SHARD_MOE_LAYERS = 2
+
 DEVICE = "cuda"
 
 FAILURES: list = []
@@ -1876,9 +1949,11 @@ def per_forward(cfg) -> dict:
             "slstm_seq_cuda": kinds.count("slstm")}
 
 
-def phase_serve(cfg, params, prompts: list, serve: dict = SERVE) -> dict:
-    """(b), (h), (p2), (p6), (r2) Serve the requests at full width; returns the
-    launch counts, the handles, the wall time and the peak memory."""
+def phase_serve(cfg, params, prompts: list, serve: dict = SERVE, flash_slabs: int = 1) -> dict:
+    """(b), (h), (p2), (p6), (r2), (s2) Serve the requests at full width; returns
+    the launch counts, the handles, the wall time and the peak memory. Under a
+    mesh (s2) each attention layer of a prefill launches flash once per head
+    slab (``flash_slabs``)."""
     engine = Engine(cfg, params, ServeConfig(**serve), device=DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1907,11 +1982,11 @@ def phase_serve(cfg, params, prompts: list, serve: dict = SERVE) -> dict:
         fail(f"serve: {st['pages_in_use']} pages still in use after every request finished")
     each = per_forward(cfg)
     want = {"rmsnorm_cuda": each["rmsnorm_cuda"] * forwards,
-            "flash_attention_cuda": each["flash_attention_cuda"] * st["prefills"],
+            "flash_attention_cuda": each["flash_attention_cuda"] * flash_slabs * st["prefills"],
             "slstm_seq_cuda": each["slstm_seq_cuda"] * forwards}
     log(f"serve launches: {counts} (want rmsnorm {each['rmsnorm_cuda']} and sLSTM "
         f"{each['slstm_seq_cuda']} x {forwards} forwards, flash {each['flash_attention_cuda']} "
-        f"x {st['prefills']} prefills)")
+        f"x {flash_slabs} x {st['prefills']} prefills)")
     for name, n in want.items():
         if counts[name] != n:
             fail(f"serve: {name} launched {counts[name]} times, want {n}")
@@ -3297,10 +3372,12 @@ def train_flops(cfg, n_params: int, tokens: int, batch: int, seq: int) -> dict:
             "attention": (1 + (1 if cfg.remat else 0) + 2.5) * attn}
 
 
-def run_train_loop(cfg, opt, run: dict, seed: int, what: str) -> tuple:
+def run_train_loop(cfg, opt, run: dict, seed: int, what: str, mesh=None,
+                   falling: bool = True) -> tuple:
     """Train ``cfg`` through launch/train.py's train_loop; returns (state,
     history, stats, launch counts, peak GiB, wall s) with the gates checked:
-    losses and grad norms finite, the last loss below the first."""
+    losses and grad norms finite and, with ``falling``, the last loss below
+    the first."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -3309,7 +3386,7 @@ def run_train_loop(cfg, opt, run: dict, seed: int, what: str) -> tuple:
     t = time.perf_counter()
     state, history = train_mod.train_loop(
         cfg, opt, steps=run["steps"], batch=run["batch"], seq=run["seq"], seed=seed,
-        stats_out=stats, device=DEVICE, data_cycle=run["cycle"], log_every=1)
+        stats_out=stats, device=DEVICE, data_cycle=run["cycle"], log_every=1, mesh=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = {fn.__name__: fn.launches for fn in ALL_KERNELS}
@@ -3320,7 +3397,7 @@ def run_train_loop(cfg, opt, run: dict, seed: int, what: str) -> tuple:
         f"{after.get('num_alloc_retries', 0) - before.get('num_alloc_retries', 0)} alloc retries, "
         f"{after.get('num_device_alloc', 0) - before.get('num_device_alloc', 0)} cudaMalloc calls")
     finite = all(np.isfinite(history)) and all(np.isfinite(stats["grad_norm"]))
-    ok = finite and len(history) == run["steps"] and history[-1] < history[0]
+    ok = finite and len(history) == run["steps"] and (history[-1] < history[0] or not falling)
     log(f"{what}: {run['steps']} steps of {run['batch']} x {run['seq']} tokens cycling "
         f"{run['cycle']} batches in {wall:.1f} s; loss {' '.join(f'{x:.4f}' for x in history)}; grad "
         f"norm {' '.join(f'{x:.3f}' for x in stats['grad_norm'])}; finite {finite}, last below "
@@ -3653,6 +3730,331 @@ def run_training(seed: int, reps: int, smi: str) -> list:
     return phase_train_timing(reps, phi_counts, whisper_counts, rg_counts, xlstm_counts)
 
 
+# ------------------------------------------------------------ sharded path
+def shard_mesh():
+    """The sharded path's (data 2, model 2) mesh, every position on the card."""
+    return make_mesh_for(SHARD_POSITIONS, SHARD_MODEL, device=DEVICE)
+
+
+def q_slabs(mesh, cfg, batch: int, seq: int) -> int:
+    """Attention-core calls per attention layer under ``mesh``: the distinct
+    (batch slab, head slab) of q (batch, heads, seq, head_dim)."""
+    shape = (batch, cfg.n_heads, seq, cfg.head_dim)
+    spec = DEFAULT_RULES.spec(mesh, ("batch", "heads", "seq", "head_dim"), shape, allow_uneven=True)
+    return distinct_slabs(mesh, (spec, shape))
+
+
+def projection_pairs(mesh, rows: int, k: int, n: int, w_logical) -> int:
+    """The distinct (x slab, w slab) pairs of one sharded projection."""
+    _, wg_spec, x_spec, _ = sharded_layouts(mesh, DEFAULT_RULES, rows, k, n, w_logical)
+    return distinct_slabs(mesh, (x_spec, (rows, k)), (wg_spec, (k, n)))
+
+
+def fused_launches(mesh, cfg, rows: int, backend: MatmulBackend) -> int:
+    """strassen1 launches of one forward of ``rows`` tokens of a dense model
+    whose projections run ``backend`` (kind strassen_fused) under ``mesh``:
+    per layer, each projection that reaches depth >= 1 on its global shape
+    launches once per distinct slab pair."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    projs = [(d, cfg.n_heads * hd, ("fsdp", "heads")), (d, cfg.n_kv_heads * hd, ("fsdp", "heads")),
+             (d, cfg.n_kv_heads * hd, ("fsdp", "heads")), (cfg.n_heads * hd, d, ("heads", "fsdp")),
+             (d, f, ("fsdp", "d_ff")), (f, d, ("d_ff", "fsdp"))]
+    if cfg.glu:
+        projs.append((d, f, ("fsdp", "d_ff")))
+    per_layer = sum(projection_pairs(mesh, rows, k, n, wl) for k, n, wl in projs
+                    if backend.effective_depth(rows, k, n) > 0)
+    return cfg.n_layers * per_layer
+
+
+def projection_traffic(mesh, m: int, k: int, n: int, w_logical, itemsize: int) -> dict:
+    """The closed form of one sharded projection's collectives: (data - 1) x
+    w's bytes all-gathered over data where w's FSDP dim is sharded, and 2
+    (model - 1) x each data group's output bytes, summed over the groups,
+    where the product is row-parallel."""
+    w_spec, wg_spec, x_spec, _ = sharded_layouts(mesh, DEFAULT_RULES, m, k, n, w_logical)
+    data, model = mesh.shape["data"], mesh.shape["model"]
+    want = {}
+    if w_spec != wg_spec:
+        want[("all_gather", ("data",))] = (data - 1) * k * n * itemsize
+    if wg_spec[0] is not None:
+        rows = m if x_spec[0] is not None else m * data  # every group holds all rows
+        want[("psum", ("model",))] = 2 * (model - 1) * rows * n * itemsize
+    return want
+
+
+def phase_sharded_projections(gen: np.random.Generator, reps: int, smi: str) -> None:
+    """(s1) Sharded projections at phi4's shapes against the unsharded calls."""
+    t0 = time.perf_counter()
+    mesh = shard_mesh()
+    log(f"s1 mesh {dict(mesh.shape)} on {sorted({str(d) for d in mesh.devices.flat})}, card {smi}")
+    for site, m, k, n, wl in SHARD_PROJECTIONS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = randn(gen, (m, k), dtype), randn(gen, (k, n), dtype)
+            for kind in SHARD_KINDS:
+                be = MatmulBackend(kind=kind, depth=1, min_dim=1024)
+                tag = f"s1 {site} ({m}x{k} @ {k}x{n}) {kind} {str(dtype)[6:]}"
+                want = matmul(x, w, be)
+                mesh.reset()
+                reset_counts()
+                with use_sharding(mesh):
+                    got = matmul(x, w, be, w_logical=wl)
+                torch.cuda.synchronize()
+                launched = strassen1_matmul_cuda.launches
+                if kind == "naive" or dtype == torch.float32:
+                    compare(f"{tag} sharded vs unsharded", got, want, "mm")
+                else:  # bf16 Strassen: each route against the fp32 product of the operands
+                    exact = torch.matmul(x.float(), w.float())
+                    e_sh, e_un = rel_err(got.float(), exact), rel_err(want.float(), exact)
+                    far = (got.float() - want.float()).abs().max().item()
+                    ok = (bool(torch.isfinite(got).all()) and e_sh <= MAIN_LIMIT[dtype]
+                          and e_sh <= BF16_SPREAD * e_un)
+                    log(f"check {tag} sharded vs fp32: rel_err {e_sh:.3e} (unsharded {e_un:.3e}; "
+                        f"limit {MAIN_LIMIT[dtype]:.0e} and {BF16_SPREAD} x unsharded); max|sharded "
+                        f"- unsharded| {far:.3e} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        fail(f"{tag}: rel_err {e_sh:.3e} against fp32, unsharded {e_un:.3e}")
+                expect = projection_pairs(mesh, m, k, n, wl) if kind == "strassen_fused" else 0
+                traffic = {key: t.logical_bytes for key, t in mesh.traffic.items() if t.logical_bytes}
+                closed = projection_traffic(mesh, m, k, n, wl, x.element_size())
+                ok = launched == expect and traffic == closed and mesh.physical_bytes == 0
+                log(f"{tag}: strassen1 launches {launched} (specs: {expect}); traffic "
+                    f"{format_traffic(mesh)}; closed form {closed} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"{tag}: launches {launched} != {expect} or traffic {traffic} != {closed}")
+
+                def sharded():
+                    with use_sharding(mesh):
+                        matmul(x, w, be, w_logical=wl)
+
+                ms_sh, ms_plain = time_ms(sharded, reps), time_ms(lambda: matmul(x, w, be), reps)
+                log(f"{tag} time on {smi}: sharded {ms_sh:.3f} ms (4 positions on one card, one "
+                    f"after another) vs unsharded {ms_plain:.3f} ms")
+            del x, w
+    torch.cuda.empty_cache()
+    log(f"s1 done in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sharded_serve(cfg, params, prompts: list, unsharded: dict, reps: int, smi: str) -> None:
+    """(s2) phi4 served through launch/serve.py's mesh path (its flags,
+    ``launcher_mesh`` and ``place``), against phase (b)."""
+    t0 = time.perf_counter()
+    args = serve_mod.build_parser().parse_args(
+        ["--mesh", "--positions", str(SHARD_POSITIONS), "--model-parallel", str(SHARD_MODEL)])
+    mesh = launcher_mesh(args, torch.device(DEVICE))
+    specs = place(params, mesh)
+    log(f"s2 {cfg.name} on mesh {dict(mesh.shape)}: {len(specs)} parameter layouts, e.g. "
+        f"layers.0.mixer.wq.w {specs['layers/0/mixer/wq/w'].spec}, card {smi}")
+    mesh.reset()
+    slabs = q_slabs(mesh, cfg, 1, 1024)  # a prefill is one request: batch 1
+    with use_sharding(mesh):
+        served = phase_serve(cfg, params, prompts, flash_slabs=slabs)
+    traffic = format_traffic(mesh)
+    log(f"s2 sharded serve: {served['tokens']} tokens in {served['wall']:.3f} s = "
+        f"{served['tokens'] / served['wall']:.1f} tokens/s (unsharded (b): "
+        f"{unsharded['tokens']} in {unsharded['wall']:.3f} s = "
+        f"{unsharded['tokens'] / unsharded['wall']:.1f} tokens/s); peak {served['peak']:.2f} GiB "
+        f"(unsharded {unsharded['peak']:.2f}); flash {slabs} launches per attention layer and "
+        f"prefill; traffic {traffic}")
+    for i in (0, 1):
+        toks = served["handles"][i].tokens()
+        _, gaps = forced_rollout(cfg, params, prompts[i], toks)
+        ok = max(gaps) <= NEAR_TIE
+        log(f"s2 sharded engine vs unsharded dense route, request {i} (prompt {len(prompts[i])}): "
+            f"largest gap {max(gaps):.3f} rms limit={NEAR_TIE} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"s2 request {i}: gaps {[round(g, 3) for g in gaps]}")
+    tokens = torch.as_tensor(prompts[5][None], device=DEVICE)  # 1024 tokens
+
+    def prefill_sharded():
+        with use_sharding(mesh):
+            last_logits(params, cfg, tokens, False)
+
+    ms_sh = time_ms(prefill_sharded, reps)
+    ms_plain = time_ms(lambda: last_logits(params, cfg, tokens, False), reps)
+    log(f"s2 prefill {tokens.shape[1]} tokens bf16 on {smi}: sharded {ms_sh:.3f} ms vs unsharded "
+        f"{ms_plain:.3f} ms")
+    log_split(f"s2 sharded prefill {tokens.shape[1]} tokens bf16", ms_sh, device_split(prefill_sharded))
+    log_split(f"s2 unsharded prefill {tokens.shape[1]} tokens bf16", ms_plain,
+              device_split(lambda: last_logits(params, cfg, tokens, False)))
+    with use_sharding(mesh):
+        log("s2 sharded decode step:")
+        decode_step_numbers(cfg, params, prompts[4], SERVE)
+    log("s2 unsharded decode step:")
+    decode_step_numbers(cfg, params, prompts[4], SERVE)
+    log(f"s2 done in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sharded_strassen_prefill(cfg, params, gen: np.random.Generator) -> None:
+    """(s3) A 1024-token prefill through strassen_fused under the mesh, held
+    as phase (e) holds the unsharded one: against the naive prefill."""
+    mesh = shard_mesh()
+    tokens = torch.as_tensor(gen.integers(0, cfg.vocab, (1, 1024)), device=DEVICE)
+    fused = dataclasses.replace(cfg, matmul_backend=SHARD_FUSED)
+    naive = last_logits(params, cfg, tokens, False)
+    want = last_logits(params, fused, tokens, False)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with use_sharding(mesh):
+        got = last_logits(params, fused, tokens, False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launched = strassen1_matmul_cuda.launches
+    expect = fused_launches(mesh, cfg, 1024, SHARD_FUSED)
+    err, base, apart = rel_norm(got, naive), rel_norm(want, naive), rel_norm(got, want)
+    ok = (launched == expect and bool(torch.isfinite(got).all()) and err <= STRASSEN_LIMIT
+          and err <= BF16_SPREAD * base)
+    log(f"s3 sharded prefill 1024 tokens, strassen_fused depth=1: strassen1 launches {launched} "
+        f"(specs: {expect}), rel_err vs naive {err:.3e} (unsharded fused {base:.3e}; limit "
+        f"{STRASSEN_LIMIT:.0e} and {BF16_SPREAD} x unsharded), vs the unsharded fused prefill "
+        f"{apart:.3e}, {secs * 1e3:.1f} ms; traffic {format_traffic(mesh)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"s3 sharded strassen_fused prefill: {launched} launches (want {expect}), rel_err "
+             f"{err:.3e} (unsharded {base:.3e})")
+
+
+def phase_sharded_train_step(seed: int) -> None:
+    """(s4) One fp32 train step at t2's widths under the mesh against the
+    unsharded step; then accum 2 against accum 1, both under the mesh."""
+    t0 = time.perf_counter()
+    mesh = shard_mesh()
+    cfg = cut_config()
+    base = init_train_state(cfg, TRAIN_OPT, torch.Generator(device=DEVICE).manual_seed(seed))
+    batch = SyntheticLM(cfg, DataConfig(SHARD_STEP["batch"], SHARD_STEP["seq"], seed), device=DEVICE)(0)
+    p0 = {n: p.detach().clone() for n, p in base.params.named_parameters()}
+    plain, sharded = state_to(base, DEVICE), state_to(base, DEVICE)
+    ploss, pgrads = loss_and_grads(plain.params, batch, cfg)
+    mesh.reset()
+    reset_counts()
+    with use_sharding(mesh):
+        sloss, sgrads = loss_and_grads(sharded.params, batch, cfg)
+    torch.cuda.synchronize()
+    launched = (rmsnorm_bwd_cuda.launches, flash_attention_bwd_cuda.launches)
+    expect = (2 * cfg.n_layers + 1, cfg.n_layers * q_slabs(mesh, cfg, SHARD_STEP["batch"], SHARD_STEP["seq"]))
+    apply_updates(plain.params, pgrads, plain.opt, TRAIN_OPT)
+    apply_updates(sharded.params, sgrads, sharded.opt, TRAIN_OPT)
+    loss_rel = abs(sloss.item() - ploss.item()) / abs(ploss.item())
+    g_rel, g_name = worst_rel(sgrads, {n: g.cpu() for n, g in pgrads.items()})
+    d_sh = {n: p.detach() - p0[n] for n, p in sharded.params.named_parameters()}
+    d_pl = {n: (p.detach() - p0[n]).cpu() for n, p in plain.params.named_parameters()}
+    u_rel, u_name = worst_rel(d_sh, d_pl)
+    ok = (loss_rel <= STEP_LIMITS["loss"] and g_rel <= STEP_LIMITS["grad"]
+          and u_rel <= STEP_LIMITS["update"] and launched == expect)
+    log(f"s4 train step fp32 under the mesh vs unsharded ({cfg.name} widths, {cfg.n_layers} layers, "
+        f"vocab {cfg.vocab}, batch {SHARD_STEP['batch']} x {SHARD_STEP['seq']}): loss rel "
+        f"{loss_rel:.2e} (limit {STEP_LIMITS['loss']:.0e}); worst gradient leaf {g_name} {g_rel:.2e} "
+        f"(limit {STEP_LIMITS['grad']:.0e}); worst update leaf {u_name} {u_rel:.2e} (limit "
+        f"{STEP_LIMITS['update']:.0e}); backward launches rmsnorm, flash {launched} (specs: "
+        f"{expect}); traffic of the forward {format_traffic(mesh)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"s4 sharded step: loss {loss_rel:.2e}, grad {g_rel:.2e} ({g_name}), update "
+             f"{u_rel:.2e} ({u_name}), launches {launched} != {expect}")
+    del plain, sharded, pgrads, sgrads, d_sh, d_pl
+    updates = []
+    for accum in (1, 2):
+        _, _, step = train_mod.build(cfg, TRAIN_OPT, batch=SHARD_STEP["batch"], seq=SHARD_STEP["seq"],
+                                     accum=accum, mesh=mesh, seed=seed, device=DEVICE)
+        st = state_to(base, DEVICE)
+        step(st, batch)
+        updates.append({n: (p.detach() - p0[n]).cpu() for n, p in st.params.named_parameters()})
+        del st
+    u_rel, u_name = worst_rel(updates[1], updates[0])
+    ok = u_rel <= STEP_LIMITS["update"]
+    log(f"s4 accum 2 vs accum 1 under the mesh (launch/train.py build): worst update leaf {u_name} "
+        f"{u_rel:.2e} (limit {STEP_LIMITS['update']:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"s4 accum 2 vs 1: update {u_rel:.2e} ({u_name})")
+    del base, updates
+    torch.cuda.empty_cache()
+    log(f"s4 done in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sharded_train_loop(seed: int, smi: str) -> None:
+    """(s5) phi4 at full width, 4 layers, bf16, through train_loop with the
+    mesh, beside the same loop without it."""
+    t0 = time.perf_counter()
+    mesh = shard_mesh()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=SHARD_TRAIN["n_layers"])
+    run = {k: SHARD_TRAIN[k] for k in ("steps", "batch", "seq", "cycle")}
+    # s5's gates are finite losses and grad norms and the launches: 3 steps
+    # of a 4-layer cut from random weights need not lower the loss.
+    _, plain, pstats, _, ppeak, _ = run_train_loop(
+        cfg, TRAIN_OPT, run, seed, f"s5 unsharded {cfg.name} {cfg.n_layers} layers", falling=False)
+    torch.cuda.empty_cache()
+    mesh.reset()
+    _, history, stats, counts, peak, _ = run_train_loop(
+        cfg, TRAIN_OPT, run, seed, f"s5 sharded {cfg.name} {cfg.n_layers} layers", mesh=mesh,
+        falling=False)
+    log(f"s5 sharded losses against the unsharded loop's: largest relative difference "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(history, plain)):.2e}")
+    steps = run["steps"]
+    slabs = q_slabs(mesh, cfg, run["batch"], run["seq"])
+    remat = 2 if cfg.remat else 1
+    want = {"flash_attention_bwd_cuda": cfg.n_layers * slabs,
+            "flash_attention_cuda": remat * cfg.n_layers * slabs,
+            "rmsnorm_bwd_cuda": 2 * cfg.n_layers + 1}
+    per_step = {k: counts[k] / steps for k in want}
+    ok = per_step == want
+    log(f"s5 launches per step {per_step} (specs: {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"s5 launches per step {per_step}, want {want}")
+    per = {f"{op}{list(axes)}": t.logical_bytes / steps for (op, axes), t in sorted(mesh.traffic.items())
+           if t.logical_bytes}
+    log(f"s5 numbers on {smi}: median step sharded {stats['median_step_time_s'] * 1e3:.1f} ms vs "
+        f"unsharded {pstats['median_step_time_s'] * 1e3:.1f} ms (host clock, train_loop's watchdog); "
+        f"allocator peak sharded {peak:.2f} GiB vs unsharded {ppeak:.2f} GiB; logical bytes per "
+        f"step (the forward's collectives) {per}; physical {mesh.physical_bytes}")
+    torch.cuda.empty_cache()
+    log(f"s5 done in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sharded_moe(seed: int, smi: str) -> None:
+    """(s6) olmoe-1b-7b at full width cut to 2 layers, a 1024-token prefill
+    under the mesh with expert parallelism on and off."""
+    t0 = time.perf_counter()
+    mesh = shard_mesh()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=SHARD_MOE_LAYERS, moe_group_dispatch=True)
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed))
+    tokens = torch.as_tensor(np.random.default_rng([seed, 8]).integers(0, cfg.vocab, (1, 1024)),
+                             device=DEVICE)
+    want = last_logits(params, cfg, tokens, False)
+    ms_plain = time_ms(lambda: last_logits(params, cfg, tokens, False), 3)
+    for ep in (True, False):
+        run_cfg = dataclasses.replace(cfg, moe_expert_parallel=ep)
+        mesh.reset()
+        moe_mod.RESHARD_BYTES.update(dispatch=0, combine=0)
+        with use_sharding(mesh):
+            got = last_logits(params, run_cfg, tokens, False)
+        torch.cuda.synchronize()
+        moved = dict(moe_mod.RESHARD_BYTES)
+        traffic = format_traffic(mesh)
+
+        def sharded():
+            with use_sharding(mesh):
+                last_logits(params, run_cfg, tokens, False)
+
+        ms = time_ms(sharded, 3)
+        err = rel_norm(got, want)
+        ok = bool(torch.isfinite(got).all()) and err <= SHARD_LIMIT
+        log(f"s6 {cfg.name} {cfg.n_layers} layers, prefill 1024 tokens bf16 under the mesh, "
+            f"moe_expert_parallel={ep}: rel_err vs unsharded {err:.3e} limit="
+            f"{SHARD_LIMIT:.0e}; dispatch reshard {moved['dispatch']} B, combine reshard "
+            f"{moved['combine']} B (logical); traffic {traffic}; {ms:.3f} ms vs unsharded "
+            f"{ms_plain:.3f} ms on {smi} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"s6 moe_expert_parallel={ep}: rel_err {err:.3e}")
+    del params
+    torch.cuda.empty_cache()
+    log(f"s6 done in {time.perf_counter() - t0:.1f} s")
+
+
+def run_sharded_training(seed: int, smi: str) -> None:
+    """s4-s6: the sharded train step, train loop and MoE prefill."""
+    phase_sharded_train_step(seed)
+    phase_sharded_train_loop(seed, smi)
+    phase_sharded_moe(seed, smi)
+
+
 # ------------------------------------------------------------- examples
 def run_example(tag: str, module, argv: list) -> str:
     """One example's main(argv) on the card: its exit code must be 0 and it
@@ -3767,6 +4169,8 @@ def main() -> int:
     phase_mesh_auto(a, b, ref32, calib)
     del a, b, a16, b16, ref32, ref16, refs
     torch.cuda.empty_cache()
+    phase_sharded_projections(np.random.default_rng([args.seed, 9]), args.reps, smi)
+    torch.cuda.empty_cache()
     log(f"mesh path done at {time.perf_counter() - t0:.1f} s")
 
     phase_oot(args.seed, args.reps)
@@ -3790,6 +4194,8 @@ def main() -> int:
     phase_auto_serve(cfg, params, prompts)
     phase_serving_numbers(cfg, params, prompts, args.reps)
     phase_fp8_cache(cfg, params, prompts, served["handles"])
+    phase_sharded_serve(cfg, params, prompts, served, args.reps, smi)
+    phase_sharded_strassen_prefill(cfg, params, serve_gen)
     entries += phase_serving_timing(cfg, args.reps, served["counts"])
     del params, served
     torch.cuda.empty_cache()
@@ -3805,6 +4211,8 @@ def main() -> int:
     log(f"whisper path done at {time.perf_counter() - t0:.1f} s")
     entries += run_training(args.seed, args.reps, smi)
     log(f"training path done at {time.perf_counter() - t0:.1f} s")
+    run_sharded_training(args.seed, smi)
+    log(f"sharded training path done at {time.perf_counter() - t0:.1f} s")
     run_examples()
     log(f"examples done at {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -16,9 +16,13 @@ one of those kinds at a depth, and with a ``device_budget`` possibly to kind
 its leaf multiplies through the budget on the operands' device.
 :func:`inverse` and :func:`solve_triangular` route the solver ops: one dense
 library call, or the SPIN block-recursive pipeline over the same runtime.
-The sharding hook ``w_logical`` is accepted and ignored: the port has no
-sharding context yet (ROADMAP.md queue 1 item 9.6), and with none the JAX
-package's ``constrain`` is the identity too.
+Under a sharding context (:func:`repro_torch.models.sharding.use_sharding`)
+a projection that names its weight's logical axes (``w_logical``) runs as
+one local phase per position of the mesh: x's rows over ``"batch"``, w's
+dims by the rules, an FSDP dim all-gathered first, a row-parallel product
+ending in a psum, and the global result gathered (:func:`_matmul_sharded`).
+With no context, or without ``w_logical``, the call runs on the global
+tensors.
 """
 from __future__ import annotations
 
@@ -29,9 +33,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import autotune
+from repro_torch.core.coefficients import get_scheme
 from repro_torch.core.precision import PRECISIONS, matmul_precision
 from repro_torch.core.strassen import strassen_matmul
-from repro_torch.kernels.strassen.ops import strassen_matmul_fused
+from repro_torch.kernels.strassen.ops import strassen_matmul_fused, strassen_matmul_fused_padded
+from repro_torch.models import sharding
 from repro_torch.obs import tracer as obs_tracer
 
 __all__ = [
@@ -52,6 +58,7 @@ __all__ = [
     "set_default_matmul_precision",
     "default_matmul_precision",
     "resolve_precision",
+    "sharded_layouts",
 ]
 
 # The registered routing kinds, the same six names as the JAX package.
@@ -261,9 +268,10 @@ def matmul(
       x: (..., K) activations; leading dims are flattened into M.
       w: (K, N) weights.
       backend: routing config.
-      w_logical: sharding names of w's dims, as the JAX package takes them.
-        Ignored: with no sharding context (the port has none until ROADMAP.md
-        queue 1 item 9.6) the JAX package ignores them too.
+      w_logical: optional (in_logical, out_logical) names of w's dims, e.g.
+        ("fsdp", "d_ff"). Under a sharding context the product runs per
+        position on the slabs they give (:func:`_matmul_sharded`); with
+        none they are not read, as in the JAX package.
       site: optional call-site tag ("attn.wq", "mlp.up", ...), recorded on
         the span; for kind 'auto' it keys the decision (and its persistent
         cache entry) per call site.
@@ -288,7 +296,7 @@ def matmul(
         kind=backend.kind, site=site,
         traced=torch.compiler.is_compiling(),
     ):
-        return _matmul_routed(x, w, backend, lead, m, k, n, site)
+        return _matmul_routed(x, w, backend, lead, m, k, n, site, w_logical)
 
 
 def _matmul_oot(x, w, backend: MatmulBackend, lead, m: int, k: int, n: int):
@@ -343,7 +351,7 @@ def _matmul_oot(x, w, backend: MatmulBackend, lead, m: int, k: int, n: int):
     return out.to(x.device).reshape(*lead, n)
 
 
-def _matmul_routed(x, w, backend, lead, m, k, n, site):
+def _matmul_routed(x, w, backend, lead, m, k, n, site, w_logical=None):
     if backend.kind == "auto":
         if backend.device_budget is not None and torch.compiler.is_compiling():
             # A compiled caller cannot run the eager-only out-of-core
@@ -357,6 +365,10 @@ def _matmul_routed(x, w, backend, lead, m, k, n, site):
         return _matmul_oot(x, w, backend, lead, m, k, n)
     precision = resolve_precision(backend)
     depth = backend.effective_depth(m, k, n)
+    ctx = sharding.current() if w_logical is not None else None
+    if ctx is not None:
+        out = _matmul_sharded(x.reshape(m, k), w, backend, depth, precision, w_logical, ctx)
+        return out.reshape(*lead, n)
     if depth == 0:
         with matmul_precision(precision):
             return torch.matmul(x, w)
@@ -369,6 +381,123 @@ def _matmul_routed(x, w, backend, lead, m, k, n, site):
             x2, w, depth=depth, scheme=backend.scheme_name, precision=precision
         )
     return out.reshape(*lead, n)
+
+
+# ------------------------------------------------------- sharded projection
+def _transpose(t: torch.Tensor) -> torch.Tensor:
+    return t.T
+
+
+def _level_hook(mesh, rules, logical, rows: int, cols: int, rank: int):
+    """A per-level hook of :func:`strassen_matmul`: records the layout the
+    JAX package pins at that level, (None, *logical) over the global level
+    shape (rank**l, rows / 2**l, cols / 2**l), and returns the tensor."""
+    def hook(t: torch.Tensor) -> torch.Tensor:
+        level, q = 0, t.shape[0]
+        while q > 1:
+            q //= rank
+            level += 1
+        shape = (t.shape[0], rows >> level, cols >> level)
+        sharding.note(mesh, rules.spec(mesh, (None, *logical), shape, allow_uneven=True))
+        return t
+    return hook
+
+
+def _local_product(backend: MatmulBackend, depth: int, precision, hooks):
+    """One position's product of its x slab and w slab, by the kind and depth
+    decided on the global shape. A slab whose dims do not divide 2**depth
+    is zero-padded and sliced back, as :func:`strassen_matmul_fused_padded`
+    does; an empty slab gives an empty (or zero) product."""
+    def product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        m, k = a.shape
+        n = b.shape[1]
+        if min(m, k, n) == 0:
+            return a.new_zeros((m, n))
+        if depth == 0:
+            with matmul_precision(precision):
+                return torch.matmul(a, b)
+        if backend.kind == "strassen_fused":
+            return strassen_matmul_fused_padded(
+                a, b, depth=depth, scheme_name=backend.scheme_name, precision=precision
+            )
+        step = 2**depth
+        mp, kp, np_ = (-(-d // step) * step for d in (m, k, n))
+        if (mp, kp, np_) != (m, k, n):
+            a = torch.nn.functional.pad(a, (0, kp - k, 0, mp - m))
+            b = torch.nn.functional.pad(b, (0, np_ - n, 0, kp - k))
+        c_a, c_b, c_out = hooks
+        out = strassen_matmul(
+            a, b, depth=depth, scheme=backend.scheme_name, precision=precision,
+            constrain_a=c_a, constrain_b=c_b, constrain_out=c_out,
+        )
+        return out[:m, :n] if (mp, np_) != (m, n) else out
+    return product
+
+
+def sharded_layouts(mesh, rules, m: int, k: int, n: int, w_logical):
+    """The layouts of a sharded projection of (m, k) @ (k, n):
+    (w's spec as placed, w's spec in the product after its FSDP dims are
+    gathered, x's spec, the output's spec). See :func:`_matmul_sharded`."""
+    from repro_torch.core.mesh import P, spec_axes
+
+    w_in, w_out = w_logical
+    w_spec = rules.spec(mesh, (w_in, w_out), (k, n), allow_uneven=True)
+    a_in = None if w_in == "fsdp" else w_spec[0]
+    a_out = None if w_out == "fsdp" else w_spec[1]
+    busy = set(spec_axes(P(a_in, a_out)))
+    rows = rules.axes_for(mesh, "batch", m, allow_uneven=True)
+    a_m = None if rows is None or busy & set(rows) else (rows if len(rows) > 1 else rows[0])
+    return w_spec, P(a_in, a_out), P(a_m, a_in), P(a_m, a_out)
+
+
+def _matmul_sharded(x2, w, backend: MatmulBackend, depth: int, precision, w_logical, ctx):
+    """``x2 @ w`` as one local phase per position of the context's mesh.
+
+    The JAX package pins x's rows to ``"batch"`` and w to its logical axes
+    and lets GSPMD partition the product (``backend.py:442-465``). Here:
+
+    * w is placed under ``rules.spec(w_in, w_out)``; a dim named ``"fsdp"``
+      is all-gathered over its axes first (``Mesh.all_gather``), as the
+      weight-gathered FSDP of the JAX layout does;
+    * x's rows go over ``"batch"``'s axes and, when w's input dim stays
+      sharded (``attn.wo``, ``mlp.down``: row-parallel), its columns over
+      the same axes as w's rows;
+    * each position multiplies its slabs by the kind and depth decided on
+      the global (m, k, n) (``Mesh.map``: once per distinct pair of slabs),
+      and a row-parallel product ends in ``Mesh.psum`` over w's input axes;
+    * the result, laid out as (``"batch"``, w's output axes), is gathered.
+
+    Every collective adds to ``mesh.traffic``; gradients flow through the
+    slicing, the sums and the gather by autograd.
+    """
+    from repro_torch.core.mesh import Sharded, gather, shard
+
+    mesh, rules = ctx
+    m, k = x2.shape
+    n = w.shape[1]
+    w_in, w_out = w_logical
+    w_spec, wg_spec, x_spec, out_spec = sharded_layouts(mesh, rules, m, k, n, w_logical)
+    sharding.note(mesh, w_spec)
+    w_loc = shard(w, mesh, w_spec).locals
+    if wg_spec[0] != w_spec[0]:
+        w_loc = mesh.all_gather(w_loc, w_spec[0])
+    if wg_spec[1] != w_spec[1]:
+        gathered = mesh.all_gather(mesh.map(_transpose, w_loc), w_spec[1])
+        w_loc = mesh.map(_transpose, gathered)
+    sharding.note(mesh, x_spec)
+    hooks = (None, None, None)
+    if depth and backend.kind != "strassen_fused":
+        rank = get_scheme(backend.scheme_name).n_mults
+        hooks = (
+            _level_hook(mesh, rules, ("batch", None), m, k, rank),
+            _level_hook(mesh, rules, (w_in, w_out), k, n, rank),
+            _level_hook(mesh, rules, ("batch", w_out), m, n, rank),
+        )
+    local = mesh.map(_local_product(backend, depth, precision, hooks),
+                     shard(x2, mesh, x_spec).locals, w_loc)
+    if wg_spec[0] is not None:
+        local = mesh.psum(local, wg_spec[0])
+    return gather(Sharded(mesh, out_spec, (m, n), local, x2.dtype))
 
 
 # --------------------------------------------------------------- solver ops

@@ -66,6 +66,7 @@ __all__ = [
     "dim_parts",
     "slab",
     "spec_axes",
+    "distinct_slabs",
 ]
 
 Pos = Tuple[int, ...]
@@ -349,6 +350,18 @@ def slab(mesh: Mesh, spec: P, shape: Sequence[int], pos: Pos) -> List[Tuple[int,
         parts = dim_parts(size, mesh.axis_size(axes))
         out.append(parts[mesh.axis_index(pos, axes)])
     return out
+
+
+def distinct_slabs(mesh: Mesh, *layouts: Tuple[P, Sequence[int]]) -> int:
+    """How many distinct tuples of slabs the positions hold of tensors laid
+    out as ``(spec, shape)`` each, leaving out tuples with an empty slab: the
+    calls a local phase over them makes (:meth:`Mesh.map` on one device)."""
+    seen = set()
+    for pos in mesh.positions():
+        key = tuple(tuple(slab(mesh, spec, shape, pos)) for spec, shape in layouts)
+        if all(a < b for bounds in key for a, b in bounds):
+            seen.add(key)
+    return len(seen)
 
 
 def _as_box(bounds: Sequence[Tuple[int, int]]) -> Box:

@@ -10,6 +10,7 @@ on the card unless asked for the CPU:
   python -m repro_torch.launch.serve --arch recurrentgemma_9b --device cpu --smoke
   python -m repro_torch.launch.serve --arch whisper_tiny --device cpu --smoke
   python -m repro_torch.launch.serve --backend auto --trace-out trace.json --device cpu
+  python -m repro_torch.launch.serve --mesh --positions 8 --model-parallel 2 --device cpu
 
 Every family is served: the decoder-only ones (the dense decoders, the MoE
 models olmoe-1b-7b and qwen2-moe-a2.7b, xlstm-1.3b and recurrentgemma-9b)
@@ -20,9 +21,12 @@ Parameters are random, drawn on the device from ``--seed`` in the config's
 dtype. ``--backend auto`` routes every projection through the autotune
 dispatcher; ``--trace-out`` writes a Chrome/Perfetto trace of the run's spans
 (the ``autotune.resolve`` and ``backend.matmul`` spans among them).
-``--mesh`` (sharded model execution, ROADMAP.md queue 1 item 9.6) is not
-ported and raises; the mesh strategies themselves run in
-:mod:`repro_torch.core.distributed`.
+``--mesh`` serves on a (data, model) mesh of ``--positions`` positions (by
+default one per visible card): the parameters' layouts come from
+``launch/specs.py:sharding_tree`` and the engine runs under
+``models.sharding.use_sharding``, so every projection, attention core and
+expert FFN runs once per position, its collectives counted in
+``mesh.traffic`` (printed at the end). On one card the positions share it.
 """
 from __future__ import annotations
 
@@ -37,6 +41,9 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch import obs
 from repro_torch.core.backend import JIT_SAFE_KINDS, MatmulBackend
+from repro_torch.launch.mesh import format_traffic, launcher_mesh
+from repro_torch.launch.specs import place
+from repro_torch.models import sharding
 from repro_torch.models import model as M
 from repro_torch.models.frontends import make_stub_frames
 from repro_torch.obs import export
@@ -68,8 +75,12 @@ def build_parser() -> argparse.ArgumentParser:
                     "gang-schedules full batches (baseline)")
     ap.add_argument("--request-timeout", type=float, default=0.0,
                     help="per-request watchdog seconds; 0 disables")
-    ap.add_argument("--mesh", action="store_true", help="not ported (ROADMAP.md queue 1 item 9.6)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="serve on a (data, model) mesh of positions")
     ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--positions", type=int, default=None,
+                    help="mesh positions (the forced device count of the JAX launcher); "
+                    "default: the visible cards, 1 on the CPU")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", choices=list(JIT_SAFE_KINDS), default=None,
                     help="matmul routing of every projection; 'auto' turns on "
@@ -84,10 +95,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh (sharded model execution) is not ported to repro_torch yet: "
-            "see ROADMAP.md queue 1 item 9.6")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("repro_torch.launch.serve: no CUDA device; pass --device cpu to serve on the CPU",
@@ -106,6 +113,17 @@ def main(argv=None) -> int:
         )
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed))
+    mesh = launcher_mesh(args, device)
+    if mesh is not None:
+        place(params, mesh)
+    with sharding.use_sharding(mesh):
+        code = _serve(args, cfg, params, device, t0)
+    if mesh is not None:
+        print(f"mesh traffic: {format_traffic(mesh)}")
+    return code
+
+
+def _serve(args, cfg, params, device: torch.device, t0: float) -> int:
     engine = Engine(
         cfg,
         params,

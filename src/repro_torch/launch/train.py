@@ -6,17 +6,24 @@ It runs on the card unless asked for the CPU:
   python -m repro_torch.launch.train --arch phi4_mini_3_8b --smoke --steps 50 \\
       --batch 8 --seq 128 --ckpt-dir /tmp/ckpt --device cpu
   python -m repro_torch.launch.train --arch phi4_mini_3_8b --steps 8 --batch 2 --seq 1024
+  python -m repro_torch.launch.train --arch phi4_mini_3_8b --smoke --steps 4 --batch 4 \
+      --seq 32 --mesh --positions 8 --model-parallel 2 --device cpu
 
 The loop auto-resumes from the newest complete checkpoint, and the straggler
 watchdog forces a checkpoint and a stop (exit code 75) on a sustained
 slowdown. Parameters are random, drawn on the device from ``seed``. The step
 runs eagerly: the flash and RMSNorm forward and backward kernels on the card.
-``--mesh`` (the sharded train step, ROADMAP.md queue 1 item 2) is not ported
-and raises, as ``launch/serve.py --mesh`` does.
+``--mesh`` trains on a (data, model) mesh of ``--positions`` positions
+(``launch/mesh.py:make_mesh_for``; by default one per visible card): the
+state's layouts come from ``launch/specs.py:sharding_tree`` and the step runs
+under ``models.sharding.use_sharding``, so every projection, attention core
+and expert FFN runs once per position with its collectives counted in
+``mesh.traffic``. The positions of one card share it: physical bytes are 0.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -28,6 +35,9 @@ from repro_torch import obs
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.backend import JIT_SAFE_KINDS, MatmulBackend
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_for_host
+from repro_torch.launch.mesh import format_traffic, launcher_mesh
+from repro_torch.launch.specs import batch_logical_axes, place
+from repro_torch.models.sharding import DEFAULT_RULES, constrain, use_sharding
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.checkpoint import CheckpointManager, save_pytree
 from repro_torch.runtime.elastic import StragglerMonitor
@@ -37,17 +47,33 @@ from repro_torch.training.train_step import init_train_state, make_train_step
 # supervisor restarts the run instead of treating it as a crash (EX_TEMPFAIL).
 STRAGGLER_EXIT_CODE = 75
 
-_NO_MESH = ("the sharded train step (mesh) is not ported to repro_torch yet: "
-            "see ROADMAP.md queue 1 item 2")
 
+def build(cfg, opt_cfg, *, batch, seq, accum, mesh=None, rules=DEFAULT_RULES, seed=0,
+          device="cuda"):
+    """Returns (state, pipeline, step) on ``device``.
 
-def build(cfg, opt_cfg, *, batch, seq, accum, mesh=None, seed=0, device="cuda"):
-    """Returns (state, pipeline, step) on ``device``; ``mesh`` must be None."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    With a ``mesh`` (positions on ``device``) the state's layouts
+    (``launch/specs.py:place``) are recorded on the mesh and kept as
+    ``step.specs`` (path -> NamedSharding). The state stays global, as every
+    tensor between ops does. The step runs under
+    ``use_sharding(mesh, rules)`` with the batch constrained by
+    ``batch_logical_axes``, as the JAX step's input shardings are.
+    """
     data = SyntheticLM(cfg, DataConfig(batch=batch, seq_len=seq, seed=seed), device=device)
     state = init_train_state(cfg, opt_cfg, torch.Generator(device=device).manual_seed(seed))
-    return state, data, make_train_step(cfg, opt_cfg, accum_steps=accum)
+    step = make_train_step(cfg, opt_cfg, accum_steps=accum)
+    if mesh is None:
+        return state, data, step
+    specs = place(state, mesh, rules)
+
+    def sharded_step(state, batch):
+        with use_sharding(mesh, rules):
+            batch = {name: constrain(x, *batch_logical_axes(name, tuple(x.shape)))
+                     for name, x in batch.items()}
+            return step(state, batch)
+
+    sharded_step.specs = specs
+    return state, data, sharded_step
 
 
 def train_loop(
@@ -97,37 +123,38 @@ def train_loop(
 
     watchdog = StragglerMonitor()
     history, grad_norms = [], []
-    for step_i in range(start, steps):
-        watchdog.start_step()
-        state, metrics = step_fn(state, data(step_i % data_cycle if data_cycle else step_i))
-        loss = float(metrics["loss"])  # waits for the step
-        flagged = watchdog.end_step()
-        history.append(loss)
-        grad_norms.append(float(metrics["grad_norm"]))
-        if step_i % log_every == 0 or step_i == steps - 1:
-            print(
-                f"step {step_i:5d} loss {loss:.4f} gnorm {grad_norms[-1]:.3f} "
-                f"lr {float(metrics['lr']):.2e} ({watchdog.median_step_time*1e3:.0f} ms/step)",
-                flush=True,
-            )
-        if mgr:
-            mgr.maybe_save(state, step_i + 1, extra={"loss": loss})
-        if flagged:
-            reason = watchdog.flag_reason()
-            print(
-                f"[straggler] sustained slowdown (step/median x{reason['median']:.2f}, "
-                f"streak {reason['streak']}) -- checkpoint + restart advised"
-            )
-            if stop_on_straggler:
-                if ckpt_dir:
-                    save_pytree(state, ckpt_dir, step=step_i + 1,
-                                extra={"loss": loss, "straggler": reason})
-                    print(f"[straggler] checkpointed step {step_i + 1}; stopping")
-                if stats_out is not None:
-                    stats_out["straggler"] = reason
-                break
+    with use_sharding(mesh, DEFAULT_RULES) if mesh is not None else contextlib.nullcontext():
+        for step_i in range(start, steps):
+            watchdog.start_step()
+            state, metrics = step_fn(state, data(step_i % data_cycle if data_cycle else step_i))
+            loss = float(metrics["loss"])  # waits for the step
+            flagged = watchdog.end_step()
+            history.append(loss)
+            grad_norms.append(float(metrics["grad_norm"]))
+            if step_i % log_every == 0 or step_i == steps - 1:
+                print(
+                    f"step {step_i:5d} loss {loss:.4f} gnorm {grad_norms[-1]:.3f} "
+                    f"lr {float(metrics['lr']):.2e} ({watchdog.median_step_time*1e3:.0f} ms/step)",
+                    flush=True,
+                )
             if mgr:
-                mgr.maybe_save(state, step_i + 1, extra={"straggler": True})
+                mgr.maybe_save(state, step_i + 1, extra={"loss": loss})
+            if flagged:
+                reason = watchdog.flag_reason()
+                print(
+                    f"[straggler] sustained slowdown (step/median x{reason['median']:.2f}, "
+                    f"streak {reason['streak']}) -- checkpoint + restart advised"
+                )
+                if stop_on_straggler:
+                    if ckpt_dir:
+                        save_pytree(state, ckpt_dir, step=step_i + 1,
+                                    extra={"loss": loss, "straggler": reason})
+                        print(f"[straggler] checkpointed step {step_i + 1}; stopping")
+                    if stats_out is not None:
+                        stats_out["straggler"] = reason
+                    break
+                if mgr:
+                    mgr.maybe_save(state, step_i + 1, extra={"straggler": True})
     if stats_out is not None:
         stats_out["median_step_time_s"] = watchdog.median_step_time
         stats_out["steps_run"] = len(history)  # executed, not planned
@@ -185,8 +212,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--save-every", type=int, default=50)
-    ap.add_argument("--mesh", action="store_true", help="not ported (ROADMAP.md queue 1 item 2)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="train on a (data, model) mesh of positions")
     ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--positions", type=int, default=None,
+                    help="mesh positions (the forced device count of the JAX launcher); "
+                    "default: the visible cards, 1 on the CPU")
     ap.add_argument(
         "--backend", choices=list(JIT_SAFE_KINDS), default="naive",
         help="matmul routing, validated against the registered kinds; 'auto' sets "
@@ -217,8 +248,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(_NO_MESH)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("repro_torch.launch.train: no CUDA device; pass --device cpu to train on the CPU",
@@ -246,13 +275,14 @@ def main(argv=None) -> int:
         )
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                           total_steps=args.steps)
+    mesh = launcher_mesh(args, device)
 
     per_host = shard_for_host(args.batch)
     run_stats = {}
     t0 = time.time()
     _, history = train_loop(
         cfg, opt_cfg,
-        steps=args.steps, batch=per_host, seq=args.seq, accum=args.accum,
+        steps=args.steps, batch=per_host, seq=args.seq, accum=args.accum, mesh=mesh,
         ckpt_dir=args.ckpt_dir, save_every=args.save_every, stats_out=run_stats,
         stop_on_straggler=not args.no_exit_on_straggler, device=device,
     )
@@ -284,7 +314,7 @@ def main(argv=None) -> int:
                     baseline_cfg, opt_cfg,
                     auto_step_time=run_stats.get("median_step_time_s", 0.0),
                     steps=args.compare_steps, batch=per_host, seq=args.seq,
-                    accum=args.accum, device=device,
+                    accum=args.accum, mesh=mesh, device=device,
                 )
             )
     if args.summary_out:
@@ -296,6 +326,8 @@ def main(argv=None) -> int:
 
         export.write_trace(args.trace_out, metrics=obs.get_metrics())
         print(f"wrote {args.trace_out}")
+    if mesh is not None:
+        print(f"mesh traffic: {format_traffic(mesh)}")
     if "straggler" in run_stats:
         return STRAGGLER_EXIT_CODE
     return 0

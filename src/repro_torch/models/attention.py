@@ -17,15 +17,26 @@ flash attention reads the fp8-rounded K/V upcast to q's dtype, which is
 exact, as the JAX ``chunked_attention`` upcasts them to fp32.
 Cross-attention (the encoder-decoder family, whisper) runs flash attention
 without a mask against K/V computed once from the encoder's output.
+
+Under a sharding context (:mod:`repro_torch.models.sharding`) q, k and v are
+constrained as the JAX package constrains them, and the attention core (the
+flash kernel, or :func:`decode_attention`) runs once per position on its
+(batch slab, head slab) of q and the kv heads those heads read under GQA
+(:func:`_per_position`); the result is gathered. The projections run per
+position in ``backend.matmul``. Cross-attention carries no constraint in the
+JAX package and runs on the global tensors.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.mesh import P, Sharded, fetch, gather, shard, spec_axes
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Linear, init_linear, linear
 from repro_torch.models.rope import apply_mrope, apply_rope
@@ -122,7 +133,79 @@ def _project_qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig, positions
     elif cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = sharding.constrain(q, *_Q_LOGICAL)
+    k = sharding.constrain(k, *_KV_LOGICAL)
+    v = sharding.constrain(v, *_KV_LOGICAL)
     return q, k, v
+
+
+_Q_LOGICAL = ("batch", "heads", "seq", "head_dim")
+_KV_LOGICAL = ("batch", "kv_heads", "seq", "head_dim")
+_CACHE_LOGICAL = ("batch", "kv_heads", "cache_seq", None)  # launch/specs.py's cache rule
+
+
+def _local_core(core, q, k, v, pos, kv_dtype, h0: int, h1: int, group: int):
+    """One position's attention: q heads [h0, h1) against the kv heads they
+    read. Whole GQA groups keep the grouped layout; a slab that cuts a group
+    reads one kv head per q head (group 1)."""
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    if k.dtype != kv_dtype:  # an fp8 cache's bits (a dtype view records no gradient)
+        k, v = k.view(kv_dtype), v.view(kv_dtype)
+    if h0 % group or (h1 - h0) % group:
+        idx = torch.arange(h0, h1, device=q.device) // group - h0 // group
+        k, v = k.index_select(1, idx), v.index_select(1, idx)
+    return core(q, k, v, pos)
+
+
+def _per_position(core, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos=None,
+                  kv_logical=_KV_LOGICAL) -> torch.Tensor:
+    """``core(q, k, v, pos)``: on the global tensors with no sharding
+    context; under one, once per position on its slabs.
+
+    q (B, Hq, Sq, d) is cut by ``("batch", "heads", ...)``; each position
+    fetches, from k and v laid out by ``kv_logical``, its batch rows and the
+    kv heads its q heads read (a ``reshard`` in ``mesh.traffic``: zero bytes
+    where its own kv slab holds them, as when the kv heads shard alongside
+    the q heads or are replicated). A per-row ``pos`` (B,) is cut with the
+    batch. An fp8 cache moves as its uint8 bits (:func:`as_bits`). Positions
+    with the same slabs share one call, so the kernel launches once per
+    distinct (batch slab, head slab).
+    """
+    ctx = sharding.current()
+    if ctx is None:
+        return core(q, k, v, pos)
+    mesh, rules = ctx
+    group = q.shape[1] // k.shape[1]
+    q_spec = rules.spec(mesh, _Q_LOGICAL, tuple(q.shape), allow_uneven=True)
+    kv_spec = rules.spec(mesh, kv_logical, tuple(k.shape), allow_uneven=True)
+    sharding.note(mesh, kv_spec)
+    q_sh = shard(q, mesh, q_spec)
+
+    def kv_box(p):
+        (b0, b1), (h0, h1) = q_sh.slab(p)[:2]
+        heads = slice(0, 0) if h0 == h1 else slice(h0 // group, (h1 - 1) // group + 1)
+        return [(slice(b0, b1), heads)]
+
+    kv_axes = spec_axes(kv_spec)
+    k_loc, v_loc = (
+        fetch(shard(as_bits(t), mesh, kv_spec), kv_box, then=lambda p, got: got[0], axes=kv_axes)
+        for t in (k, v)
+    )
+    if pos is not None and torch.as_tensor(pos).ndim == 1:
+        pos_loc = shard(pos, mesh, P(q_spec[0])).locals
+    else:
+        pos_loc = mesh.run(lambda p: pos)
+    out = np.empty(mesh.devices.shape, dtype=object)
+    memo = {}
+    for p in mesh.positions():
+        args = (q_sh[p], k_loc[p], v_loc[p], pos_loc[p])
+        key = tuple(id(a) for a in args)
+        if key not in memo:
+            h0, h1 = q_sh.slab(p)[1]
+            memo[key] = _local_core(core, *args, k.dtype, h0, h1, group)
+        out[p] = memo[key]
+    return gather(Sharded(mesh, q_spec, tuple(q.shape), out, q.dtype))
 
 
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
@@ -201,15 +284,15 @@ def attention_block(
             # every resident token is in-window by construction; mask only
             # the not-yet-written slots before the first wrap.
             pos_eff = torch.clamp(cache_pos, max=w_size - 1)
-            out = decode_attention(q, kc, vc, pos_eff, window=None)
+            out = _per_position(_decode_core(None), q, kc, vc, pos_eff, _CACHE_LOGICAL)
         else:
             kc = _cache_write(cache["k"], k, cache_pos, vec)
             vc = _cache_write(cache["v"], v, cache_pos, vec)
-            out = decode_attention(q, kc, vc, cache_pos, window=window)
+            out = _per_position(_decode_core(window), q, kc, vc, cache_pos, _CACHE_LOGICAL)
         new_cache = {"k": kc, "v": vc}
     else:
         # an fp8 cache: attend over the fp8-rounded K/V, upcast exactly
-        out = flash_attention(q, k.to(q.dtype), v.to(q.dtype), causal=causal, window=window)
+        out = _per_position(_flash_core(causal, window), q, k.to(q.dtype), v.to(q.dtype))
         if cache is not None and ring:
             w_size = cache["k"].shape[2]
             if s >= w_size:
@@ -229,7 +312,15 @@ def attention_block(
 
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     out = linear(params.wo, out, cfg.matmul_backend, w_logical=("heads", "fsdp"), site="attn.wo")
-    return out, new_cache
+    return sharding.constrain(out, "batch", "seq", "d_model"), new_cache
+
+
+def _flash_core(causal: bool, window: Optional[int]):
+    return lambda q, k, v, _pos: flash_attention(q, k, v, causal=causal, window=window)
+
+
+def _decode_core(window: Optional[int]):
+    return lambda q, k, v, pos: decode_attention(q, k, v, pos, window=window)
 
 
 # ------------------------------------------------------------ cross-attention

@@ -15,8 +15,11 @@ from there. In train mode (autograd recording, no cache) with ``cfg.remat``
 each encoder and decoder layer runs under ``torch.utils.checkpoint``, as
 ``jax.checkpoint`` wraps them (``repro/models/encdec.py:107,171``); the
 decoder layer computes its cross K/V from ``enc_out`` inside, so they are
-recomputed too. ``sharding.constrain`` is a hint for a mesh and is not
-mirrored.
+recomputed too. Under a sharding context the encoder's input is
+constrained as in the JAX package (``encdec.py:94``); the self-attention
+blocks run their projections and attention core per position
+(``attention.py``), and cross-attention, which the JAX package does not
+constrain, runs on the global tensors.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from repro_torch.models.attention import (
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Embed, Norm, embed, layernorm, unembed
 from repro_torch.models.mlp import MLP, init_mlp, mlp_block
+from repro_torch.models.sharding import bind, constrain
 
 __all__ = ["EncDec", "init_encdec_params", "encode", "decode_forward", "init_encdec_cache"]
 
@@ -107,6 +111,7 @@ def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     # the sinusoid in fp32, rounded once to the model dtype
     x = x + _sinusoid_at(positions, cfg.d_model).to(x.dtype)
+    x = constrain(x, "batch", "seq", "d_model")
 
     def layer(lp: EncLayer, x: torch.Tensor) -> torch.Tensor:
         h = layernorm(lp.ln1, x, cfg.norm_eps)
@@ -117,7 +122,7 @@ def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tens
 
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params.enc:
-        x = checkpoint(layer, lp, x, use_reentrant=False) if remat else layer(lp, x)
+        x = checkpoint(bind(layer), lp, x, use_reentrant=False) if remat else layer(lp, x)
     return layernorm(params.enc_norm, x, cfg.norm_eps)
 
 
@@ -187,7 +192,7 @@ def decode_forward(
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for i, lp in enumerate(params.dec):
         if remat:
-            x, nc = checkpoint(layer, lp, x, i, use_reentrant=False)
+            x, nc = checkpoint(bind(layer), lp, x, i, use_reentrant=False)
         else:
             x, nc = layer(lp, x, i)
         if new_cache is not None:

@@ -19,6 +19,7 @@ from torch.nn import functional as F
 from repro_torch.core.backend import NAIVE_BACKEND, MatmulBackend
 from repro_torch.core.backend import matmul as backend_matmul
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as rmsnorm_op
+from repro_torch.models.sharding import constrain
 
 __all__ = [
     "Linear", "Norm", "Embed",
@@ -92,8 +93,9 @@ def linear(
     """y = x @ w (+ b), with w (d_in, *out_dims) flattened for routing.
 
     The backend decides per shape whether this projection runs as a plain
-    matmul or through the Strassen pipeline. ``w_logical`` names w's dims
-    for sharding (ignored on one card) and ``site`` tags the call's span.
+    matmul or through the Strassen pipeline. ``w_logical`` (in, out) names
+    w's logical dims: under a sharding context the product runs per position
+    on the slabs they give (``backend.matmul``). ``site`` tags the call's span.
     """
     w = params.w
     d_in, out_dims = w.shape[0], w.shape[1:]
@@ -121,7 +123,7 @@ def layernorm(params: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def embed(params: Embed, tokens: torch.Tensor) -> torch.Tensor:
     """Token embedding lookup: (B, S) int -> (B, S, D)."""
-    return F.embedding(tokens, params.embedding)
+    return constrain(F.embedding(tokens, params.embedding), "batch", "seq", "d_model")
 
 
 def unembed(params: Embed, x: torch.Tensor, *, tied: bool = False, softcap: float = 0.0) -> torch.Tensor:
@@ -130,4 +132,4 @@ def unembed(params: Embed, x: torch.Tensor, *, tied: bool = False, softcap: floa
     logits = torch.matmul(x, w.to(x.dtype))
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
-    return logits
+    return constrain(logits, "batch", "seq", "vocab")

@@ -12,6 +12,7 @@ from torch.nn import functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Linear, init_linear, linear
+from repro_torch.models.sharding import constrain
 
 __all__ = ["MLP", "init_mlp", "mlp_block"]
 
@@ -44,9 +45,12 @@ def mlp_block(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     backend = cfg.matmul_backend
     act = _ACTS[cfg.act]
     up = linear(params.up, x, backend, w_logical=("fsdp", "d_ff"), site="mlp.up")
+    up = constrain(up, "batch", "seq", "d_ff")
     if params.gate is not None:
         gate = linear(params.gate, x, backend, w_logical=("fsdp", "d_ff"), site="mlp.gate")
+        gate = constrain(gate, "batch", "seq", "d_ff")
         h = act(gate) * up
     else:
         h = act(up)
-    return linear(params.down, h, backend, w_logical=("d_ff", "fsdp"), site="mlp.down")
+    out = linear(params.down, h, backend, w_logical=("d_ff", "fsdp"), site="mlp.down")
+    return constrain(out, "batch", "seq", "d_model")

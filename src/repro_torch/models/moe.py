@@ -25,9 +25,17 @@ same experts and drop the same assignments:
   does on the CPU (``index_add_`` on the card adds in no fixed order), and
   the gate is cast to the activation dtype before it multiplies.
 
-The JAX code's sharding constraints are GSPMD layout hints: on one card they
-are the identity and are left out (ROADMAP.md queue 1 item 9.6 ports the
-sharding layer).
+Under a sharding context (:mod:`repro_torch.models.sharding`) the block
+constrains its input and output as the JAX package does, and the expert FFN
+runs once per position (:func:`_expert_ffn_sharded`): the dispatch groups
+over ``"batch"``, and the experts over ``"model"`` where the JAX layout puts
+them there (the global dispatch group, and ``cfg.moe_expert_parallel``).
+Then the token dispatch and the combine are ``reshard``s of the (G, E, C, D)
+buffer between the token layout (experts whole) and the expert layout, and
+their logical bytes are added to :data:`RESHARD_BYTES`. Without expert
+parallelism the experts are replicated over ``"model"``, the JAX default:
+each position all-gathers the expert weights it lacks. Routing, dispatch
+and combine run on the global tensors.
 
 With the tracer on (``repro_torch.obs``) the block records the spans
 ``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``; with
@@ -42,15 +50,21 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.core.mesh import Sharded, gather, reshard, shard
 from repro_torch.core.precision import matmul_precision
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Linear, init_linear, linear
 from repro_torch.models.mlp import _ACTS, MLP, init_mlp, mlp_block
 from repro_torch.obs.tracer import get_tracer
 
-__all__ = ["MoE", "init_moe", "moe_block"]
+__all__ = ["MoE", "init_moe", "moe_block", "RESHARD_BYTES"]
 
 _F32 = torch.float32
+
+# Logical bytes of the sharded expert FFN's token dispatch and combine
+# reshards since the process started (zero them to read one run's).
+RESHARD_BYTES = {"dispatch": 0, "combine": 0}
 
 
 class MoE(nn.Module):
@@ -120,12 +134,66 @@ def _slots(expert_idx: torch.Tensor, cfg: ModelConfig, cap: int):
     return keep, torch.where(keep, pos_in_e, cap)
 
 
-def _expert_ffn(params: MoE, expert_in: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(expert_in, w_gate, w_up, w_down, act) -> torch.Tensor:
     """(..., E, C, D) -> (..., E, C, D): the three batched expert products."""
+    gate = torch.einsum("...ecd,edf->...ecf", expert_in, w_gate)
+    up = torch.einsum("...ecd,edf->...ecf", expert_in, w_up)
+    return torch.einsum("...ecf,efd->...ecd", act(gate) * up, w_down)
+
+
+def _expert_ffn(params: MoE, expert_in: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(G, E, C, D) -> (G, E, C, D), per position under a sharding context."""
     act = _ACTS[cfg.act]
-    gate = torch.einsum("...ecd,edf->...ecf", expert_in, params.w_gate)
-    up = torch.einsum("...ecd,edf->...ecf", expert_in, params.w_up)
-    return torch.einsum("...ecf,efd->...ecd", act(gate) * up, params.w_down)
+    weights = (params.w_gate, params.w_up, params.w_down)
+    ctx = sharding.current()
+    if ctx is None:
+        return _ffn(expert_in, *weights, act)
+    return _expert_ffn_sharded(expert_in, weights, act, cfg, ctx)
+
+
+def _expert_ffn_sharded(expert_in, weights, act, cfg: ModelConfig, ctx) -> torch.Tensor:
+    """The expert FFN as one local phase per position.
+
+    The layouts are the JAX package's constraints on (G, E, C, D): the
+    global dispatch group pins ``(None, "experts", None, "d_model")``
+    (``moe.py:92``), a per-row group ``("batch", "experts" with
+    moe_expert_parallel else None, None, None)`` (``moe.py:162``), and the
+    weights ``("experts", None, None)`` (``moe.py:100-102,167-169``). The
+    buffer arrives in the token layout (experts whole); a dispatch
+    ``reshard`` moves it to the expert layout and the combine ``reshard``
+    moves the products back. A position whose expert slab is not its
+    weight slab all-gathers the weights over their axes.
+    """
+    mesh, rules = ctx
+    rows = "batch" if cfg.moe_group_dispatch else None
+    shape = tuple(expert_in.shape)
+    if cfg.moe_group_dispatch:
+        exp_logical = (rows, "experts" if cfg.moe_expert_parallel else None, None, None)
+    else:
+        exp_logical = (None, "experts", None, "d_model")
+    tok_spec = rules.spec(mesh, (rows, None, None, None), shape, allow_uneven=True)
+    exp_spec = rules.spec(mesh, exp_logical, shape, allow_uneven=True)
+    sharding.note(mesh, exp_spec)
+    xs = shard(expert_in, mesh, tok_spec)
+    if exp_spec != tok_spec:
+        before = mesh.logical_bytes
+        xs = reshard(xs, exp_spec)
+        RESHARD_BYTES["dispatch"] += mesh.logical_bytes - before
+    w_locals = []
+    for w in weights:
+        w_spec = rules.spec(mesh, ("experts", None, None), tuple(w.shape), allow_uneven=True)
+        sharding.note(mesh, w_spec)
+        loc = shard(w, mesh, w_spec).locals
+        if w_spec[0] is not None and exp_spec[1] is None:  # experts replicated over the axes
+            loc = mesh.all_gather(loc, w_spec[0])
+        w_locals.append(loc)
+    out = mesh.map(lambda x, a, b, c: _ffn(x, a, b, c, act), xs.locals, *w_locals)
+    out_sh = Sharded(mesh, exp_spec, shape, out, expert_in.dtype)
+    if exp_spec != tok_spec:
+        before = mesh.logical_bytes
+        out_sh = reshard(out_sh, tok_spec)
+        RESHARD_BYTES["combine"] += mesh.logical_bytes - before
+    return gather(out_sh)
 
 
 def _combine(weighted: torch.Tensor, k: int) -> torch.Tensor:
@@ -148,6 +216,8 @@ def _grouped_moe(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.
     cap = _capacity(s, cfg)
     tracer = get_tracer()
 
+    if cfg.moe_group_dispatch:
+        x = sharding.constrain(x, "batch", None, None)
     with tracer.span("moe.route", cat="moe"):
         gate_vals, expert_idx, aux = _route(params, x.reshape(g * s, d), cfg)
     with tracer.span("moe.dispatch", cat="moe"):
@@ -176,8 +246,9 @@ def moe_block(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Ten
     semantics; capacity counts the whole batch). ``moe_group_dispatch``: one
     group per batch row, capacity per row. ``moe_expert_parallel`` picks the
     JAX package's expert-parallel layout, which differs from the per-row
-    route only in its sharding constraints: on one card both are this
-    grouped computation.
+    route only in its sharding constraints: both are this grouped
+    computation, and under a sharding context the flag decides whether the
+    expert FFN shards its experts over ``"model"``.
     """
     b, s, d = x.shape
     groups = x if cfg.moe_group_dispatch else x.reshape(1, b * s, d)
@@ -185,4 +256,4 @@ def moe_block(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Ten
     out = out.reshape(b, s, d)
     if params.shared is not None:
         out = out + mlp_block(params.shared, x, cfg)
-    return out, aux
+    return sharding.constrain(out, "batch", "seq", "d_model"), aux

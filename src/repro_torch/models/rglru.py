@@ -22,6 +22,9 @@ state ``{h, conv}`` is fp32. The state a block returns is new tensors, and
 the state passed in is never written in place
 (``serving.kv_pool.CacheLayout.gather`` relies on this). With the tracer on
 (``repro_torch.obs``) the gates and the scan record the span ``rglru.scan``.
+Under a sharding context the block constrains the recurrent branch's input
+and its output as the JAX package does (``rglru.py:108,117``); those only
+pin layouts at the block boundary, and the scan runs on the global tensor.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.core.precision import matmul_precision
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Linear, init_linear, linear
 from repro_torch.models.mlp import _ACTS
+from repro_torch.models.sharding import constrain
 from repro_torch.obs.tracer import get_tracer
 
 __all__ = ["RGLRU", "init_rglru", "init_rglru_state", "rglru_block", "associative_scan"]
@@ -172,6 +176,7 @@ def rglru_block(
     backend = cfg.matmul_backend
     gate = _ACTS["gelu"](linear(params.in_gate, x, backend, site="rglru.in_gate"))
     rec_in = linear(params.in_rec, x, backend, site="rglru.in_rec")
+    rec_in = constrain(rec_in, "batch", "seq", "d_ff")
 
     tail = state["conv"] if state is not None else None
     conv_out, new_tail = _causal_conv(rec_in, params.conv_w, params.conv_b, tail)
@@ -181,6 +186,7 @@ def rglru_block(
 
     merged = gate * h.to(x.dtype)
     out = linear(params.out, merged, backend, site="rglru.out")
+    out = constrain(out, "batch", "seq", "d_model")
     new_state = None
     if state is not None:
         new_state = {"h": h_last, "conv": new_tail.to(_F32)}

@@ -25,6 +25,7 @@ from repro_torch.models.layers import Embed, Norm, embed, layernorm, rmsnorm, un
 from repro_torch.models.mlp import MLP, init_mlp, mlp_block
 from repro_torch.models.moe import MoE, init_moe, moe_block
 from repro_torch.models.rglru import init_rglru, init_rglru_state, rglru_block
+from repro_torch.models.sharding import bind, constrain
 from repro_torch.models.xlstm import (
     init_mlstm,
     init_mlstm_state,
@@ -171,7 +172,7 @@ def _apply_layer(lparams: Layer, x, cfg: ModelConfig, kind: str, *, positions, c
         else:
             f = mlp_block(lparams.ffn, h2, cfg)
         x = x + f
-    return x, new_cache, aux
+    return constrain(x, "batch", "seq", "d_model"), new_cache, aux
 
 
 def _run_layers(params: Transformer, x, cfg: ModelConfig, idx: range, positions, causal: bool):
@@ -242,7 +243,7 @@ def forward(
     new_cache = {"pos": cache_pos + s, "layers": []} if cache is not None else None
     if cache is None and cfg.remat and torch.is_grad_enabled():
         for idx in remat_spans(cfg):
-            x, aux = checkpoint(_run_layers, params, x, cfg, idx, positions, causal,
+            x, aux = checkpoint(bind(_run_layers), params, x, cfg, idx, positions, causal,
                                 use_reentrant=False)
             aux_total = aux_total + aux
     else:

@@ -29,6 +29,11 @@ is never written in place. ``serving.kv_pool.CacheLayout.gather`` relies on
 this: it hands a slot pool's recurrent state to the decode step without a
 copy. ``tests/test_torch_serving.py`` and ``tests/test_torch_cuda.py`` hold
 it on the CPU and on the card.
+
+Under a sharding context both blocks constrain their output as the JAX
+package does (``xlstm.py:222,283``). Those constraints only pin layouts at
+the block boundary: the recurrences, the sLSTM kernel among them, run on
+the global tensors.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from torch.nn import functional as F
 from repro_torch.kernels.slstm.ops import slstm_seq
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Linear, init_linear, linear
+from repro_torch.models.sharding import constrain
 
 __all__ = [
     "MLSTM",
@@ -213,6 +219,7 @@ def mlstm_block(
     hs = hs * o_gate
     out = linear(params.out, hs.reshape(b, s, cfg.mlstm_v_dim).to(x.dtype), backend,
                  site="mlstm.out")
+    out = constrain(out, "batch", "seq", "d_model")
     return out, (new_state if state is not None else None)
 
 
@@ -262,4 +269,5 @@ def slstm_block(
     st = state if state is not None else init_slstm_state(cfg, b, x.device)
     new_state, hs = slstm_seq(wx, params.r, st)
     out = linear(params.out, hs.reshape(b, s, d).to(x.dtype), cfg.matmul_backend)
+    out = constrain(out, "batch", "seq", "d_model")
     return out, (new_state if state is not None else None)

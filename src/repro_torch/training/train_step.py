@@ -23,6 +23,7 @@ from torch import nn
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import constrain
 from repro_torch.obs import tracer as obs_tracer
 from repro_torch.optim.adamw import AdamWConfig, OptState, apply_updates, init_opt_state
 
@@ -43,12 +44,16 @@ def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, gen: torch.Generato
 
 
 def _microbatches(batch: Dict[str, torch.Tensor], accum: int) -> list:
-    """(GB, ...) -> accum dicts of (GB/accum, ...) slices."""
+    """(GB, ...) -> accum dicts of (GB/accum, ...) slices, each (accum, GB/accum,
+    ...) stack constrained with its microbatch rows on ``"batch"`` as the JAX
+    package constrains it (a layout record under a sharding context)."""
+    stacks = {}
     for name, x in batch.items():
         if x.shape[0] % accum:
             raise ValueError(f"batch[{name!r}] of {x.shape[0]} rows does not split into {accum}")
-    return [{name: x.reshape(accum, x.shape[0] // accum, *x.shape[1:])[i]
-             for name, x in batch.items()} for i in range(accum)]
+        out = x.reshape(accum, x.shape[0] // accum, *x.shape[1:])
+        stacks[name] = constrain(out, None, "batch", *([None] * (out.ndim - 2)))
+    return [{name: x[i] for name, x in stacks.items()} for i in range(accum)]
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, accum_steps: int = 1):

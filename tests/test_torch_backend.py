@@ -186,6 +186,32 @@ def test_w_logical_raises_not_implemented(kind):
     assert torch.equal(got, plain)
 
 
+@pytest.mark.parametrize("kind", RUNNABLE)
+def test_w_logical_under_a_sharding_context_matches_reference(kind):
+    """Under a (data 4, model 2) context the port runs the product per
+    position, the JAX package under GSPMD on conftest's 8 host devices."""
+    import jax
+
+    from repro.launch.mesh import make_mesh_for as jmake_mesh_for
+    from repro.models.sharding import use_sharding as juse_sharding
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.sharding import use_sharding
+
+    if jax.device_count() < 8:
+        pytest.skip("needs the conftest multi-device host platform")
+    x, w = _np((2, 32, 48)), _np((48, 32))
+    be = dict(kind=kind, depth=1, min_dim=16)
+    mesh = make_mesh_for(8, model_parallel=2, device="cpu")
+    with use_sharding(mesh):
+        got = tb.matmul(torch.from_numpy(x), torch.from_numpy(w), tb.MatmulBackend(**be),
+                        w_logical=("d_ff", "fsdp"))
+    with juse_sharding(jmake_mesh_for(8, model_parallel=2)):
+        want = jb.matmul(jnp.asarray(x), jnp.asarray(w), jb.MatmulBackend(**be),
+                         w_logical=("d_ff", "fsdp"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-4)
+    assert mesh.count("psum", "model") == 1 and mesh.count("all_gather", "data") == 1
+
+
 def test_default_precision_matches_reference():
     try:
         for name in (None, "high", "highest", "tensorfloat32", "default"):

@@ -818,3 +818,35 @@ def test_cuda_train_step_matches_the_cpu_port(cuda, arch):
         assert rel(dev.opt.m[name], cpu.opt.m[name]) <= 1e-4, name
         pd = dict(dev.params.named_parameters())[name]
         assert rel(pd.detach() - before[name].to(cuda), p.detach() - before[name]) <= 1e-3, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("kind", ["naive", "strassen", "strassen_fused"])
+@pytest.mark.parametrize("w_logical", [("fsdp", "heads"), ("d_ff", "fsdp")])
+def test_cuda_sharded_projection_matches_the_cpu_port(cuda, kind, dtype, tol, w_logical):
+    """chip_smoke's s1 at a small size: backend.matmul with w_logical under a
+    (data 2, model 2) mesh of positions on the card against the same call on
+    a CPU mesh; strassen_fused launches strassen1 once per distinct slab pair."""
+    from repro_torch.core.backend import MatmulBackend, matmul, sharded_layouts
+    from repro_torch.core.mesh import distinct_slabs
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.sharding import DEFAULT_RULES, use_sharding
+
+    m, k, n = 512, 768, 384
+    x, w = _on(cuda, (m, k), dtype), _on(cuda, (k, n), dtype)
+    be = MatmulBackend(kind=kind, depth=1, min_dim=128)
+    card, host = make_mesh_for(4, 2, device="cuda"), make_mesh_for(4, 2, device="cpu")
+    tst.strassen1_matmul_cuda.launches = 0
+    with use_sharding(card):
+        got = matmul(x, w, be, w_logical=w_logical)
+    launched = tst.strassen1_matmul_cuda.launches
+    with use_sharding(host):
+        want = matmul(x.cpu(), w.cpu(), be, w_logical=w_logical)
+    scale = max(1.0, want.float().abs().max().item())
+    assert got.device.type == "cuda" and got.dtype == want.dtype
+    assert (got.cpu().float() - want.float()).abs().max().item() <= tol * scale
+    _, wg_spec, x_spec, _ = sharded_layouts(card, DEFAULT_RULES, m, k, n, w_logical)
+    pairs = distinct_slabs(card, (x_spec, (m, k)), (wg_spec, (k, n)))
+    assert launched == (pairs if kind == "strassen_fused" else 0)
+    assert card.traffic == host.traffic and card.physical_bytes == 0

@@ -409,5 +409,9 @@ def test_train_cli_trains_summarizes_and_resumes(tmp_path, capsys):
     assert ttrain.main(argv + ["--steps", "6"]) == 0
     assert "[resume] from step 4" in capsys.readouterr().out
     assert json.loads(summary.read_text())["steps_run"] == 2
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ttrain.main(argv + ["--mesh"])
+    # --mesh trains on a (data 4, model 2) mesh of CPU positions, resuming at step 6
+    assert ttrain.main(argv + ["--steps", "8", "--mesh", "--positions", "8",
+                               "--model-parallel", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "[resume] from step 6" in out and "mesh: {'data': 4, 'model': 2} on cpu" in out
+    assert "psum['model']" in out and json.loads(summary.read_text())["steps_run"] == 2
