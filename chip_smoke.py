@@ -357,6 +357,26 @@ of max|torch.matmul|, with ``mesh.traffic``'s bytes), ex3 serve
 (recurrentgemma's smoke config: requests end by length or their eviction,
 no page left in use) and ex4 train_e2e ``--ci`` (its loss must fall).
 
+The dry-run path (``repro_torch.launch.dryrun`` over ``op_analysis``, on
+fake ``cuda:0`` tensors that allocate nothing) comes after them; its
+roofline terms are against ``launch/roofline.py``'s H100 data-sheet peaks:
+
+d1. whisper-tiny x decode_32k x single on the 256-position production mesh
+    (the JAX dry-run integration test's cell): trace seconds, the three
+    terms, and per-position argument + temporary bytes under 4 GiB;
+d2. phi4-mini, one 1024-token prefill and one decode step at batch 8, no
+    mesh: predicted by a trace, then run on the card; the launches by
+    kernel equal the wrappers' counts, the argument bytes the real
+    tensors', and the measured time (CUDA events) is at least the bound;
+    the predicted peak is printed beside ``torch.cuda.max_memory_allocated``;
+d3. ``strassen_2d`` at depth 1 on (2, 2) at 16384^2 fp32, predicted then
+    run: the logical collective bytes by kind equal the run's
+    ``mesh.traffic``, the per-position dot FLOPs their closed form.
+
+Every kernel's bound (``time`` lines, the JSON's ``bound_ms``) is its
+``kernels/cost.py`` operations and bytes at those peaks, the same numbers
+the dry-run's analysis records where a wrapper meets a fake tensor.
+
 RMSNorm is timed with its rows in L2 (the same x again) and cold (x and out
 rotating over more than 100 MB, past the 50 MB L2); the JSON line holds
 the cold time.
@@ -420,7 +440,7 @@ from repro_torch.core.strassen import (  # noqa: E402
     merge_quadrants,
     split_quadrants,
 )
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, cost  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     HEAD_DIMS,
@@ -455,18 +475,20 @@ from repro_torch.models.rglru import init_rglru_state, rglru_block  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.mesh import format_traffic, launcher_mesh, make_mesh_for  # noqa: E402
-from repro_torch.launch.specs import place  # noqa: E402
+from repro_torch.launch.roofline import HW, bound_ms  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.op_analysis import OpAnalysis, fake_mode, to_device  # noqa: E402
+from repro_torch.launch.specs import named_leaves, place  # noqa: E402
 from repro_torch.models.sharding import DEFAULT_RULES, use_sharding  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, OptState, apply_updates  # noqa: E402
 from repro_torch.runtime.checkpoint import load_pytree, save_pytree  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.training.train_step import TrainState, init_train_state, make_train_step  # noqa: E402
 
-# Dense peaks of one H100 SXM at its full 700 W (NVIDIA data sheet): fp32 on
-# the CUDA cores (the kernels' fp32 path; TF32 would change the result), bf16
-# on the tensor cores, and HBM3 bandwidth.
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-PEAK_BYTES = 3.35e12
+# Dense peaks of one H100 SXM at its full 700 W (NVIDIA data sheet), per
+# dtype, and HBM3 bandwidth: launch/roofline.py's Hardware, which the
+# dry-run reckons its terms against too. A kernel's bound is its
+# kernels/cost.py operations and bytes at these rates (bound_ms).
 
 # Kernel against plain version: max|kernel - plain| <= TOL * max(1, max|plain|).
 # divide/combine sum in the same order and round each add to the storage type
@@ -838,18 +860,8 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
-def bound_ms(ops: float, nbytes: float, dtype: torch.dtype) -> tuple:
-    t_ops, t_bytes = ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def sum_ops(coef: np.ndarray, m: int, plane: int) -> int:
-    """Additions of one signed-sum level: (nonzeros - 1) per output row and element."""
-    return int(sum(max(int(np.count_nonzero(row)) - 1, 0) for row in coef)) * m * plane
 
 
 # ----------------------------------------------------------------- phases
@@ -1037,13 +1049,14 @@ def phase_end_to_end(runs: list, reps: int) -> None:
         log(f"e2e {name}: {ms:.3f} ms, {2 * n**3 / ms / 1e9:.2f} TFLOP/s-equivalent (2N^3)")
 
 
-def time_kernel(name, kernel, plain, library, ops, moved, dtype, kind, reps) -> dict:
+def time_kernel(name, kernel, plain, library, work: cost.Cost, kind, reps) -> dict:
     """Checks a kernel against its plain version, then times kernel, plain
-    version and library call (device time, CUDA events) beside the card's bound."""
+    version and library call (device time, CUDA events) beside the card's
+    bound for ``work`` (kernels/cost.py)."""
     err = compare(f"{name} at main-path shape", kernel(), plain(), kind)
     ms, plain_ms = time_ms(kernel, reps, queued=True), time_ms(plain, reps, queued=True)
     library_ms = time_ms(library, reps, queued=True) if library is not None else None
-    bms, by = bound_ms(ops, moved, dtype)
+    bms, by = bound_ms(work.ops, work.bytes, work.dtype)
     lib = "n/a" if library_ms is None else f"{library_ms:.5g} ms"
     log(f"time {name}: kernel {ms:.5g} ms, plain {plain_ms:.5g} ms, library {lib}, "
         f"bound {bms:.5g} ms ({by}), kernel at {bms / ms:.1%} of bound")
@@ -1081,19 +1094,19 @@ def time_rmsnorm(gen: np.random.Generator, rows: int, d: int, reps: int) -> dict
     out rotating past the L2). Returns the cold stats."""
     w = 1.0 + randn(gen, (d,), torch.float32)
     w16 = w.bfloat16()
-    ops, moved = 3 * rows * d, 2 * rows * d * 2 + nbytes(w)
+    work = cost.rmsnorm(rows, d, torch.bfloat16, w.dtype)
 
     def lib(x):
         return torch.nn.functional.rms_norm(x, (d,), w16, 1e-6)
 
     x = randn(gen, (rows, d), torch.bfloat16)
     time_kernel(f"rmsnorm bf16 {(rows, d)} warm L2", lambda: rmsnorm_cuda(x, w), lambda: rmsnorm_ref(x, w),
-                lambda: lib(x), ops, moved, torch.float32, "norm", reps)
+                lambda: lib(x), work, "norm", reps)
     xs = cold_inputs(gen, (rows, d), torch.bfloat16)
     return time_kernel(
         f"rmsnorm bf16 {(rows, d)} cold L2 ({len(xs)} x/out pairs rotating)",
         rotating(lambda x: rmsnorm_cuda(x, w), xs), rotating(lambda x: rmsnorm_ref(x, w), xs),
-        rotating(lib, xs), ops, moved, torch.float32, "norm", reps)
+        rotating(lib, xs), work, "norm", reps)
 
 
 def json_row(fname: str, counts: dict, stats: dict) -> dict:
@@ -1109,11 +1122,10 @@ def phase_timing(a, b, reps: int, counts: dict) -> list:
     """
     s = get_scheme("strassen")
     h = a.shape[0] // 2
-    plane = h * h * a.element_size()  # bytes of one (N/2)^2 fp32 plane
     entries = []
 
-    def entry(name, kernel, plain, library, ops, moved, dtype, kind):
-        return time_kernel(name, kernel, plain, library, ops, moved, dtype, kind, reps)
+    def entry(name, kernel, plain, library, work, kind):
+        return time_kernel(name, kernel, plain, library, work, kind, reps)
 
     def add(fname, stats):
         entries.append(json_row(fname, counts, stats))
@@ -1124,28 +1136,28 @@ def phase_timing(a, b, reps: int, counts: dict) -> list:
     add("strassen1_matmul_cuda", entry(
         f"strassen1 fp32 {tuple(aq.shape)}", lambda: strassen1_matmul_cuda(aq, bq, scheme=s),
         lambda: strassen1_matmul_ref(aq, bq, s), lambda: torch.matmul(a, b),
-        2 * 7 * h**3, 12 * plane, torch.float32, "mm"))
+        cost.strassen1(1, h, h, h, s.n_mults, torch.float32), "mm"))
 
     # The staged pipeline's first divide level, and a combine level of the same size.
     coef = torch.as_tensor(s.a_coef, dtype=torch.float32, device=DEVICE)
     add("divide_cuda", entry(
         f"divide fp32 {tuple(aq.shape)}", lambda: divide_cuda(aq, s.a_coef),
         lambda: divide_ref(aq, s.a_coef), lambda: torch.einsum("pq,mqij->mpij", coef, aq),
-        sum_ops(s.a_coef, 1, h * h), 11 * plane, torch.float32, "sum"))
+        cost.signed_sum(s.a_coef, 1, h * h, torch.float32), "sum"))
     p = divide_cuda(aq, s.a_coef)  # (1, 7, N/2, N/2)
     ccoef = torch.as_tensor(s.c_coef, dtype=torch.float32, device=DEVICE)
     add("combine_cuda", entry(
         f"combine fp32 {tuple(p.shape)}", lambda: combine_cuda(p, s.c_coef),
         lambda: combine_ref(p, s.c_coef), lambda: torch.einsum("kp,mpij->mkij", ccoef, p),
-        sum_ops(s.c_coef, 1, h * h), 11 * plane, torch.float32, "sum"))
+        cost.signed_sum(s.c_coef, 1, h * h, torch.float32), "sum"))
     # the same levels in bf16, on packed bf16x2 pairs (printed, not in the JSON line)
     aq, p = aq.bfloat16(), p.bfloat16()
     entry(f"divide bf16 {tuple(aq.shape)}", lambda: divide_cuda(aq, s.a_coef),
           lambda: divide_ref(aq, s.a_coef), lambda: torch.einsum("pq,mqij->mpij", coef.bfloat16(), aq),
-          sum_ops(s.a_coef, 1, h * h), 11 * plane // 2, torch.bfloat16, "sum")
+          cost.signed_sum(s.a_coef, 1, h * h, torch.bfloat16), "sum")
     entry(f"combine bf16 {tuple(p.shape)}", lambda: combine_cuda(p, s.c_coef),
           lambda: combine_ref(p, s.c_coef), lambda: torch.einsum("kp,mpij->mkij", ccoef.bfloat16(), p),
-          sum_ops(s.c_coef, 1, h * h), 11 * plane // 2, torch.bfloat16, "sum")
+          cost.signed_sum(s.c_coef, 1, h * h, torch.bfloat16), "sum")
     del aq, bq, p
 
     # Depth 2: the fused kernel on the depth-1 operand sums (printed, not in
@@ -1157,19 +1169,19 @@ def phase_timing(a, b, reps: int, counts: dict) -> list:
         entry(f"strassen1 {str(dtype)[6:]} {tuple(aq.shape)}",
               lambda: strassen1_matmul_cuda(aq, bq, scheme=s),
               lambda: strassen1_matmul_ref(aq, bq, s), lambda: torch.bmm(am, bm),
-              2 * 7 * 7 * (h // 2) ** 3, 3 * nbytes(aq), dtype, "mm")
+              cost.strassen1(7, h // 2, h // 2, h // 2, s.n_mults, dtype), "mm")
         del aq, bq, am, bm
     la, lb = divide_level(ta, s.a_coef), divide_level(tb, s.b_coef)  # (49, N/4, N/4)
     del ta, tb
     add("batched_matmul_cuda", entry(
         f"batched_matmul fp32 {tuple(la.shape)}", lambda: batched_matmul_cuda(la, lb),
         lambda: batched_matmul_ref(la, lb), lambda: torch.bmm(la, lb),
-        2 * 49 * (h // 2) ** 3, 3 * nbytes(la), torch.float32, "mm"))
+        cost.matmul(49, h // 2, h // 2, h // 2, torch.float32), "mm"))
     # the same leaves in bf16, on the tensor cores (printed, not in the JSON line)
     la, lb = la.bfloat16(), lb.bfloat16()
     entry(f"batched_matmul bf16 {tuple(la.shape)}", lambda: batched_matmul_cuda(la, lb),
           lambda: batched_matmul_ref(la, lb), lambda: torch.bmm(la, lb),
-          2 * 49 * (h // 2) ** 3, 3 * nbytes(la), torch.bfloat16, "mm")
+          cost.matmul(49, h // 2, h // 2, h // 2, torch.bfloat16), "mm")
     del la, lb
 
     # The single tiled matmul (matmul_pallas's counterpart, on no path that
@@ -1177,10 +1189,10 @@ def phase_timing(a, b, reps: int, counts: dict) -> list:
     am, bm = a[:h, :h].contiguous(), b[:h, :h].contiguous()
     add("matmul_cuda", entry(
         f"matmul fp32 {(h, h, h)}", lambda: matmul_cuda(am, bm), lambda: matmul_ref(am, bm),
-        lambda: torch.matmul(am, bm), 2 * h**3, 3 * nbytes(am), torch.float32, "mm"))
+        lambda: torch.matmul(am, bm), cost.matmul(1, h, h, h, torch.float32), "mm"))
     am, bm = am.bfloat16(), bm.bfloat16()
     entry(f"matmul bf16 {(h, h, h)}", lambda: matmul_cuda(am, bm), lambda: matmul_ref(am, bm),
-          lambda: torch.matmul(am, bm), 2 * h**3, 3 * nbytes(am), torch.bfloat16, "mm")
+          lambda: torch.matmul(am, bm), cost.matmul(1, h, h, h, torch.bfloat16), "mm")
     return entries
 
 
@@ -1411,13 +1423,12 @@ def phase_mesh_stripes(a, b, reps: int, launches: dict) -> list:
             aq, bq = split_quadrants(ta), split_quadrants(tb)
             mb, _, m2, k2 = aq.shape
             n2 = bq.shape[3]
-            ops = 2 * s.n_mults * mb * m2 * k2 * n2
-            moved = nbytes(aq, bq) + mb * 4 * m2 * n2 * aq.element_size()
+            work = cost.strassen1(mb, m2, k2, n2, s.n_mults, dtype)
             tag = str(dtype)[6:]
             stats = time_kernel(
                 f"strassen1 {tag} {tuple(aq.shape)} x {tuple(bq.shape)} (mesh stripe, depth {depth})",
                 lambda: strassen1_matmul_cuda(aq, bq, scheme=s),
-                lambda: strassen1_matmul_ref(aq, bq, s), library, ops, moved, dtype, "mm", reps)
+                lambda: strassen1_matmul_ref(aq, bq, s), library, work, "mm", reps)
             fname = "strassen1_matmul_cuda"
             entries.append({"name": f"{fname} (mesh stripe {tuple(aq.shape)} {tag})",
                             "route": "cuda", "source": SOURCES[fname], "replaces": REPLACES[fname],
@@ -1661,7 +1672,7 @@ def phase_oot(seed: int, reps: int) -> None:
     am, bm = merge_quadrants(aq)[0], merge_quadrants(bq)[0]
     time_kernel(f"strassen1 fp32 {tuple(aq.shape)} (an out-of-core leaf)",
                 lambda: strassen1_matmul_cuda(aq, bq), lambda: strassen1_matmul_ref(aq, bq, "strassen"),
-                lambda: torch.matmul(am, bm), 2 * 7 * h**3, 3 * nbytes(aq), torch.float32, "mm",
+                lambda: torch.matmul(am, bm), cost.strassen1(1, h, h, h, 7, torch.float32), "mm",
                 reps)
     del aq, bq, am, bm
     log(f"o1 done in {time.perf_counter() - t:.1f} s")
@@ -1882,16 +1893,6 @@ def phase_oot_auto(seed: int) -> None:
 
 
 # ---------------------------------------------------------- serving path
-def flash_ops(b: int, hq: int, s: int, d: int, window=None) -> int:
-    """4 * D flops per live (query, key) pair and head (QK^T and PV); causal
-    attention of s queries over s keys has s * (s + 1) / 2 live pairs, and
-    with a window of w < s keys w * (w + 1) / 2 + (s - w) * w."""
-    if window is None or window >= s:
-        pairs = s * (s + 1) // 2
-    else:
-        pairs = window * (window + 1) // 2 + (s - window) * window
-    return 4 * b * hq * d * pairs
-
 
 def phase_serving_kernels(gen: np.random.Generator, cfg) -> None:
     """(a) RMSNorm and flash attention against their plain versions at the model's shapes."""
@@ -2251,7 +2252,7 @@ def phase_serving_timing(cfg, reps: int, counts: dict) -> list:
     xd = randn(gen, (SERVE["slots"], d), torch.bfloat16)
     time_kernel(f"rmsnorm bf16 {tuple(xd.shape)} (decode)", lambda: rmsnorm_cuda(xd, w),
                 lambda: rmsnorm_ref(xd, w), lambda: torch.nn.functional.rms_norm(xd, (d,), w16, 1e-6),
-                3 * xd.numel(), 2 * nbytes(xd) + nbytes(w), torch.float32, "norm", reps)
+                cost.rmsnorm(*xd.shape, xd.dtype, w.dtype), "norm", reps)
     for sq in (s, 2048):
         q = randn(gen, (1, hq, sq, hd), torch.bfloat16)
         k, v = (randn(gen, (1, hkv, sq, hd), torch.bfloat16) for _ in range(2))
@@ -2260,8 +2261,7 @@ def phase_serving_timing(cfg, reps: int, counts: dict) -> list:
             f"flash bf16 q{tuple(q.shape)} kv{tuple(k.shape)} causal",
             lambda: flash_attention_cuda(q, k, v), lambda: attention_ref(q, k, v),
             lambda: torch.nn.functional.scaled_dot_product_attention(q, kr, vr, is_causal=True),
-            flash_ops(1, hq, sq, hd), 2 * nbytes(q) + nbytes(k, v), torch.bfloat16,
-            "flash", reps)
+            cost.flash(1, hq, hkv, sq, sq, hd, True, None, torch.bfloat16), "flash", reps)
         if sq == s:
             rows.append(json_row("flash_attention_cuda", counts, stats))
     return rows
@@ -2406,18 +2406,16 @@ def phase_slstm_timing(cfg, reps: int, counts: dict) -> list:
     rows, ms = [], {}
     for b, s, carried in ((1, 1024, False), (1, 1, False), (SERVE["slots"], 1, True)):
         wx, r, state = slstm_inputs(gen, b, s, h, dh, carried)
-        moved = nbytes(wx, r) + 2 * nbytes(*state.values()) + b * s * h * dh * 4
         stats = time_kernel(
             f"slstm fp32 {(b, s, 4, h, dh)}", lambda: slstm_seq_cuda(wx, r, state)[1],
-            lambda: slstm_seq_ref(wx, r, state)[1], None, 2 * b * s * 4 * h * dh * dh, moved,
-            torch.float32, "slstm", reps)
+            lambda: slstm_seq_ref(wx, r, state)[1], None, cost.slstm(b, s, h, dh), "slstm", reps)
         ms[(b, s)] = stats["ms"]
         if s > 1:
             rows.append(json_row("slstm_seq_cuda", counts, stats))
     step_us = (ms[(1, 1024)] - ms[(1, 1)]) / 1023 * 1e3
     log(f"time slstm per step inside a 1024-step prefill: {step_us:.3f} us "
         f"((t(1024) - t(1)) / 1023; the fp32 work of a step bounds it at "
-        f"{2 * 4 * h * dh * dh / PEAK_OPS[torch.float32] * 1e6:.3f} us)")
+        f"{2 * 4 * h * dh * dh / HW.peak(torch.float32) * 1e6:.3f} us)")
     return rows
 
 
@@ -2522,7 +2520,7 @@ def decode_step_numbers(cfg, params, prompt: np.ndarray, serve: dict, spans: tup
     step_ms = statistics.median([timed(engine.step)[0] for _ in range(16)])
     moved = weight_bytes(params, cfg)
     log(f"decode step, {serve['slots']} live slots at ~{len(prompt)} tokens: median {step_ms:.3f} ms "
-        f"(host clock around a synchronized step); bound {moved / PEAK_BYTES * 1e3:.3f} ms "
+        f"(host clock around a synchronized step); bound {moved / HW.hbm_bw * 1e3:.3f} ms "
         f"(bytes: the {moved / 1e9:.2f} GB of weights a step reads)")
     log_split(f"decode step, {serve['slots']} live slots", step_ms,
               device_split(engine.step, spans))
@@ -2556,7 +2554,7 @@ def phase_moe_flash_timing(cfg, reps: int, counts: dict) -> list:
         f"flash bf16 q{tuple(q.shape)} kv{tuple(k.shape)} causal ({cfg.name})",
         lambda: flash_attention_cuda(q, k, v), lambda: attention_ref(q, k, v),
         lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True),
-        flash_ops(1, hq, s, hd), 2 * nbytes(q) + nbytes(k, v), torch.bfloat16, "flash", reps)
+        cost.flash(1, hq, hkv, s, s, hd, True, None, torch.bfloat16), "flash", reps)
     return [json_row("flash_attention_cuda", counts, stats)]
 
 
@@ -2663,8 +2661,7 @@ def phase_rglru_kernel_timing(cfg, reps: int, counts: dict) -> list:
             lambda: flash_attention_cuda(q, k, v, window=win),
             lambda: attention_ref(q, k, v, window=win),
             lambda: torch.nn.functional.scaled_dot_product_attention(q, kr, vr, attn_mask=mask),
-            flash_ops(1, hq, s, hd, win), 2 * nbytes(q) + nbytes(k, v), torch.bfloat16,
-            "flash", reps)
+            cost.flash(1, hq, hkv, s, s, hd, True, win, torch.bfloat16), "flash", reps)
         if s == max(RG_FLASH_LENS):
             rows.append(json_row("flash_attention_cuda", counts, stats))
     return rows
@@ -2738,10 +2735,6 @@ def phase_whisper_kernels(gen: np.random.Generator, cfg) -> None:
                     f"(whisper {(m, k, n)})", strassen1_matmul_cuda(aq, bq, scheme=s),
                     strassen1_matmul_ref(aq, bq, s), "mm")
 
-
-def attention_ops(b: int, hq: int, sq: int, sk: int, d: int, causal: bool) -> int:
-    """4 * D flops per live (query, key) pair and head; causal needs Sq == Sk."""
-    return flash_ops(b, hq, sq, d) if causal else 4 * b * hq * sq * sk * d
 
 
 @torch.inference_mode()
@@ -2878,8 +2871,8 @@ def phase_whisper_flash_timing(cfg, reps: int, counts: dict) -> list:
             lambda: flash_attention_cuda(q, k, v, causal=causal),
             lambda: attention_ref(q, k, v, causal=causal),
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal),
-            attention_ops(qs[0], qs[1], qs[2], ks[2], qs[3], causal),
-            2 * nbytes(q) + nbytes(k, v), torch.bfloat16, "flash", reps)
+            cost.flash(qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], causal, None, torch.bfloat16),
+            "flash", reps)
         rows.append(json_row("flash_attention_cuda", counts, stats))
     return rows
 
@@ -3000,13 +2993,6 @@ def train_flash_shapes() -> list:
 def mask_name(causal: bool, window) -> str:
     return ("causal" if causal else "non-causal") + ("" if window is None else f" window {window}")
 
-
-def bwd_ops(qs: tuple, ks: tuple, causal: bool, window) -> float:
-    """The backward's five products: 2.5 times the forward's QK^T and PV
-    over the live pairs."""
-    if window is not None:
-        return 2.5 * flash_ops(qs[0], qs[1], qs[2], qs[3], window)
-    return 2.5 * attention_ops(qs[0], qs[1], qs[2], ks[2], qs[3], causal)
 
 
 def compare_grad(name: str, got: torch.Tensor, want: torch.Tensor, kind: str) -> float:
@@ -3367,7 +3353,8 @@ def train_flops(cfg, n_params: int, tokens: int, batch: int, seq: int) -> dict:
     remat forward of the layers (2 N_layers T), and attention's score and
     P V products (forward, remat forward, and the backward's five)."""
     n_layers = n_params - cfg.vocab * cfg.d_model  # all but the (tied) embedding
-    attn = cfg.n_layers * flash_ops(batch, cfg.n_heads, seq, cfg.head_dim)
+    attn = cfg.n_layers * cost.flash(batch, cfg.n_heads, cfg.n_kv_heads, seq, seq, cfg.head_dim, True, None,
+                                     torch.bfloat16).ops
     return {"6NT": 6 * n_params * tokens, "remat": 2 * n_layers * tokens,
             "attention": (1 + (1 if cfg.remat else 0) + 2.5) * attn}
 
@@ -3436,7 +3423,7 @@ def phase_train_phi4(seed: int, smi: str) -> dict:
         f"parameters, fp32 moments); median step {step_s * 1e3:.1f} ms (host clock, train_loop's "
         f"watchdog), {tokens / step_s:.0f} tokens/s; work per step "
         f"{', '.join(f'{k} {v / 1e12:.2f}' for k, v in flops.items())} TFLOP = {total / 1e12:.2f} "
-        f"TFLOP, {total / step_s / 1e12:.1f} TFLOP/s ({total / step_s / PEAK_OPS[torch.bfloat16]:.1%}"
+        f"TFLOP, {total / step_s / 1e12:.1f} TFLOP/s ({total / step_s / HW.peak(torch.bfloat16):.1%}"
         f" of the 989 TFLOP/s bf16 peak; 6NT alone {flops['6NT'] / step_s / 1e12:.1f} TFLOP/s); "
         f"allocator peak {peak:.2f} GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
     log_step_split(cfg, TRAIN_OPT, state, TRAIN_BATCH, TRAIN_SEQ, seed, "t3")
@@ -3595,14 +3582,14 @@ def run_xlstm_train(seed: int, smi: str) -> dict:
     return counts
 
 
-def time_grads(name, kernel, plain, library, ops, moved, dtype, kind, reps) -> dict:
+def time_grads(name, kernel, plain, library, work: cost.Cost, kind, reps) -> dict:
     """time_kernel() for a kernel that returns several gradients: each
     checked against the plain version's, then the three timed."""
     errs = [compare_grad(f"{name} {i}", g, w, kind) for i, (g, w) in
             enumerate(zip(kernel(), plain()))]
     ms, plain_ms = time_ms(kernel, reps, queued=True), time_ms(plain, reps, queued=True)
     library_ms = time_ms(library, reps, queued=True)
-    bms, by = bound_ms(ops, moved, dtype)
+    bms, by = bound_ms(work.ops, work.bytes, work.dtype)
     log(f"time {name}: kernel {ms:.5g} ms, plain {plain_ms:.5g} ms, library {library_ms:.5g} ms, "
         f"bound {bms:.5g} ms ({by}), kernel at {bms / ms:.1%} of bound")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
@@ -3639,13 +3626,13 @@ def phase_train_timing(reps: int, phi_counts: dict, whisper_counts: dict, rg_cou
     rows = []
     for name, qs, ks, causal, window in train_flash_shapes():
         q, k, v, out, lse, do = grad_inputs(gen, qs, ks, causal, torch.bfloat16, window)
-        moved = nbytes(q, k, v, out, lse, do) + nbytes(q, k, v)
         stats = time_grads(
             f"flash bwd bf16 q{qs} kv{ks} {mask_name(causal, window)} ({name})",
             lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal, window=window),
             lambda: attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window),
-            sdpa_grad(q, k, v, do, causal, window), bwd_ops(qs, ks, causal, window), moved,
-            torch.bfloat16, "flash_bwd", reps)
+            sdpa_grad(q, k, v, do, causal, window),
+            cost.flash_bwd(qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], causal, window, torch.bfloat16),
+            "flash_bwd", reps)
         counts = phi_counts if name == "phi4" else rg_counts if qs[3] == 256 else whisper_counts
         rows.append(json_row("flash_attention_bwd_cuda", counts, stats))
         del q, k, v, out, lse, do
@@ -3665,8 +3652,7 @@ def phase_train_timing(reps: int, phi_counts: dict, whisper_counts: dict, rg_cou
         rotating(lambda p: rmsnorm_bwd_cuda(p[0], w, p[1]), pairs),
         rotating(lambda p: rmsnorm_bwd_ref(p[0], w, p[1]), pairs),
         rotating(lambda g: torch.autograd.grad(g[0], (g[1], w16), g[2], retain_graph=True), graphs),
-        10 * shape[0] * shape[1], 3 * shape[0] * shape[1] * 2 + 2 * nbytes(w), torch.float32,
-        "norm_bwd", reps)
+        cost.rmsnorm_bwd(*shape, torch.bfloat16, w.dtype), "norm_bwd", reps)
     rows.append(json_row("rmsnorm_bwd_cuda", phi_counts, stats))
     del xs, pairs, graphs
     rows.append(time_slstm_bwd(gen, reps, xlstm_counts))
@@ -3690,15 +3676,13 @@ def time_slstm_bwd(gen: np.random.Generator, reps: int, counts: dict) -> dict:
     errs = [compare(f"slstm bwd fp32 {(b, s, 4, h, dh)} at t9's shape: {part}", g, w, "slstm_bwd")
             for part, g, w in zip(SLSTM_GRADS, slstm_grads(kernel()), slstm_grads(plain()))]
     ms, plain_ms = time_ms(kernel, reps, queued=True), time_ms(plain, reps, queued=True)
-    ops = 2 * 2 * 4 * b * s * h * dh * dh
-    moved = (nbytes(r, hs, dhs, *saved.values(), *state.values(), *dfin.values())
-             + nbytes(saved["pre"], r, *state.values()))
-    bms, by = bound_ms(ops, moved, torch.float32)
+    work = cost.slstm_bwd(b, s, h, dh)
+    bms, by = bound_ms(work.ops, work.bytes, work.dtype)
     fwd_save = time_ms(lambda: slstm_seq_cuda(wx, r, state, save=True), reps, queued=True)
     fwd = time_ms(lambda: slstm_seq_cuda(wx, r, state), reps, queued=True)
     dwx = kernel()[0]
     dr_ms = time_ms(lambda: slstm_dr(state["h"], hs, dwx), reps, queued=True)
-    rec_bound = bound_ms(ops / 2, 0, torch.float32)[0]
+    rec_bound = bound_ms(work.ops / 2, 0, torch.float32)[0]
     log(f"time slstm bwd fp32 {(b, s, 4, h, dh)}: kernel {ms:.5g} ms, plain {plain_ms:.5g} ms, library n/a, "
         f"bound {bms:.5g} ms ({by}), kernel at {bms / ms:.1%} of bound; the recurrence's ops alone bound "
         f"{rec_bound:.5g} ms; dr product alone {dr_ms:.5g} ms; forward at this shape: saving {fwd_save:.5g} ms, "
@@ -4095,6 +4079,157 @@ def run_examples() -> None:
     run_example("ex4", ex_train_e2e, ["--ci", "--steps", str(EXAMPLE_TRAIN_STEPS)])
 
 
+# ------------------------------------------------------------- dry-run path
+DRYRUN_CELL = ("whisper_tiny", "decode_32k", "single")  # the JAX dry-run integration test's cell
+DRYRUN_SERVE = {"batch": 8, "prompt": 1024, "max_seq": 2048}  # d2: phi4-mini, no mesh
+DRYRUN_MESH = {"n": 16384, "shape": (2, 2), "depth": 1}  # d3: strassen_2d, an m-phase strategy
+
+
+def phase_dryrun_cell(smi: str) -> None:
+    """(d1) The dry-run of the JAX integration test's cell on the 256-position
+    production mesh of fake cuda:0 tensors: its trace seconds and H100 terms;
+    per-position argument + temporary bytes under 4 GiB."""
+    result = dryrun.run_cell(*DRYRUN_CELL)
+    if result.get("skipped"):
+        fail(f"d1 {DRYRUN_CELL}: skipped ({result['skipped']})")
+        return
+    dryrun.save_result(result)
+    t, mem = result["roofline"], result["memory"]
+    held = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    ok = (result["chips"] == 256 and t["compute_s"] > 0 and t["memory_s"] > 0
+          and result["cost_analysis"]["flops_per_device"] > 0 and held < 4 * 2**30)
+    log(f"d1 dry-run {' x '.join(DRYRUN_CELL)} on {result['chips']} positions (fake cuda:0), terms "
+        f"against {HW.name} data-sheet peaks, card {smi}: traced in {result['trace_seconds']} s, "
+        f"{result['cost_analysis']['aten_ops']} aten ops; compute {t['compute_s']:.3e} s, memory "
+        f"{t['memory_s']:.3e} s, collective {t['collective_s']:.3e} s -> {t['bottleneck']}; per position "
+        f"args {gib(mem['argument_size_in_bytes'])} + temps {gib(mem['temp_size_in_bytes'])} (< 4 GiB); "
+        f"launches {result['launches']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"d1 {DRYRUN_CELL}: chips {result['chips']}, terms {t}, held {held} B")
+
+
+def _serve_work(cfg, params, cache, tokens, nxt) -> None:
+    M.apply_prefill(params, {"tokens": tokens}, cache, cfg)
+    M.apply_decode(params, nxt, cache, cfg)
+
+
+def _leaf_bytes(*trees) -> int:
+    return sum(nbytes(t) for tree in trees for t in named_leaves(tree).values())
+
+
+def phase_dryrun_serve(seed: int, smi: str) -> None:
+    """(d2) Predict one 1024-token prefill and one decode step of phi4-mini at
+    batch 8 (no mesh) on fake tensors, then run the same work on the card:
+    the analysis's launches by kernel equal the wrappers' counts, its
+    argument bytes the real tensors' bytes, and the measured time (CUDA
+    events, after a warm run) is at least the roofline bound. The predicted
+    peak (arguments + temporaries) is printed beside the allocator's."""
+    cfg = get_config(SERVE_ARCH)
+    b, s, max_seq = DRYRUN_SERVE["batch"], DRYRUN_SERVE["prompt"], DRYRUN_SERVE["max_seq"]
+    t = time.perf_counter()
+    with fake_mode():
+        params = to_device(M.init_params(cfg, torch.Generator().manual_seed(0)), "cuda:0")
+        cache = M.init_cache(cfg, b, max_seq, device="cuda:0")
+        tokens = torch.empty((b, s), dtype=torch.long, device="cuda:0")
+        nxt = torch.empty((b, 1), dtype=torch.long, device="cuda:0")
+    with OpAnalysis() as analysis:
+        _serve_work(cfg, params, cache, tokens, nxt)
+    costs = analysis.costs()
+    predicted_args = _leaf_bytes(params, cache, tokens, nxt)
+    terms = costs.roofline()
+    trace_s = time.perf_counter() - t
+    del params, cache, tokens, nxt
+
+    gen = np.random.default_rng([seed, 10])
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed))
+    tokens = torch.from_numpy(gen.integers(0, cfg.vocab, (b, s))).to(DEVICE)
+    nxt = torch.from_numpy(gen.integers(0, cfg.vocab, (b, 1))).to(DEVICE)
+    cache = M.init_cache(cfg, b, max_seq, device=DEVICE)
+    real_args = _leaf_bytes(params, cache, tokens, nxt)
+    before = {fn.__name__: fn.launches for fn in ALL_KERNELS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _serve_work(cfg, params, cache, tokens, nxt)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launched = {fn.__name__: fn.launches - before[fn.__name__] for fn in ALL_KERNELS
+                if fn.launches != before[fn.__name__]}
+    cache = M.init_cache(cfg, b, max_seq, device=DEVICE)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    _serve_work(cfg, params, cache, tokens, nxt)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    bound = terms["bound_s"] * 1e3
+    ok = launched == costs.launches and predicted_args == real_args and ms >= bound
+    log(f"d2 {cfg.name} prefill {b} x {s} + one decode step, no mesh, on {smi}: traced in {trace_s:.1f} s "
+        f"({costs.ops} aten ops); launches predicted {costs.launches} vs run {launched}; argument bytes "
+        f"predicted {predicted_args} vs real {real_args}; FLOPs {costs.flops_by_dtype}, HBM bytes "
+        f"{costs.hbm_bytes:.4g}; terms compute {terms['compute_s'] * 1e3:.3f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.3f} ms -> bound {bound:.3f} ms ({terms['bottleneck']}); measured "
+        f"{ms:.3f} ms ({bound / ms:.1%} of bound); peak predicted {gib(predicted_args + costs.temp_bytes)} "
+        f"(args + temps) vs max_memory_allocated {gib(peak)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"d2: launches {costs.launches} vs {launched}, args {predicted_args} vs {real_args}, "
+             f"{ms:.3f} ms vs bound {bound:.3f} ms")
+    del params, cache, tokens, nxt
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun_mesh(seed: int, smi: str) -> None:
+    """(d3) Trace strassen_2d at depth 1 on (2, 2) at N^2 fp32 on fake
+    tensors, then run it on the card: the analysis's collective operand
+    bytes, converted to logical bytes by the ring rule (op_analysis), equal
+    the real run's mesh.traffic by kind, and its per-position dot FLOPs the
+    closed form 7 N^3 / 16 (the 7 leaf products of (N/4, N/2) by (N/2, N/4))
+    + 14 N^2 (the two divide sums over the position's (7, N/4, N/2) slab) +
+    3.5 N^2 (the combine sum over its (N/2)^2 quadrant)."""
+    n, shape, depth = DRYRUN_MESH["n"], DRYRUN_MESH["shape"], DRYRUN_MESH["depth"]
+    t = time.perf_counter()
+    fmesh = make_mesh(shape, ("data", "model"), device="cuda:0")
+    with fake_mode():
+        fa = torch.empty((n, n), device="cuda:0")
+        fb = torch.empty((n, n), device="cuda:0")
+    with OpAnalysis(chips=fmesh.size) as analysis:
+        distributed.strassen_2d(fa, fb, mesh=fmesh, depth=depth)
+    costs = analysis.costs()
+    trace_s = time.perf_counter() - t
+    gen = np.random.default_rng([seed, 11])
+    a, b = randn(gen, (n, n), torch.float32), randn(gen, (n, n), torch.float32)
+    mesh = make_mesh(shape, ("data", "model"), device=DEVICE)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = distributed.strassen_2d(a, b, mesh=mesh, depth=depth)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    err = rel_err(out, torch.matmul(a, b))
+    real: dict = {}
+    for (op, _axes), tr in mesh.traffic.items():
+        if tr.logical_bytes:
+            real[op] = real.get(op, 0) + tr.logical_bytes
+    closed = 7 * n**3 / 16 + 14 * n**2 + 3.5 * n**2
+    pinned = sum(costs.pinned["flops_by_dtype"].values())
+    terms = costs.roofline()
+    ok = costs.collective_logical == real and pinned == closed == costs.dot_flops and err <= MAIN_LIMIT[torch.float32]
+    log(f"d3 strassen_2d depth {depth} on {shape} at {n}^2 fp32, card {smi}: traced in {trace_s:.1f} s; "
+        f"logical collective bytes predicted {costs.collective_logical} vs mesh.traffic {real}; per-position "
+        f"operand bytes {costs.collective_by_kind}; dot FLOPs per position {pinned:.6g} vs closed form "
+        f"{closed:.6g}; terms compute {terms['compute_s'] * 1e3:.3f} ms, memory {terms['memory_s'] * 1e3:.3f} "
+        f"ms, collective {terms['collective_s'] * 1e3:.3f} ms -> {terms['bottleneck']}; the real run "
+        f"{secs:.2f} s (host clock, 4 positions on one card), rel_err {err:.2e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"d3: logical {costs.collective_logical} vs {real}, flops {pinned} vs {closed}, rel_err {err:.2e}")
+    del a, b, out
+    torch.cuda.empty_cache()
+
+
+def run_dryrun(seed: int, smi: str) -> None:
+    phase_dryrun_cell(smi)
+    phase_dryrun_serve(seed, smi)
+    phase_dryrun_mesh(seed, smi)
+
+
 def report_failures() -> int:
     print(f"chip_smoke: {len(FAILURES)} failure(s):", file=sys.stderr)
     for f in FAILURES:
@@ -4215,6 +4350,8 @@ def main() -> int:
     log(f"sharded training path done at {time.perf_counter() - t0:.1f} s")
     run_examples()
     log(f"examples done at {time.perf_counter() - t0:.1f} s")
+    run_dryrun(args.seed, smi)
+    log(f"dry-run path done at {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t0:.1f} s")
 
     if FAILURES:

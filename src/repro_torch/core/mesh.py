@@ -31,6 +31,14 @@ holds the same slab of it gets the same view, and :meth:`Mesh.map` runs a
 function once per distinct set of inputs. Seven positions of a replicated
 16384^2 operand on ``cuda:0`` share one storage.
 
+An observer (:func:`set_observer`; ``launch/op_analysis.py`` installs one
+while it traces a step on fake tensors) is told which positions the work of
+each local phase belongs to (:meth:`Mesh.run`, :meth:`Mesh.map` and a
+fetch's ``then``: every position that shares a call), which work is a
+movement (the copies and adds inside the collectives, :func:`shard`,
+:func:`gather` and a fetch's assembly) and, per position, the operand
+bytes of every collective. With no observer nothing is told.
+
 Every movement adds to the mesh's totals (:attr:`Mesh.traffic`, one
 :class:`Traffic` per kind of movement and axes, so they stay small however
 many calls a mesh serves): a count and two byte counts. *Logical* bytes move between positions: what a cluster of that
@@ -45,6 +53,7 @@ all-gather of chunks of B bytes k (k - 1) B, a psum-scatter of B bytes
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -67,6 +76,7 @@ __all__ = [
     "slab",
     "spec_axes",
     "distinct_slabs",
+    "set_observer",
 ]
 
 Pos = Tuple[int, ...]
@@ -99,6 +109,39 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+# The observer of local phases and movements, or None (see the module docstring).
+_observer = None
+
+
+def set_observer(observer):
+    """Install ``observer`` (None removes it); returns the one it replaces.
+
+    An observer has ``pinned(positions)`` and ``moving(positions)``, context
+    managers around a local phase's work and a movement's work (``moving(None)``
+    for a movement between the caller and the positions), and
+    ``collective(kind, sizes, group_size)``, ``sizes`` the operand bytes per
+    position of one ``psum``, ``all_gather`` or ``psum_scatter`` over groups
+    of ``group_size`` positions, or of one ``reshard`` (``group_size`` None).
+    """
+    global _observer
+    previous, _observer = _observer, observer
+    return previous
+
+
+def _pinned(positions):
+    return _observer.pinned(positions) if _observer is not None else contextlib.nullcontext()
+
+
+def _moving(positions):
+    return _observer.moving(positions) if _observer is not None else contextlib.nullcontext()
+
+
+def _tell(kind: str, mesh: "Mesh", size_of: Callable[[Tuple[int, ...]], int],
+          group_size: Optional[int] = None) -> None:
+    if _observer is not None:
+        _observer.collective(kind, {pos: size_of(pos) for pos in mesh.positions()}, group_size)
+
+
 def _axes(axis) -> Tuple[str, ...]:
     if axis is None:
         return ()
@@ -119,6 +162,8 @@ class Mesh:
         # (op, axes) -> totals; op is psum | all_gather | psum_scatter |
         # reshard | shard | gather.
         self.traffic: Dict[Tuple[str, Tuple[str, ...]], Traffic] = {}
+        # the holders of each slab index, per tuple of spec dims (_holder_index)
+        self._holders: Dict[Tuple, Dict] = {}
 
     def __repr__(self) -> str:
         kinds = sorted({str(d) for d in self.devices.flat})
@@ -187,19 +232,23 @@ class Mesh:
         """One local phase: ``fn(pos)`` on every position; an ndarray of results."""
         out = self._empty()
         for pos in self.positions():
-            out[pos] = fn(pos)
+            with _pinned([pos]):
+                out[pos] = fn(pos)
         return out
 
     def map(self, fn: Callable[..., torch.Tensor], *locals_: np.ndarray) -> np.ndarray:
         """``fn`` on each position's local tensors, once per distinct set of
-        inputs: replicas that alias on one device share one result."""
-        out, memo = self._empty(), {}
+        inputs (in the order the positions first hold them): replicas that
+        alias on one device share one result."""
+        out, groups = self._empty(), {}
         for pos in self.positions():
             args = tuple(x[pos] for x in locals_)
-            key = tuple(id(a) for a in args)
-            if key not in memo:
-                memo[key] = fn(*args)
-            out[pos] = memo[key]
+            groups.setdefault(tuple(id(a) for a in args), (args, []))[1].append(pos)
+        for args, members in groups.values():
+            with _pinned(members):
+                result = fn(*args)
+            for pos in members:
+                out[pos] = result
         return out
 
     # --------------------------------------------------------- collectives
@@ -252,10 +301,12 @@ class Mesh:
         """
         out, logical, moved = self._empty(), 0, [0]
         for members in self.groups(axis):
-            total = self._sum(xs, members, moved)
-            self._spread(out, members, total, moved)
+            with _moving(members):
+                total = self._sum(xs, members, moved)
+                self._spread(out, members, total, moved)
             logical += 2 * (len(members) - 1) * _nbytes(total)
         self.record("psum", axis, logical, moved[0])
+        _tell("psum", self, lambda pos: _nbytes(xs[pos]), self.axis_size(axis))
         return out
 
     def all_gather(self, xs: np.ndarray, axis) -> np.ndarray:
@@ -264,34 +315,38 @@ class Mesh:
         for members in self.groups(axis):
             dev = self.device_of(members[0])
             parts = []
-            for pos in members:
-                x = xs[pos]
-                if x.device != dev:
-                    x = x.to(dev)
-                    moved[0] += _nbytes(x)
-                parts.append(x)
-            whole = torch.cat(parts)
-            self._spread(out, members, whole, moved)
+            with _moving(members):
+                for pos in members:
+                    x = xs[pos]
+                    if x.device != dev:
+                        x = x.to(dev)
+                        moved[0] += _nbytes(x)
+                    parts.append(x)
+                whole = torch.cat(parts)
+                self._spread(out, members, whole, moved)
             logical += (len(members) - 1) * sum(_nbytes(xs[p]) for p in members)
         self.record("all_gather", axis, logical, moved[0])
+        _tell("all_gather", self, lambda pos: _nbytes(xs[pos]), self.axis_size(axis))
         return out
 
     def psum_scatter(self, xs: np.ndarray, axis) -> np.ndarray:
         """Tiled reduce-scatter over ``axis``: member i gets chunk i of the sum along dim 0."""
         out, logical, moved = self._empty(), 0, [0]
         for members in self.groups(axis):
-            total = self._sum(xs, members, moved)
-            k = len(members)
-            if total.shape[0] % k:
-                raise ValueError(f"dim 0 of size {total.shape[0]} does not split {k} ways")
-            for pos, chunk in zip(members, total.chunk(k)):
-                dev = self.device_of(pos)
-                if chunk.device != dev:
-                    chunk = chunk.to(dev)
-                    moved[0] += _nbytes(chunk)
-                out[pos] = chunk
+            with _moving(members):
+                total = self._sum(xs, members, moved)
+                k = len(members)
+                if total.shape[0] % k:
+                    raise ValueError(f"dim 0 of size {total.shape[0]} does not split {k} ways")
+                for pos, chunk in zip(members, total.chunk(k)):
+                    dev = self.device_of(pos)
+                    if chunk.device != dev:
+                        chunk = chunk.to(dev)
+                        moved[0] += _nbytes(chunk)
+                    out[pos] = chunk
             logical += (k - 1) * _nbytes(total)
         self.record("psum_scatter", axis, logical, moved[0])
+        _tell("psum_scatter", self, lambda pos: _nbytes(xs[pos]), self.axis_size(axis))
         return out
 
 
@@ -364,6 +419,16 @@ def distinct_slabs(mesh: Mesh, *layouts: Tuple[P, Sequence[int]]) -> int:
     return len(seen)
 
 
+def _region(t: torch.Tensor, bounds: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """The view of ``t`` within ``bounds``: one ``slice`` per dim it cuts,
+    called directly (Python indexing and ``narrow`` cost the dry-run's fake
+    tensors several times more a view)."""
+    for d, ((a, b), size) in enumerate(zip(bounds, t.shape)):
+        if (a, b) != (0, size):
+            t = torch.ops.aten.slice.Tensor(t, d, a, b)
+    return t
+
+
 def _as_box(bounds: Sequence[Tuple[int, int]]) -> Box:
     return tuple(slice(a, b) for a, b in bounds)
 
@@ -407,17 +472,19 @@ def shard(x: torch.Tensor, mesh: Mesh, spec: P) -> Sharded:
     copies: Dict[Tuple, torch.Tensor] = {}
     full = tuple((0, n) for n in x.shape)
     moved = 0
-    for pos in mesh.positions():
-        bounds = tuple(slab(mesh, spec, x.shape, pos))
-        dev = mesh.device_of(pos)
-        key = (bounds, str(dev))
-        if key not in copies:
-            view = x if bounds == full else x[_as_box(bounds)]
-            if view.device != dev:
-                view = view.to(dev)
-                moved += _nbytes(view)
-            copies[key] = view
-        locals_[pos] = copies[key]
+    x_dev = x.device
+    with _moving(None):
+        for pos in mesh.positions():
+            bounds = tuple(slab(mesh, spec, x.shape, pos))
+            dev = mesh.device_of(pos)
+            key = (bounds, str(dev))
+            if key not in copies:
+                view = x if bounds == full else _region(x, bounds)
+                if x_dev != dev:
+                    view = view.to(dev)
+                    moved += _nbytes(view)
+                copies[key] = view
+            locals_[pos] = copies[key]
     mesh.record("shard", (), 0, moved)
     return Sharded(mesh, P(*spec), tuple(x.shape), locals_, x.dtype)
 
@@ -436,25 +503,43 @@ def gather(s: Sharded) -> torch.Tensor:
         if s.slab(pos) == full and mesh.device_of(pos) == device:
             mesh.record("gather", (), 0, 0)
             return s.locals[pos]
-    out = torch.empty(s.shape, dtype=s.dtype, device=device)
     done = set()
-    for pos in mesh.positions():
-        bounds = tuple(s.slab(pos))
-        if bounds in done or any(a == b for a, b in bounds):
-            continue
-        done.add(bounds)
-        local = s.locals[pos]
-        if local.device != device:
-            moved += _nbytes(local)
-        out[_as_box(bounds)] = local
+    with _moving(None):
+        out = torch.empty(s.shape, dtype=s.dtype, device=device)
+        for pos in mesh.positions():
+            bounds = tuple(s.slab(pos))
+            if bounds in done or any(a == b for a, b in bounds):
+                continue
+            done.add(bounds)
+            local = s.locals[pos]
+            if local.device != device:
+                moved += _nbytes(local)
+            _region(out, bounds).copy_(local)
     mesh.record("gather", (), 0, moved)
     return out
+
+
+def _holder_index(mesh: Mesh, dims: Sequence[Tuple[str, ...]]) -> Dict[Tuple[int, ...], Dict]:
+    """For each tuple of shard indices (one per dim cut over ``dims``), the
+    positions that hold that slab: the first of them (key None) and the
+    first on each device (key ``str(device)``), in ``mesh.positions()``
+    order. Built once per mesh and tuple of dims."""
+    key = tuple(dims)
+    index = mesh._holders.get(key)
+    if index is None:
+        index = {}
+        for q in mesh.positions():
+            entry = index.setdefault(tuple(mesh.axis_index(q, axes) for axes in dims), {})
+            entry.setdefault(None, q)
+            entry.setdefault(str(mesh.device_of(q)), q)
+        mesh._holders[key] = index
+    return index
 
 
 def _pieces(s: Sharded, bounds: Sequence[Tuple[int, int]], pos: Pos):
     """Cut a box of the global tensor into the source slabs that hold it:
     (piece bounds, holder position) pairs, the holder ``pos`` itself where
-    it holds the piece, else one on its device, else the first."""
+    it holds the piece, else the first one on its device, else the first."""
     mesh = s.mesh
     dims = _spec_dims(mesh, s.spec, len(s.shape))
     per_dim = []
@@ -465,17 +550,17 @@ def _pieces(s: Sharded, bounds: Sequence[Tuple[int, int]], pos: Pos):
             if lo < hi:
                 opts.append((i, (lo, hi)))
         per_dim.append(opts)
-    want_dev = mesh.device_of(pos)
+    index = _holder_index(mesh, dims)
+    own = tuple(mesh.axis_index(pos, axes) for axes in dims)
+    want_dev = str(mesh.device_of(pos))
     out = []
     for combo in itertools.product(*per_dim):
-        idx = [i for i, _ in combo]
-        holders = [q for q in mesh.positions()
-                   if all(mesh.axis_index(q, axes) == i for axes, i in zip(dims, idx))]
-        if pos in holders:
+        idx = tuple(i for i, _ in combo)
+        if idx == own:
             holder = pos
         else:
-            same = [q for q in holders if mesh.device_of(q) == want_dev]
-            holder = same[0] if same else holders[0]
+            entry = index[idx]
+            holder = entry.get(want_dev, entry[None])
         out.append(([b for _, b in combo], holder))
     return out
 
@@ -488,62 +573,71 @@ def fetch(s: Sharded, boxes_of: Callable[[Pos], Sequence[Box]],
     ``boxes_of(pos)`` lists the boxes (tuples of unit-step slices of the
     global shape). A box that one slab holds on the position's device is a
     view of it; otherwise it is assembled from the slabs that hold it. The
-    result holds, per position, ``then(pos, tensors)``, called as soon as
-    that position's boxes are assembled, so at most one position's copies
-    are alive at a time.
-    Positions of one device with equal ``key(pos)`` (default: their boxes)
-    share one result. It counts as one ``reshard`` over ``axes``: the bytes
-    each position did not hold (logical) and those copied between devices
-    (physical), counted for every position, replicas included.
+    result holds, per position, ``then(pos, tensors)``. Positions of one
+    device with equal ``key(pos)`` (default: their boxes) share one result:
+    ``then`` is called for the first of them as soon as its boxes are
+    assembled, so at most one result's copies are alive at a time. It
+    counts as one ``reshard`` over ``axes``: the bytes each position did
+    not hold (logical) and those copied between devices (physical), counted
+    for every position, replicas included.
     """
     mesh = s.mesh
     out = mesh._empty()
     logical = physical = 0
-    itemsize = torch.empty((), dtype=s.dtype).element_size()
-    made: Dict[Tuple, object] = {}
+    itemsize = s.dtype.itemsize
+    fetched: Dict[Pos, int] = {}
+    # the positions of one device with equal keys, in order, and the first one's plan
+    groups: Dict[Tuple, Tuple[list, List[Pos]]] = {}
     for pos in mesh.positions():
         dev = mesh.device_of(pos)
         plan = []
+        fetched[pos] = 0
         for box in boxes_of(pos):
             bounds = _bounds(box, s.shape)
             pieces = _pieces(s, bounds, pos)
             for pb, holder in pieces:
                 n = math.prod(b - a for a, b in pb) * itemsize
                 if holder != pos:
-                    logical += n
+                    fetched[pos] += n
                 if mesh.device_of(holder) != dev:
                     physical += n
             plan.append((bounds, pieces))
+        logical += fetched[pos]
         k = (key(pos) if key is not None else tuple(tuple(b) for b, _ in plan), str(dev))
-        if k not in made:
-            once: Dict[Tuple, torch.Tensor] = {}  # a box asked for twice is assembled once
+        groups.setdefault(k, (plan, []))[1].append(pos)
+    for plan, members in groups.values():
+        dev = mesh.device_of(members[0])
+        once: Dict[Tuple, torch.Tensor] = {}  # a box asked for twice is assembled once
+        with _moving(members):
             for bounds, pieces in plan:
                 if tuple(bounds) not in once:
                     once[tuple(bounds)] = _assemble(s, bounds, pieces, dev)
-            got = [once[tuple(bounds)] for bounds, _ in plan]
-            made[k] = then(pos, got)
-            del got, once
-        out[pos] = made[k]
+        got = [once[tuple(bounds)] for bounds, _ in plan]
+        with _pinned(members):
+            made = then(members[0], got)
+        del got, once
+        for pos in members:
+            out[pos] = made
     mesh.record("reshard", axes, logical, physical)
+    _tell("reshard", mesh, fetched.__getitem__)
     return out
 
 
-def _local_box(s: Sharded, holder: Pos, bounds) -> Box:
+def _held(s: Sharded, holder: Pos, bounds) -> torch.Tensor:
+    """The part of ``holder``'s local within global ``bounds``."""
     start = s.slab(holder)
-    return tuple(slice(a - s0, b - s0) for (a, b), (s0, _) in zip(bounds, start))
+    return _region(s.locals[holder], [(a - s0, b - s0) for (a, b), (s0, _) in zip(bounds, start)])
 
 
 def _assemble(s: Sharded, bounds, pieces, dev: torch.device) -> torch.Tensor:
     if len(pieces) == 1:
         pb, holder = pieces[0]
-        src = s.locals[holder][_local_box(s, holder, pb)]
+        src = _held(s, holder, pb)
         if src.device == dev and pb == list(bounds):
             return src
     out = torch.empty([b - a for a, b in bounds], dtype=s.dtype, device=dev)
     for pb, holder in pieces:
-        src = s.locals[holder][_local_box(s, holder, pb)]
-        dst = tuple(slice(a - o, b - o) for (a, b), (o, _) in zip(pb, bounds))
-        out[dst] = src
+        _region(out, [(a - o, b - o) for (a, b), (o, _) in zip(pb, bounds)]).copy_(_held(s, holder, pb))
     return out
 
 

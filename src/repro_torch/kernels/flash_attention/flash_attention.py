@@ -23,8 +23,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.common import cdiv, on_cuda
+from repro_torch.kernels import _build, cost
+from repro_torch.kernels.common import cdiv, on_cuda, traced
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "flash_bwd_plan", "BwdPlan",
@@ -160,13 +160,15 @@ def flash_attention_cuda(
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale, return_lse=return_lse)
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda takes head dims {HEAD_DIMS}, got {d}")
-    if not _aligned(q, k, v):
-        raise ValueError("flash_attention_cuda needs contiguous, 16-byte aligned q, k, v")
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
-    if out.numel() == 0:
-        return (out, lse) if return_lse else out
     hkv, sk = k.shape[1], k.shape[2]
+    if out.numel() == 0 or traced(
+            flash_attention_cuda, cost.flash(b, hq, hkv, sq, sk, d, causal, window, q.dtype, return_lse),
+            q, k, v):
+        return (out, lse) if return_lse else out
+    if not _aligned(q, k, v):
+        raise ValueError("flash_attention_cuda needs contiguous, 16-byte aligned q, k, v")
     _build.launch(
         "repro_flash_attention", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(), code, b, hq, hkv, sq, sk, d,
@@ -206,12 +208,15 @@ def flash_attention_bwd_cuda(
     if d not in BWD_HEAD_DIMS[q.dtype]:
         raise ValueError(f"flash_attention_bwd_cuda takes head dims {BWD_HEAD_DIMS[q.dtype]} in "
                          f"{q.dtype}, got {d}")
-    if not (_aligned(q, k, v, o, do) and lse.is_contiguous()):
-        raise ValueError("flash_attention_bwd_cuda needs contiguous, 16-byte aligned tensors")
     hkv, sk = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    if traced(flash_attention_bwd_cuda, cost.flash_bwd(b, hq, hkv, sq, sk, d, causal, window, q.dtype),
+              q, k, v, o, lse, do):
+        return dq, dk, dv
+    if not (_aligned(q, k, v, o, do) and lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd_cuda needs contiguous, 16-byte aligned tensors")
     if q.device not in _LIMITS:
         _LIMITS[q.device] = _build.device_limits(q.device)
     plan = flash_bwd_plan(b, hq, hkv, sq, sk, d, causal, window, *_LIMITS[q.device], dtype=q.dtype)

@@ -19,8 +19,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.common import on_cuda, out_dtype_of
+from repro_torch.kernels import _build, cost
+from repro_torch.kernels.common import on_cuda, out_dtype_of, traced
 from repro_torch.kernels.matmul.ref import batched_matmul_ref
 
 __all__ = ["matmul_cuda", "batched_matmul_cuda"]
@@ -53,7 +53,7 @@ def batched_matmul_cuda(
     if not on_cuda(a, b):
         return batched_matmul_ref(a, b, dtype)
     out = torch.empty((a.shape[0], a.shape[1], b.shape[2]), dtype=dtype, device=a.device)
-    if out.numel():
+    if out.numel() and not traced(batched_matmul_cuda, cost.matmul(*a.shape, b.shape[2], a.dtype, dtype), a, b):
         _launch(a, b, out, code)
         batched_matmul_cuda.launches += 1
     return out
@@ -74,7 +74,7 @@ def matmul_cuda(
     if not on_cuda(a, b):
         return batched_matmul_ref(a3, b3, dtype)[0]
     out = torch.empty((1, a.shape[0], b.shape[1]), dtype=dtype, device=a.device)
-    if out.numel():
+    if out.numel() and not traced(matmul_cuda, cost.matmul(1, *a.shape, b.shape[1], a.dtype, dtype), a, b):
         _launch(a3, b3, out, code)
         matmul_cuda.launches += 1
     return out[0]

@@ -25,8 +25,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.common import cdiv, on_cuda
+from repro_torch.kernels import _build, cost
+from repro_torch.kernels.common import cdiv, on_cuda, traced
 from repro_torch.kernels.slstm.ref import slstm_dr, slstm_seq_bwd_ref, slstm_seq_ref
 from repro_torch.obs.tracer import get_tracer
 
@@ -161,15 +161,16 @@ def slstm_seq_cuda(wx: torch.Tensor, r: torch.Tensor, state: Dict[str, torch.Ten
     if save:
         saved = {"pre": torch.empty_like(wx),
                  **{k: torch.empty_like(hs) for k in ("c", "n", "m")}}
-    counters = torch.zeros(h, dtype=torch.int32, device=wx.device)
-    plan = slstm_plan(h, dh, s, *_build.device_limits(wx.device))
-    _build.launch(
-        "repro_slstm_seq", wx.device, wx.data_ptr(), r.data_ptr(), states[3].data_ptr(),
-        *(t.data_ptr() for t in states[:3]), c.data_ptr(), n.data_ptr(), m.data_ptr(),
-        hs.data_ptr(), *((saved[k].data_ptr() for k in _SAVED) if save else (None,) * 4),
-        counters.data_ptr(), b, s, h, dh, plan.blocks, plan.tiles_per_block, plan.resident,
-    )
-    slstm_seq_cuda.launches += 1
+    if not traced(slstm_seq_cuda, cost.slstm(b, s, h, dh, save), wx, r, *states):
+        counters = torch.zeros(h, dtype=torch.int32, device=wx.device)
+        plan = slstm_plan(h, dh, s, *_build.device_limits(wx.device))
+        _build.launch(
+            "repro_slstm_seq", wx.device, wx.data_ptr(), r.data_ptr(), states[3].data_ptr(),
+            *(t.data_ptr() for t in states[:3]), c.data_ptr(), n.data_ptr(), m.data_ptr(),
+            hs.data_ptr(), *((saved[k].data_ptr() for k in _SAVED) if save else (None,) * 4),
+            counters.data_ptr(), b, s, h, dh, plan.blocks, plan.tiles_per_block, plan.resident,
+        )
+        slstm_seq_cuda.launches += 1
     final = {"c": c, "n": n, "m": m, "h": hs[:, -1].clone()}
     return (final, hs, saved) if save else (final, hs)
 
@@ -210,17 +211,18 @@ def slstm_seq_bwd_cuda(
     rt = r.transpose(-1, -2).contiguous()  # rt[g, h, e, d] = r[g, h, d, e]
     dwx = torch.empty_like(saved["pre"])
     d0 = {k: torch.empty_like(state[k]) for k in _STATE}
-    plan = slstm_bwd_plan(h, dh, s, *_build.device_limits(r.device), batch=b)
-    counters = torch.zeros(h, dtype=torch.int32, device=r.device)
-    ring = torch.empty(plan.ring_floats, dtype=torch.float32, device=r.device)  # the kernel writes before it reads
-    _build.launch(
-        "repro_slstm_seq_bwd", r.device, rt.data_ptr(), *(saved[k].data_ptr() for k in _SAVED),
-        *(state[k].data_ptr() for k in ("c", "n", "m")), dhs.data_ptr(),
-        *(dstate[k].data_ptr() for k in ("h", "c", "n", "m")), dwx.data_ptr(),
-        *(d0[k].data_ptr() for k in ("h", "c", "n", "m")), counters.data_ptr(), ring.data_ptr(), b, s, h, dh,
-        plan.blocks, plan.tiles_per_block, plan.resident, plan.rows,
-    )
-    slstm_seq_bwd_cuda.launches += 1
+    if not traced(slstm_seq_bwd_cuda, cost.slstm_bwd(b, s, h, dh, dr=False), *tensors):
+        plan = slstm_bwd_plan(h, dh, s, *_build.device_limits(r.device), batch=b)
+        counters = torch.zeros(h, dtype=torch.int32, device=r.device)
+        ring = torch.empty(plan.ring_floats, dtype=torch.float32, device=r.device)  # written before read
+        _build.launch(
+            "repro_slstm_seq_bwd", r.device, rt.data_ptr(), *(saved[k].data_ptr() for k in _SAVED),
+            *(state[k].data_ptr() for k in ("c", "n", "m")), dhs.data_ptr(),
+            *(dstate[k].data_ptr() for k in ("h", "c", "n", "m")), dwx.data_ptr(),
+            *(d0[k].data_ptr() for k in ("h", "c", "n", "m")), counters.data_ptr(), ring.data_ptr(),
+            b, s, h, dh, plan.blocks, plan.tiles_per_block, plan.resident, plan.rows,
+        )
+        slstm_seq_bwd_cuda.launches += 1
     with get_tracer().span("slstm.dr", cat="slstm"):  # a span a profiled step can attribute
         dr = slstm_dr(state["h"], hs, dwx)
     return dwx, dr, d0

@@ -28,8 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.coefficients import STRASSEN, Scheme, get_scheme
-from repro_torch.kernels import _build
-from repro_torch.kernels.common import on_cuda, out_dtype_of
+from repro_torch.kernels import _build, cost
+from repro_torch.kernels.common import on_cuda, out_dtype_of, traced
 from repro_torch.kernels.strassen.ref import combine_ref, divide_ref, strassen1_matmul_ref
 
 __all__ = ["divide_cuda", "combine_cuda", "strassen1_matmul_cuda"]
@@ -41,20 +41,21 @@ def _floats(*arrays: np.ndarray) -> ctypes.Array:
     return (ctypes.c_float * flat.size)(*flat.tolist())
 
 
-def _signed_sum(x: torch.Tensor, coef: np.ndarray, code: int) -> torch.Tensor:
-    """Launch the signed-sum kernel: (m, q, h, w) -> (m, p, h, w)."""
+def _signed_sum(fn, x: torch.Tensor, coef: np.ndarray, code: int) -> torch.Tensor:
+    """Launch the signed-sum kernel for wrapper ``fn``: (m, q, h, w) -> (m, p, h, w)."""
     if not x.is_contiguous():
         raise ValueError("the signed-sum kernel needs a contiguous input")
     m, q, h, w = x.shape
     p = coef.shape[0]
     out = torch.empty((m, p, h, w), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or traced(fn, cost.signed_sum(coef, m, h * w, x.dtype), x):
         return out
     c = _floats(coef)
     _build.launch(
         "repro_signed_sum", x.device, x.data_ptr(), out.data_ptr(),
         code, m, q, p, h * w, ctypes.addressof(c),
     )
+    fn.launches += 1
     return out
 
 
@@ -66,9 +67,7 @@ def divide_cuda(x: torch.Tensor, coef: np.ndarray) -> torch.Tensor:
     code = _build.dtype_code(x)
     if not on_cuda(x):
         return divide_ref(x, coef)
-    out = _signed_sum(x, coef, code)
-    divide_cuda.launches += 1
-    return out
+    return _signed_sum(divide_cuda, x, coef, code)
 
 
 def combine_cuda(products: torch.Tensor, c_coef: np.ndarray) -> torch.Tensor:
@@ -81,9 +80,7 @@ def combine_cuda(products: torch.Tensor, c_coef: np.ndarray) -> torch.Tensor:
     code = _build.dtype_code(products)
     if not on_cuda(products):
         return combine_ref(products, c_coef)
-    out = _signed_sum(products, c_coef, code)
-    combine_cuda.launches += 1
-    return out
+    return _signed_sum(combine_cuda, products, c_coef, code)
 
 
 divide_cuda.launches = 0
@@ -122,7 +119,8 @@ def strassen1_matmul_cuda(
     mb, _, m2, k2 = aq.shape
     n2 = bq.shape[3]
     out = torch.empty((mb, 4, m2, n2), dtype=dtype, device=aq.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or traced(strassen1_matmul_cuda,
+                                  cost.strassen1(mb, m2, k2, n2, scheme.n_mults, aq.dtype, dtype), aq, bq):
         return out
     c = _floats(scheme.a_coef, scheme.b_coef, scheme.c_coef)
     _build.launch(

@@ -7,8 +7,14 @@ parameters, the optimizer's moments (the same tails under ``m/`` and
 ``v/``) and the caches. A leaf's path is its name in the port with ``.``
 turned into ``/`` (``layers/3/mixer/wq/w``). The port does not stack
 layers into scan groups, so its leaf's logical axes are the JAX package's
-for the stacked leaf without the leading ``None``. The dry-run cells
-(``train_cell_specs``, ``serve_cell_specs``) are not ported yet.
+for the stacked leaf without the leading ``None``.
+
+The cell half (:func:`train_cell_specs`, :func:`serve_cell_specs`) gives a
+dry-run cell's arguments: the training state, or the parameters and the
+serving cache, and the batch, as fake tensors on the mesh's device
+(``launch/op_analysis.py``'s ``fake_mode``: no allocation), with their
+sharding trees. The JAX package's are ``ShapeDtypeStruct`` stand-ins of
+the same shapes and dtypes.
 """
 from __future__ import annotations
 
@@ -19,7 +25,12 @@ import torch
 from torch import nn
 
 from repro_torch.core.mesh import Mesh
+from repro_torch.launch.op_analysis import fake_mode, to_device
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import DEFAULT_RULES, NamedSharding, ShardingRules, note
+from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+from repro_torch.training.train_step import TrainState
 
 __all__ = [
     "param_logical_axes",
@@ -29,6 +40,8 @@ __all__ = [
     "place",
     "named_leaves",
     "path_of",
+    "train_cell_specs",
+    "serve_cell_specs",
 ]
 
 # (regex matched with .search against the path, logical axes for the BASE
@@ -110,7 +123,8 @@ def batch_logical_axes(name: str, shape: Tuple[int, ...]) -> Tuple[Optional[str]
 def named_leaves(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     """Every tensor of ``tree`` by its path: an ``nn.Module``'s parameters by
     their names, a mapping's or a NamedTuple's (``TrainState``, ``OptState``)
-    entries by key or field, nested; tensors are the leaves."""
+    entries by key or field, a list's by index, nested; tensors are the
+    leaves."""
     if isinstance(tree, torch.Tensor):
         return {prefix.rstrip("/"): tree}
     if isinstance(tree, nn.Module):
@@ -119,6 +133,8 @@ def named_leaves(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
         items = zip(tree._fields, tree)
     elif isinstance(tree, dict):
         items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
     else:
         raise TypeError(f"no leaves in {type(tree).__name__} at {prefix!r}")
     out: Dict[str, torch.Tensor] = {}
@@ -150,3 +166,71 @@ def place(tree, mesh: Mesh, rules: ShardingRules = DEFAULT_RULES) -> Dict[str, N
     for sh in specs.values():
         note(mesh, sh.spec)
     return specs
+
+
+# ------------------------------------------------------------------ cells
+
+
+def _batch_specs(cfg: ModelConfig, shape, *, with_labels: bool, device) -> Dict[str, torch.Tensor]:
+    b, s = shape.global_batch, shape.seq_len
+    specs = {"tokens": torch.empty((b, s), dtype=torch.int32, device=device)}
+    if with_labels:
+        specs["labels"] = torch.empty((b, s), dtype=torch.int32, device=device)
+    if cfg.frontend == "audio_stub":
+        specs["frames"] = torch.empty((b, cfg.enc_seq, cfg.d_model), dtype=getattr(torch, cfg.dtype),
+                                      device=device)
+    if cfg.mrope:
+        specs["positions"] = torch.empty((b, s, 3), dtype=torch.int32, device=device)
+    return specs
+
+
+def _fake_params(cfg: ModelConfig, device):
+    """The model's parameters as fake tensors on ``device``: drawn on the CPU
+    (a CUDA generator needs a card), then given fake tensors on ``device``."""
+    return to_device(M.init_params(cfg, torch.Generator().manual_seed(0)), device)
+
+
+def train_cell_specs(
+    cfg: ModelConfig,
+    shape,
+    mesh: Mesh,
+    opt_cfg: AdamWConfig,
+    rules: ShardingRules = DEFAULT_RULES,
+):
+    """(state, batch, state_shardings, batch_shardings): a trainable state
+    and a batch with labels, fake, on the mesh's device."""
+    with fake_mode():
+        params = _fake_params(cfg, mesh.device)
+        for p in params.parameters():
+            p.requires_grad_(True)
+        state = TrainState(params=params, opt=init_opt_state(params, opt_cfg))
+        batch = _batch_specs(cfg, shape, with_labels=True, device=mesh.device)
+    state_sh = sharding_tree(state, mesh, param_logical_axes, rules)
+    batch_sh = sharding_tree(batch, mesh, batch_logical_axes, rules)
+    return state, batch, state_sh, batch_sh
+
+
+def serve_cell_specs(
+    cfg: ModelConfig,
+    shape,
+    mesh: Mesh,
+    rules: ShardingRules = DEFAULT_RULES,
+):
+    """Specs for prefill (full seq) or decode (1 token + cache of seq_len):
+    (params, cache, batch, params_sh, cache_sh, batch_sh), fake, on the
+    mesh's device."""
+    b, s = shape.global_batch, shape.seq_len
+    device = mesh.device
+    with fake_mode():
+        params = _fake_params(cfg, device)
+        cache = M.init_cache(cfg, b, s, device=device)
+        if shape.kind == "prefill":
+            batch = _batch_specs(cfg, shape, with_labels=False, device=device)
+        else:  # decode: one new token; an encoder context needs no frames (cross-KV cached)
+            batch = {"tokens": torch.empty((b, 1), dtype=torch.int32, device=device)}
+            if cfg.mrope:
+                batch["positions"] = torch.empty((b, 1, 3), dtype=torch.int32, device=device)
+    params_sh = sharding_tree(params, mesh, param_logical_axes, rules)
+    cache_sh = sharding_tree(cache, mesh, cache_logical_axes, rules)
+    batch_sh = sharding_tree(batch, mesh, batch_logical_axes, rules)
+    return params, cache, batch, params_sh, cache_sh, batch_sh

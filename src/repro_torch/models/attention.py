@@ -196,15 +196,12 @@ def _per_position(core, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos=N
         pos_loc = shard(pos, mesh, P(q_spec[0])).locals
     else:
         pos_loc = mesh.run(lambda p: pos)
-    out = np.empty(mesh.devices.shape, dtype=object)
-    memo = {}
+    heads, seen = np.empty(mesh.devices.shape, dtype=object), {}
     for p in mesh.positions():
-        args = (q_sh[p], k_loc[p], v_loc[p], pos_loc[p])
-        key = tuple(id(a) for a in args)
-        if key not in memo:
-            h0, h1 = q_sh.slab(p)[1]
-            memo[key] = _local_core(core, *args, k.dtype, h0, h1, group)
-        out[p] = memo[key]
+        h = tuple(q_sh.slab(p)[1])
+        heads[p] = seen.setdefault(h, h)  # one object per head slab, for map's grouping
+    out = mesh.map(lambda qp, kp, vp, pp, h: _local_core(core, qp, kp, vp, pp, k.dtype, *h, group),
+                   q_sh.locals, k_loc, v_loc, pos_loc, heads)
     return gather(Sharded(mesh, q_spec, tuple(q.shape), out, q.dtype))
 
 

@@ -7,7 +7,8 @@ Here the encoder consumes precomputed frame embeddings of shape
 
 [vlm] qwen2-vl-72b: the backbone receives ordinary token ids plus M-RoPE
 position triplets (B, S, 3); for text-only inputs all three streams equal
-arange(S) (:func:`make_stub_positions`).
+arange(S) (:func:`make_stub_positions`); :func:`mrope_positions_spec`
+describes them.
 """
 from __future__ import annotations
 
@@ -17,13 +18,18 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["audio_frames_spec", "make_stub_frames", "make_stub_positions"]
+__all__ = ["audio_frames_spec", "mrope_positions_spec", "make_stub_frames", "make_stub_positions"]
 
 
 def audio_frames_spec(cfg: ModelConfig, batch: int) -> torch.Tensor:
     """The frames' shape and dtype as a ``meta`` tensor (JAX's ShapeDtypeStruct)."""
     return torch.empty((batch, cfg.enc_seq, cfg.d_model), dtype=getattr(torch, cfg.dtype),
                        device="meta")
+
+
+def mrope_positions_spec(batch: int, seq: int) -> torch.Tensor:
+    """The M-RoPE position triplets' shape and dtype (int32, as JAX's) as a ``meta`` tensor."""
+    return torch.empty((batch, seq, 3), dtype=torch.int32, device="meta")
 
 
 def make_stub_frames(cfg: ModelConfig, batch: int, gen: Optional[torch.Generator] = None, *,

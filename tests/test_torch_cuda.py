@@ -850,3 +850,45 @@ def test_cuda_sharded_projection_matches_the_cpu_port(cuda, kind, dtype, tol, w_
     pairs = distinct_slabs(card, (x_spec, (m, k)), (wg_spec, (k, n)))
     assert launched == (pairs if kind == "strassen_fused" else 0)
     assert card.traffic == host.traffic and card.physical_bytes == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "xlstm_1_3b"])
+def test_cuda_dryrun_traces_a_train_cell(cuda, arch, monkeypatch):
+    """On a PyTorch with CUDA autograd runs the backward over fake cuda:0
+    tensors: a smoke train cell on a (2, 2) mesh records the backward
+    kernels and launches none."""
+    from repro_torch import configs
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setattr(configs, "get_config", get_smoke_config)
+    monkeypatch.setattr(dryrun, "get_config", get_smoke_config)
+    monkeypatch.setattr(dryrun, "_mesh", lambda kind: make_mesh((2, 2), ("data", "model"), device="cuda:0"))
+    # 64 tokens a row: the sequential mLSTM traces one Python step per token
+    monkeypatch.setitem(configs.SHAPES, "train_64", configs.Shape("train_64", 64, 8, "train"))
+    before = trn.rmsnorm_bwd_cuda.launches
+    r = dryrun.run_cell(arch, "train_64", "single", accum=2)
+    assert not r.get("skipped"), r
+    assert r["accum"] == 2 and r["launches"]["rmsnorm_bwd_cuda"] > 0
+    want = "slstm_seq_bwd_cuda" if arch == "xlstm_1_3b" else "flash_attention_bwd_cuda"
+    assert r["launches"][want] > 0 and r["roofline"]["bound_s"] > 0
+    assert trn.rmsnorm_bwd_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_dryrun_resolves_kind_auto(cuda, monkeypatch):
+    """--backend auto calibrates on the card before the trace, then decides
+    per shape while tracing fake tensors."""
+    from repro_torch import configs
+    from repro_torch.core.backend import MatmulBackend
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setattr(configs, "get_config", get_smoke_config)
+    monkeypatch.setattr(dryrun, "get_config", get_smoke_config)
+    monkeypatch.setattr(dryrun, "_mesh", lambda kind: make_mesh((2, 2), ("data", "model"), device="cuda:0"))
+    monkeypatch.setitem(configs.SHAPES, "prefill_256", configs.Shape("prefill_256", 256, 4, "prefill"))
+    r = dryrun.run_cell("phi4_mini_3_8b", "prefill_256", "single",
+                        backend=MatmulBackend(kind="auto", depth=1, min_dim=64))
+    assert r["backend"] == "auto" and r["roofline"]["bound_s"] > 0

@@ -52,6 +52,8 @@ def test_port_files_exist():
         "optim/adamw.py", "training/train_step.py", "data/pipeline.py",
         "runtime/checkpoint.py", "runtime/elastic.py", "launch/train.py",
         "configs/stark.py", "examples/__init__.py", *(f"examples/{m}.py" for m in EXAMPLES),
+        "kernels/cost.py", "launch/specs.py", "launch/dryrun.py", "launch/op_analysis.py",
+        "launch/roofline.py", "launch/matmul_cell.py", "launch/perf.py", "launch/summarize.py",
     } <= names
     csrc = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert {"rmsnorm.cu", "flash_attention.cu", "matmul.cu", "signed_sum.cu",
@@ -92,6 +94,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.optim.adamw, repro_torch.training.train_step\n"
         "import repro_torch.data.pipeline, repro_torch.runtime.checkpoint\n"
         "import repro_torch.runtime.elastic, repro_torch.launch.train\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.matmul_cell\n"
+        "import repro_torch.launch.perf, repro_torch.launch.summarize\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules\n"
