@@ -13,6 +13,19 @@ The port of :mod:`repro.core.strassen`, function for function:
   batched leaf multiplication (``torch.bmm`` by default, or any ``leaf_fn``)
   and ``depth`` combine levels.
 
+With the tracer on, the pipeline records one span per stage, so that a
+device trace splits a multiply by stage whatever implements it:
+``strassen.divide`` (one a level, around both operands' divide with their
+quadrant copies), ``strassen.leaf`` (the leaf product) and
+``strassen.combine`` (one a level, with its merge copy). A level's span
+carries ``level`` (0 at the top, where the operands are split first),
+``blocks`` (the blocks it takes in) and ``plane`` (the elements of one
+quadrant block it sums: a divide's output block of A plus one of B, a
+combine's input block), so that its least bytes are
+``(rank + 4) * rank**level * plane`` elements; the leaf's carries ``batch``,
+``m``, ``k`` and ``n``. :mod:`repro_torch.kernels.strassen.ops` records the
+same spans at the same boundaries.
+
 Quadrants are ordered row-major [11, 12, 21, 22] and the leaf index is
 level-major (``m_old * rank + p``), exactly as in the JAX package, so tag
 paths agree between the two. M, K and N must be divisible by ``2**depth``;
@@ -27,8 +40,12 @@ import torch
 
 from repro_torch.core.coefficients import STRASSEN, Scheme, get_scheme
 from repro_torch.core.precision import matmul_precision
+from repro_torch.obs import tracer as obs_tracer
 
 __all__ = [
+    "divide_span",
+    "leaf_span",
+    "combine_span",
     "strassen_recursive",
     "split_quadrants",
     "merge_quadrants",
@@ -39,6 +56,35 @@ __all__ = [
 ]
 
 LeafFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def divide_span(level: int, blocks: int, m: int, k: int, n: int):
+    """The ``strassen.divide`` span of ``level`` of an (m, k) @ (k, n) multiply,
+    whose ``blocks`` blocks of A and of B are split and summed."""
+    tracer = obs_tracer.get_tracer()
+    if not tracer.enabled:
+        return obs_tracer.NULL_SPAN
+    half = 2 ** (level + 1)
+    return tracer.span("strassen.divide", cat="matmul", level=level, blocks=blocks,
+                       plane=(m // half) * (k // half) + (k // half) * (n // half))
+
+
+def leaf_span(ta: torch.Tensor, tb: torch.Tensor, **attrs):
+    """The ``strassen.leaf`` span of the (batch, m, k) @ (batch, k, n) leaf."""
+    tracer = obs_tracer.get_tracer()
+    if not tracer.enabled:
+        return obs_tracer.NULL_SPAN
+    return tracer.span("strassen.leaf", cat="matmul", batch=ta.shape[0], m=ta.shape[1],
+                       k=ta.shape[2], n=tb.shape[2], **attrs)
+
+
+def combine_span(level: int, products: torch.Tensor):
+    """The ``strassen.combine`` span of ``level``, over its (blocks, h, w) products."""
+    tracer = obs_tracer.get_tracer()
+    if not tracer.enabled:
+        return obs_tracer.NULL_SPAN
+    return tracer.span("strassen.combine", cat="matmul", level=level,
+                       blocks=products.shape[0], plane=products.shape[1] * products.shape[2])
 
 
 def leaf_count(scheme: Scheme, depth: int) -> int:
@@ -154,23 +200,27 @@ def strassen_matmul(
             with matmul_precision(precision):
                 return torch.bmm(x, y)
 
+    (m, k), n = a.shape, b.shape[1]
     ta, tb = a[None], b[None]  # (1, M, K), (1, K, N)
-    for _ in range(depth):
-        ta = divide_level(ta, scheme.a_coef)
-        tb = divide_level(tb, scheme.b_coef)
-        if constrain_a is not None:
-            ta = constrain_a(ta)
-        if constrain_b is not None:
-            tb = constrain_b(tb)
+    for level in range(depth):
+        with divide_span(level, ta.shape[0], m, k, n):
+            ta = divide_level(ta, scheme.a_coef)
+            tb = divide_level(tb, scheme.b_coef)
+            if constrain_a is not None:
+                ta = constrain_a(ta)
+            if constrain_b is not None:
+                tb = constrain_b(tb)
 
-    prod = leaf_fn(ta, tb)
-    if constrain_out is not None:
-        prod = constrain_out(prod)
-
-    for _ in range(depth):
-        prod = combine_level(prod, scheme.c_coef)
+    with leaf_span(ta, tb):
+        prod = leaf_fn(ta, tb)
         if constrain_out is not None:
             prod = constrain_out(prod)
+
+    for level in reversed(range(depth)):
+        with combine_span(level, prod):
+            prod = combine_level(prod, scheme.c_coef)
+            if constrain_out is not None:
+                prod = constrain_out(prod)
     return prod[0]
 
 

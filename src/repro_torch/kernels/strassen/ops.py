@@ -9,6 +9,12 @@
   uses it. It has no gradient, as ``jax.grad`` through the JAX package's
   Pallas level has none: under autograd it raises, on every device.
 * :func:`strassen_matmul_fused_padded` zero-pads odd dims for it.
+
+Both record the stage spans of :func:`repro_torch.core.strassen.strassen_matmul`
+(``strassen.divide``, ``strassen.leaf``, ``strassen.combine``) at the same
+boundaries. In the fused pipeline the last level runs inside ``strassen1``,
+so its one span is ``strassen.leaf`` with ``fused=True``, around the
+kernel and its quadrant split and merge copies.
 """
 from __future__ import annotations
 
@@ -20,7 +26,10 @@ import torch.nn.functional as F
 from repro_torch.core.coefficients import get_scheme
 from repro_torch.core.strassen import (
     combine_level,
+    combine_span,
     divide_level,
+    divide_span,
+    leaf_span,
     merge_quadrants,
     split_quadrants,
 )
@@ -43,14 +52,18 @@ def strassen_matmul_stages(
 ) -> torch.Tensor:
     """Stage-by-stage Stark pipeline with one kernel per stage."""
     scheme = get_scheme(scheme_name)
+    (m, k), n = a.shape, b.shape[1]
     ta, tb = a[None], b[None]
-    for _ in range(depth):
-        ta = divide_cuda(split_quadrants(ta), scheme.a_coef).flatten(0, 1)
-        tb = divide_cuda(split_quadrants(tb), scheme.b_coef).flatten(0, 1)
-    prod = batched_matmul_cuda(ta, tb)
-    for _ in range(depth):
-        grouped = prod.reshape(-1, scheme.n_mults, *prod.shape[1:])
-        prod = merge_quadrants(combine_cuda(grouped, scheme.c_coef))
+    for level in range(depth):
+        with divide_span(level, ta.shape[0], m, k, n):
+            ta = divide_cuda(split_quadrants(ta), scheme.a_coef).flatten(0, 1)
+            tb = divide_cuda(split_quadrants(tb), scheme.b_coef).flatten(0, 1)
+    with leaf_span(ta, tb):
+        prod = batched_matmul_cuda(ta, tb)
+    for level in reversed(range(depth)):
+        with combine_span(level, prod):
+            grouped = prod.reshape(-1, scheme.n_mults, *prod.shape[1:])
+            prod = merge_quadrants(combine_cuda(grouped, scheme.c_coef))
     return prod[0]
 
 
@@ -77,14 +90,18 @@ def strassen_matmul_fused(
             "kind naive, strassen or winograd"
         )
     scheme = get_scheme(scheme_name)
+    (m, k), n = a.shape, b.shape[1]
     ta, tb = a[None], b[None]
-    for _ in range(depth - 1):
-        ta = divide_level(ta, scheme.a_coef, precision=precision)
-        tb = divide_level(tb, scheme.b_coef, precision=precision)
-    cq = strassen1_matmul_cuda(split_quadrants(ta), split_quadrants(tb), scheme=scheme)
-    prod = merge_quadrants(cq)
-    for _ in range(depth - 1):
-        prod = combine_level(prod, scheme.c_coef, precision=precision)
+    for level in range(depth - 1):
+        with divide_span(level, ta.shape[0], m, k, n):
+            ta = divide_level(ta, scheme.a_coef, precision=precision)
+            tb = divide_level(tb, scheme.b_coef, precision=precision)
+    with leaf_span(ta, tb, fused=True):
+        cq = strassen1_matmul_cuda(split_quadrants(ta), split_quadrants(tb), scheme=scheme)
+        prod = merge_quadrants(cq)
+    for level in reversed(range(depth - 1)):
+        with combine_span(level, prod):
+            prod = combine_level(prod, scheme.c_coef, precision=precision)
     return prod[0]
 
 

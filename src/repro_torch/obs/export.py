@@ -91,13 +91,20 @@ def trace_events(tracer: Optional[Tracer] = None) -> List[Dict[str, Any]]:
 def to_chrome_trace(
     tracer: Optional[Tracer] = None, metrics: Optional[Metrics] = None
 ) -> Dict[str, Any]:
-    """Full Chrome/Perfetto JSON object; metrics ride in ``otherData``."""
+    """Full Chrome/Perfetto JSON object; metrics ride in ``otherData``, and
+    so does ``clock``: ``ts`` 0 (the tracer's epoch) read on the
+    ``torch.profiler`` clock, in Unix-epoch nanoseconds, so that an event's
+    ``ts`` in µs maps to ``profiler_ns_at_ts_0 + 1000 * ts`` there."""
     tracer = tracer or get_tracer()
     doc: Dict[str, Any] = {
         "traceEvents": trace_events(tracer),
         "displayTimeUnit": "ms",
     }
-    other: Dict[str, Any] = {"dropped_spans": tracer.dropped}
+    other: Dict[str, Any] = {
+        "dropped_spans": tracer.dropped,
+        # ts 0 on torch.profiler's clock, so the spans lay over a device trace
+        "clock": {"profiler_ns_at_ts_0": tracer.profiler_epoch_ns},
+    }
     if metrics is not None:
         other["metrics"] = metrics.snapshot()
     doc["otherData"] = other

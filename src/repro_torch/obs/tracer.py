@@ -26,6 +26,23 @@ rebases them against :attr:`Tracer.epoch`. ``begin()``/``end()``
 always produce a timed :class:`Span` (callers may need the duration
 even when tracing is off — e.g. the straggler watchdog); the span is
 only *retained* when the tracer is enabled.
+
+**One clock with the profiler.** ``perf_counter`` stays the clock of
+durations, but ``torch.profiler`` stamps its events in Unix-epoch
+nanoseconds (``time.time_ns()``'s clock). Beside :attr:`Tracer.epoch` the
+tracer keeps :attr:`Tracer.profiler_epoch_ns`, the Unix clock's reading at
+the same instant: of several back-to-back (perf_counter, time_ns,
+perf_counter) samples, the one whose two perf_counter reads lie closest
+together, with the epoch at their midpoint. :meth:`Tracer.to_profiler_ns`
+maps any span time onto a device trace's timeline, spans recorded with
+:meth:`Tracer.add_span` included, which open no profiler range.
+
+**Spans across threads.** Nesting is per thread: a span's parent is the
+innermost span open on the thread that opens it, unless ``parent=`` names
+another, as a span opened on autograd's device thread names the training
+step's span on the caller's. A span may be closed on another thread than
+its own; :meth:`Tracer.end` pops it from the stack of the thread that
+opened it.
 """
 from __future__ import annotations
 
@@ -109,8 +126,13 @@ class _SpanContext:
         if self._tracer.profiler_annotations:
             from torch.profiler import record_function
 
+            t = time.perf_counter()
             self._profiler_ctx = record_function(self._span.name)
             self._profiler_ctx.__enter__()
+            # The range is stamped partway through its enter, which takes
+            # tens of µs on a busy host (and near the end of its exit, after
+            # which ``end`` stamps t1): the midpoint lays the span over it.
+            self._span.t0 = (t + time.perf_counter()) / 2
         return self._span
 
     def __exit__(self, *exc: Any) -> bool:
@@ -118,6 +140,20 @@ class _SpanContext:
             self._profiler_ctx.__exit__(*exc)
         self._tracer.end(self._span)
         return False
+
+
+def _clock_pair(samples: int = 8) -> "tuple[float, int]":
+    """(perf_counter seconds, Unix ns) read at one instant: the tightest of
+    ``samples`` (perf_counter, time_ns, perf_counter) reads, at the
+    midpoint of its two perf_counter reads."""
+    best = None
+    for _ in range(samples):
+        a = time.perf_counter()
+        unix_ns = time.time_ns()
+        b = time.perf_counter()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) / 2, unix_ns)
+    return best[1], best[2]
 
 
 class Tracer:
@@ -132,19 +168,22 @@ class Tracer:
         self.enabled = enabled
         self.max_spans = max_spans
         self.profiler_annotations = profiler_annotations
-        self.epoch = time.perf_counter()
+        self.epoch, self.profiler_epoch_ns = _clock_pair()
         self.spans: List[Span] = []
         self.dropped = 0
         self._lock = threading.Lock()
         self._ids = itertools.count(1)
-        self._tls = threading.local()
+        self._stacks: Dict[int, List[Span]] = {}  # thread ident -> open spans
+
+    # -- clock ------------------------------------------------------------
+    def to_profiler_ns(self, t: float) -> int:
+        """A perf_counter time (a span's ``t0`` or ``t1``) on the clock of
+        ``torch.profiler``'s events: Unix-epoch nanoseconds."""
+        return self.profiler_epoch_ns + round((t - self.epoch) * 1e9)
 
     # -- nesting ----------------------------------------------------------
     def _stack(self) -> List[Span]:
-        st = getattr(self._tls, "stack", None)
-        if st is None:
-            st = self._tls.stack = []
-        return st
+        return self._stacks.setdefault(threading.get_ident(), [])
 
     def current(self) -> Optional[Span]:
         """Innermost open span on this thread (None at top level)."""
@@ -159,10 +198,13 @@ class Tracer:
         cat: str = "span",
         tag: Optional[str] = None,
         track: Optional[str] = None,
+        parent: Optional[Span] = None,
         **attrs: Any,
     ) -> Span:
         """Open a span. Always returns a timed Span (duration is valid
-        even when disabled); it is only retained when enabled."""
+        even when disabled); it is only retained when enabled. Its parent
+        is ``parent`` when given, else the innermost span open on this
+        thread."""
         sp = Span(
             name=name,
             t0=time.perf_counter(),
@@ -175,24 +217,27 @@ class Tracer:
         if self.enabled:
             sp.span_id = next(self._ids)
             st = self._stack()
-            if st:
+            if parent is not None:
+                sp.parent_id = parent.span_id or None
+            elif st:
                 sp.parent_id = st[-1].span_id
             st.append(sp)
         return sp
 
     def end(self, span: Optional[Span], **attrs: Any) -> Optional[Span]:
-        """Close ``span``. Tolerates exception unwinding: pops the
-        thread stack down through ``span`` if children were left open."""
+        """Close ``span``, on any thread. Tolerates exception unwinding:
+        pops the opening thread's stack down through ``span`` if children
+        were left open."""
         if span is None or isinstance(span, _NullSpan):
             return None
         span.t1 = time.perf_counter()
         if attrs:
             span.attrs.update(attrs)
         if self.enabled and span.span_id:
-            st = self._stack()
-            while st:
-                top = st.pop()
-                if top is span:
+            st = self._stacks.get(span.thread, [])
+            for i in range(len(st) - 1, -1, -1):
+                if st[i] is span:
+                    del st[i:]
                     break
             self._retain(span)
         return span
@@ -204,6 +249,7 @@ class Tracer:
         cat: str = "span",
         tag: Optional[str] = None,
         track: Optional[str] = None,
+        parent: Optional[Span] = None,
         **attrs: Any,
     ):
         """``with tracer.span("name"): ...`` — no-op singleton when
@@ -211,7 +257,7 @@ class Tracer:
         if not self.enabled:
             return NULL_SPAN
         return _SpanContext(
-            self, self.begin(name, cat=cat, tag=tag, track=track, **attrs)
+            self, self.begin(name, cat=cat, tag=tag, track=track, parent=parent, **attrs)
         )
 
     def add_span(
@@ -287,7 +333,7 @@ class Tracer:
         with self._lock:
             self.spans.clear()
             self.dropped = 0
-        self.epoch = time.perf_counter()
+        self.epoch, self.profiler_epoch_ns = _clock_pair()
 
 
 _GLOBAL = Tracer(enabled=False)
@@ -316,5 +362,6 @@ def configure(
 
 
 def reset_tracing() -> None:
-    """Drop recorded spans and rebase the epoch (test isolation)."""
+    """Drop recorded spans and rebase the epoch and its profiler-clock
+    reading (test isolation)."""
     _GLOBAL.clear()
