@@ -12,7 +12,8 @@ is Stark's Strassen multiply:
    checks in the SASS that the bf16 strassen1, tiled matmul and flash
    kernels run on the tensor cores (HGMMA, HGMMA, HMMA);
 2. holds each kernel against its plain PyTorch version, in fp32 and bf16,
-   for the three schemes, on aligned and ragged shapes, and the matmul-type
+   for the three schemes, on aligned and ragged shapes (the level kernels
+   of kind strassen also on a transposed input), and the matmul-type
    kernels with the other ``out_dtype`` (bf16 operands to fp32, fp32 to
    bf16);
 3. drives the main path, ``repro_torch.core.backend.matmul`` on two N x N
@@ -26,8 +27,10 @@ is Stark's Strassen multiply:
    launched;
 4. times each kernel at the main path's shapes with CUDA events, beside its
    plain version, the matching PyTorch call and the card's bound (the tiled
-   matmul, divide and combine in bf16 too), and splits strassen_fused's
-   device time by kernel class;
+   matmul, divide and combine in bf16 too; the level kernels at the four
+   levels of kind strassen's depth-2 multiply, beside the split + einsum
+   (+ merge) route they replaced, and in bf16 at one divide and one combine
+   level), and splits strassen_fused's device time by kernel class;
 5. drives kind ``auto`` (``repro_torch.core.autotune``) on the same
    operands: calibrates the cost model on the card, prints each candidate
    of the N x N multiply in fp32 and bf16 (naive, Strassen and Winograd at
@@ -434,6 +437,7 @@ from repro_torch.core.backend import (  # noqa: E402
 )
 from repro_torch.core.coefficients import get_scheme  # noqa: E402
 from repro_torch.core.mesh import distinct_slabs, make_mesh  # noqa: E402
+from repro_torch.core import strassen as core_strassen  # noqa: E402
 from repro_torch.core.strassen import (  # noqa: E402
     combine_level,
     divide_level,
@@ -455,10 +459,18 @@ from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda  
 from repro_torch.kernels.slstm.ref import slstm_dr, slstm_seq_bwd_ref, slstm_seq_ref  # noqa: E402
 from repro_torch.kernels.slstm.slstm import slstm_seq_bwd_cuda, slstm_seq_cuda  # noqa: E402
 from repro_torch.kernels.strassen.ops import strassen_matmul_stages  # noqa: E402
-from repro_torch.kernels.strassen.ref import combine_ref, divide_ref, strassen1_matmul_ref  # noqa: E402
+from repro_torch.kernels.strassen.ref import (  # noqa: E402
+    combine_level_ref,
+    combine_ref,
+    divide_level_ref,
+    divide_ref,
+    strassen1_matmul_ref,
+)
 from repro_torch.kernels.strassen.strassen import (  # noqa: E402
     combine_cuda,
+    combine_level_cuda,
     divide_cuda,
+    divide_level_cuda,
     strassen1_matmul_cuda,
 )
 from repro_torch import obs  # noqa: E402
@@ -575,7 +587,8 @@ RMSNORM_WIDE = (5120, 6144, 8192)
 MATMUL_EDGES = [(2, 130, 72, 200), (1, 257, 520, 136), (3, 33, 65, 17), (2, 64, 8, 64),
                 (2, 136, 96, 264), (2, 64, 36, 100), (2, 96, 64, 68), (2, 256, 1024, 384),
                 (1, 200, 1000, 260)]
-COUNTED = (strassen1_matmul_cuda, batched_matmul_cuda, divide_cuda, combine_cuda)
+COUNTED = (strassen1_matmul_cuda, batched_matmul_cuda, divide_cuda, combine_cuda,
+           divide_level_cuda, combine_level_cuda)
 ALL_KERNELS = (*COUNTED, matmul_cuda, rmsnorm_cuda, flash_attention_cuda, slstm_seq_cuda,
                rmsnorm_bwd_cuda, flash_attention_bwd_cuda, slstm_seq_bwd_cuda)
 REPLACES = {
@@ -583,6 +596,9 @@ REPLACES = {
     "batched_matmul_cuda": "src/repro/kernels/matmul/matmul.py:95",
     "divide_cuda": "src/repro/kernels/strassen/strassen.py:68",
     "combine_cuda": "src/repro/kernels/strassen/strassen.py:105",
+    # The JAX package's einsum levels, which kind strassen runs.
+    "divide_level_cuda": "src/repro/core/strassen.py:77",
+    "combine_level_cuda": "src/repro/core/strassen.py:94",
     "matmul_cuda": "src/repro/kernels/matmul/matmul.py:43",
     "rmsnorm_cuda": "src/repro/kernels/rmsnorm/rmsnorm.py:29",
     "flash_attention_cuda": "src/repro/kernels/flash_attention/flash_attention.py:105",
@@ -598,6 +614,8 @@ SOURCES = {
     "batched_matmul_cuda": "src/repro_torch/csrc/matmul.cu",
     "divide_cuda": "src/repro_torch/csrc/signed_sum.cu",
     "combine_cuda": "src/repro_torch/csrc/signed_sum.cu",
+    "divide_level_cuda": "src/repro_torch/csrc/strassen_level.cu",
+    "combine_level_cuda": "src/repro_torch/csrc/strassen_level.cu",
     "matmul_cuda": "src/repro_torch/csrc/matmul.cu",
     "rmsnorm_cuda": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_attention_cuda": "src/repro_torch/csrc/flash_attention.cu",
@@ -971,6 +989,38 @@ def phase_kernels(gen: np.random.Generator) -> None:
     phase_out_dtype(gen)
 
 
+def phase_level_kernels(gen: np.random.Generator) -> None:
+    """The level kernels against their plain versions (bit for bit): hc of 64
+    and 24 take 16-byte chunks in both dtypes, hc 4 in fp32 only, hc 7 in
+    neither; m of 1, 3 and 7; and a transposed (non-contiguous) input."""
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for name in SCHEMES:
+            s = get_scheme(name)
+            for m, r, c in [(1, 64, 128), (7, 40, 48), (7, 18, 8), (3, 10, 14)]:
+                x = randn(gen, (m, r, c), dtype)
+                xt = randn(gen, (m, c, r), dtype).transpose(1, 2)
+                p = randn(gen, (m * s.n_mults, r // 2, c // 2), dtype)
+                compare(f"divide_level {tag} {name}.a_coef {(m, r, c)}",
+                        divide_level_cuda(x, s.a_coef), divide_level_ref(x, s.a_coef), "sum")
+                compare(f"divide_level {tag} {name}.b_coef {(m, r, c)} transposed",
+                        divide_level_cuda(xt, s.b_coef), divide_level_ref(xt, s.b_coef), "sum")
+                compare(f"combine_level {tag} {name} {tuple(p.shape)}",
+                        combine_level_cuda(p, s.c_coef), combine_level_ref(p, s.c_coef), "sum")
+
+
+def einsum_level(x: torch.Tensor, coef, divide: bool) -> torch.Tensor:
+    """A level of core/strassen.py as it runs on the CPU (split_quadrants,
+    one einsum with TF32 off, and for a combine merge_quadrants), here on the
+    card: the route the level kernels replaced."""
+    on_cuda = core_strassen.on_cuda
+    core_strassen.on_cuda = lambda *t: False
+    try:
+        return divide_level(x, coef) if divide else combine_level(x, coef)
+    finally:
+        core_strassen.on_cuda = on_cuda
+
+
 def phase_out_dtype(gen: np.random.Generator) -> None:
     """The matmul-type kernels with the other out_dtype: bf16 operands stored
     as the fp32 accumulator, fp32 operands rounded once to bf16."""
@@ -1160,6 +1210,35 @@ def phase_timing(a, b, reps: int, counts: dict) -> list:
           cost.signed_sum(s.c_coef, 1, h * h, torch.bfloat16), "sum")
     del aq, bq, p
 
+    # Kind strassen's levels at depth 2: divide levels 0 and 1 of an operand,
+    # combine levels 1 and 0, against the split + einsum (+ merge) route;
+    # bf16 (printed, not in the JSON line) at divide level 1 and combine level 1.
+    def level(x, coef, divide, json=True):
+        fn, plain = ((divide_level_cuda, divide_level_ref) if divide
+                     else (combine_level_cuda, combine_level_ref))
+        m, hr, hc = ((x.shape[0], x.shape[1] // 2, x.shape[2] // 2) if divide
+                     else (x.shape[0] // coef.shape[1], x.shape[1], x.shape[2]))
+        what = "divide" if divide else "combine"
+        stats = entry(f"{what}_level {str(x.dtype)[6:]} {tuple(x.shape)}",
+                      lambda: fn(x, coef), lambda: plain(x, coef),
+                      lambda: einsum_level(x, coef, divide),
+                      cost.signed_sum(coef, m, hr * hc, x.dtype), "sum")
+        if json:
+            add(fn.__name__, stats)
+
+    ta = divide_level(a[None], s.a_coef)  # (7, N/2, N/2)
+    level(a[None], s.a_coef, True)
+    level(ta, s.a_coef, True)
+    la = divide_level(ta, s.a_coef)  # (49, N/4, N/4)
+    level(la, s.c_coef, False)
+    level(ta, s.c_coef, False)
+    del la
+    ta16 = ta.bfloat16()
+    level(ta16, s.a_coef, True, json=False)
+    la16 = divide_level(ta16, s.a_coef)
+    level(la16, s.c_coef, False, json=False)
+    del ta, ta16, la16
+
     # Depth 2: the fused kernel on the depth-1 operand sums (printed, not in
     # the JSON line), and the staged pipeline's 49 leaves.
     ta, tb = divide_level(a[None], s.a_coef), divide_level(b[None], s.b_coef)  # (7, N/2, N/2)
@@ -1204,11 +1283,11 @@ def phase_breakdown(a, b, reps: int) -> None:
     cq = strassen1_matmul_cuda(aq, split_quadrants(divide_level(b[None], s.b_coef)), scheme=s)
     prod = merge_quadrants(cq)
     steps = [
-        ("divide_level (einsum, one operand)", lambda: divide_level(a[None], s.a_coef)),
+        ("divide_level (level kernel, one operand)", lambda: divide_level(a[None], s.a_coef)),
         ("split_quadrants copy (one operand)", lambda: split_quadrants(ta)),
         ("strassen1 kernel", lambda: strassen1_matmul_cuda(aq, aq, scheme=s)),
         ("merge_quadrants copy", lambda: merge_quadrants(cq)),
-        ("combine_level (einsum)", lambda: combine_level(prod, s.c_coef)),
+        ("combine_level (level kernel)", lambda: combine_level(prod, s.c_coef)),
     ]
     for name, fn in steps:
         log(f"breakdown strassen_fused depth=2 fp32: {name}: {time_ms(fn, reps):.3f} ms")
@@ -4275,6 +4354,7 @@ def main() -> int:
     whisper_gen = np.random.default_rng([args.seed, 6])  # the whisper path's own stream
     phase_whisper_kernels(whisper_gen, get_config(WHISPER_ARCH))
     phase_train_kernels(np.random.default_rng([args.seed, 7]))  # the training path's own stream
+    phase_level_kernels(np.random.default_rng([args.seed, 12]))  # the level kernels' own stream
     if FAILURES:  # no point driving the main path through a wrong kernel
         return report_failures()
 

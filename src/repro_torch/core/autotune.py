@@ -194,7 +194,7 @@ class Calibration:
     """Per-environment constants, the analogue of the paper's §IV fit."""
 
     t_flop: float  # seconds per scalar multiply-add in the leaf matmul
-    t_elem: float  # seconds per element through a divide/combine einsum
+    t_elem: float  # seconds per element through a divide/combine level
     device_kind: str = "cpu"
     device_count: int = 1
     # seconds per element through an interconnect collective; 0.0 means "not
@@ -303,8 +303,10 @@ def calibrate(
     """Fit (t_flop, t_elem, t_coll, t_h2d) from micro-benchmarks on ``device``.
 
     Leaf benchmark: a rank-7 ``bmm``, the shape of the BFS leaf stage.
-    Divide benchmark: one :func:`divide_level`, the divide/combine stage.
-    Both mirror the paper's implicit calibration. The device count is the
+    Divide benchmark: one :func:`divide_level`, the divide/combine stage:
+    on a CUDA device the level kernel, on the CPU split + einsum, so
+    ``t_elem`` and with it kind auto's crossover follow the route that the
+    levels take there. Both mirror the paper's implicit calibration. The device count is the
     number of visible devices of ``device``'s type, and ``t_coll``
     (:func:`calibrate_collective`) is 0.0 on one.
     """
@@ -524,8 +526,9 @@ def predict_cost_terms(
     rank = get_scheme(cand.scheme).n_mults
     l = cand.depth
     fused = cand.kind in (FUSED_KIND, "strassen_fused_sharded")
-    # Levels whose intermediates are materialized: all l for the einsum
-    # pipelines, l-1 when the last level runs inside the fused kernel.
+    # Levels whose intermediates are materialized: all l for the
+    # level-by-level pipelines, l-1 when the last level runs inside the
+    # fused kernel.
     lm = l - 1 if fused else l
     elem_cost = 0.0
     # Divide levels i = 0..lm-1: outputs rank^(i+1) quarter-blocks of A and B.

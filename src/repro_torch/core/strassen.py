@@ -5,10 +5,27 @@ The port of :mod:`repro.core.strassen`, function for function:
 * :func:`strassen_recursive` is the paper's Algorithm 1 (serial recursion
   on a single node), the reference implementation.
 * :func:`divide_level` / :func:`combine_level` are one level of Stark's
-  distributed recursion, each one ``torch.einsum`` against the scheme's
-  constant coefficient matrix. The batch index plays the role of the
-  paper's M-index tag (base-7 digits, see
-  :func:`repro_torch.core.coefficients.leaf_tag_path`).
+  distributed recursion. The batch index plays the role of the paper's
+  M-index tag (base-7 digits, see
+  :func:`repro_torch.core.coefficients.leaf_tag_path`). On a CPU tensor a
+  level is the JAX package's form: :func:`split_quadrants` (a contiguous
+  copy), one ``torch.einsum`` against the scheme's constant coefficient
+  matrix, and for a combine :func:`merge_quadrants` (another copy). On a
+  CUDA tensor it is one launch of ``csrc/strassen_level.cu`` per operand
+  and level (:func:`~repro_torch.kernels.strassen.strassen.divide_level_cuda`,
+  :func:`~repro_torch.kernels.strassen.strassen.combine_level_cuda`), which
+  stands for those einsum levels and for ``divide_pallas``/``combine_pallas``:
+  it reads each block's quadrants where they lie (a divide) or writes them
+  there (a combine), so it moves each input once and each output once, the
+  least bytes of a level, at 3.35 TB/s its bound; no split or merge copy is
+  made. Each thread takes a 16-byte chunk of every input plane, sums every
+  output from registers in fp32 and rounds once on the store: the einsum's
+  arithmetic (bf16 operands accumulated in fp32, fp32 with TF32 off), not
+  ``signed_sum``'s rounding of each bf16 add, which stays with the staged
+  pipeline that stands for the Pallas kernels. A CUDA level runs as the
+  autograd function :class:`DivideLevel` or :class:`CombineLevel`: the
+  gradient of each is the other's kernel with the transposed coefficient
+  table, and a second derivative raises.
 * :func:`strassen_matmul` is the full pipeline: ``depth`` divide levels, one
   batched leaf multiplication (``torch.bmm`` by default, or any ``leaf_fn``)
   and ``depth`` combine levels.
@@ -37,9 +54,12 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.core.coefficients import STRASSEN, Scheme, get_scheme
 from repro_torch.core.precision import matmul_precision
+from repro_torch.kernels.common import on_cuda
+from repro_torch.kernels.strassen.strassen import combine_level_cuda, divide_level_cuda
 from repro_torch.obs import tracer as obs_tracer
 
 __all__ = [
@@ -51,6 +71,8 @@ __all__ = [
     "merge_quadrants",
     "divide_level",
     "combine_level",
+    "DivideLevel",
+    "CombineLevel",
     "strassen_matmul",
     "leaf_count",
 ]
@@ -119,14 +141,50 @@ def _coef(coef, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(np.asarray(coef), dtype=like.dtype, device=like.device)
 
 
+class DivideLevel(torch.autograd.Function):
+    """A divide level's kernel on CUDA tensors; its backward is the combine
+    kernel with the transposed table, from the sums back into the quadrants.
+    The backward is not itself differentiable: a second derivative raises."""
+
+    @staticmethod
+    def forward(ctx, x, coef):
+        ctx.coef = np.asarray(coef)
+        return divide_level_cuda(x, ctx.coef)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        return combine_level_cuda(grad, ctx.coef.T), None
+
+
+class CombineLevel(torch.autograd.Function):
+    """A combine level's kernel on CUDA tensors; its backward is the divide
+    kernel with the transposed table, from the quadrants back into the products.
+    The backward is not itself differentiable: a second derivative raises."""
+
+    @staticmethod
+    def forward(ctx, products, c_coef):
+        ctx.c_coef = np.asarray(c_coef)
+        return combine_level_cuda(products, ctx.c_coef)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        return divide_level_cuda(grad, ctx.c_coef.T), None
+
+
 def divide_level(x: torch.Tensor, coef, *, precision: Optional[str] = None) -> torch.Tensor:
     """One divide level: (m, r, c) -> (m*rank, r/2, c/2).
 
     ``coef`` is the scheme's (rank, 4) a_coef or b_coef. Stark's divide
     stage (replicate quadrants into the rank groups, then form each group's
-    signed sum) as one einsum. The output index is m_old * rank + p, so the
-    base-rank digits of a leaf index are the paper's M-index tag path.
+    signed sum). The output index is m_old * rank + p, so the base-rank
+    digits of a leaf index are the paper's M-index tag path. A CUDA tensor
+    takes the level kernel, whose fp32 sums need no ``precision``; a CPU
+    tensor one einsum at ``precision``.
     """
+    if on_cuda(x):
+        return DivideLevel.apply(x, coef)
     m, r, c = x.shape
     q = split_quadrants(x)  # (m, 4, r/2, c/2)
     cf = _coef(coef, x)
@@ -141,8 +199,11 @@ def combine_level(
     """One combine level: (m*rank, hr, hc) -> (m, 2hr, 2hc).
 
     ``c_coef`` is the scheme's (4, rank) combine matrix: Stark's combine
-    stage over the M-index tags.
+    stage over the M-index tags. A CUDA tensor takes the level kernel, which
+    writes each quadrant in place; a CPU tensor one einsum and the merge copy.
     """
+    if on_cuda(products):
+        return CombineLevel.apply(products, c_coef)
     cf = _coef(c_coef, products)
     rank = cf.shape[1]
     mr, hr, hc = products.shape
@@ -179,7 +240,7 @@ def strassen_matmul(
       leaf_fn: batched leaf multiply (m, i, j) x (m, j, k) -> (m, i, k).
         Defaults to ``torch.bmm`` at ``precision``.
       precision: matmul precision of the default leaf only; the divide and
-        combine einsums run with TF32 off whatever the caller asks, as the
+        combine levels run with TF32 off whatever the caller asks, as the
         JAX package runs them without the caller's precision.
       constrain_a/b/out: optional per-level hooks (m, r, c) -> tensor,
         applied after each divide level, the leaf and each combine level.

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "repro_batched_matmul": [_P, _P, _P, _I, _I, _L, _L, _L, _L, _P],
     # x, out, dtype, m, q, p, plane, coef (host), stream
     "repro_signed_sum": [_P, _P, _I, _L, _I, _I, _L, _P, _P],
+    # x, out, dtype, divide, m, q, p, hr, hc, coef (host), stream
+    "repro_strassen_level": [_P, _P, _I, _I, _L, _I, _I, _L, _L, _P, _P],
     # aq, bq, cq, dtype, out dtype, r, mb, m2, k2, n2, coefs (host), stream
     "repro_strassen1": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P, _P],
     # x, w, out, dtype, w dtype, rows, d, eps, stream

@@ -6,8 +6,11 @@ kernels' ``_signed_sum`` forms it, in the input dtype with one rounding per
 term and per add (no rounding in fp32), so the divide and combine kernels
 match them bit for bit; products are fp32 with TF32 off, and the fused
 kernel's fp32 combine is rounded once (to ``out_dtype``, the input dtype by
-default). The wrappers use them for CPU tensors; ``chip_smoke.py``
-holds the kernels against them on the card.
+default). The level kernel's versions (:func:`divide_level_ref`,
+:func:`combine_level_ref`) read and write the quadrants in place and sum in
+fp32, rounded once, as the einsum levels of ``core/strassen.py`` do. The
+wrappers use them for CPU tensors; ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` hold the kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -48,6 +51,50 @@ def divide_ref(x: torch.Tensor, coef: np.ndarray) -> torch.Tensor:
 def combine_ref(products: torch.Tensor, c_coef: np.ndarray) -> torch.Tensor:
     """(m, r, h, w) -> (m, 4, h, w), the einsum 'kp,mpij->mkij'."""
     return signed_sum_ref(products, c_coef).to(products.dtype)
+
+
+def _quadrant(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Quadrant ``k`` (row-major [11, 12, 21, 22]) of each (2hr, 2hc) block
+    of ``x``, as a view: rows (k // 2) * hr.., columns (k % 2) * hc.."""
+    hr, hc = x.shape[-2] // 2, x.shape[-1] // 2
+    r, c = divmod(k, 2)
+    return x[..., r * hr:(r + 1) * hr, c * hc:(c + 1) * hc]
+
+
+def _fp32_sum(terms, row) -> torch.Tensor:
+    """sum_j row[j] * terms[j] in fp32, over j in ascending order, zeros
+    skipped (zeros when every coefficient is 0)."""
+    acc = None
+    for t, c in zip(terms, row):
+        if c == 0:
+            continue
+        term = t.float() * float(c)
+        acc = term if acc is None else acc + term
+    return acc if acc is not None else torch.zeros_like(terms[0], dtype=torch.float32)
+
+
+def divide_level_ref(x: torch.Tensor, coef: np.ndarray) -> torch.Tensor:
+    """(m, r, c) -> (m*p, r/2, c/2) for a (p, 4) ``coef``: the level kernel's
+    divide on the quadrants where they lie, each sum in fp32 rounded once to
+    x's dtype; out[b*p + i] = sum_k coef[i, k] * quadrant k of x[b]."""
+    _, r, c = x.shape
+    quads = [_quadrant(x, k) for k in range(4)]
+    out = torch.stack([_fp32_sum(quads, row) for row in np.asarray(coef)], dim=1)
+    return out.to(x.dtype).reshape(-1, r // 2, c // 2)
+
+
+def combine_level_ref(products: torch.Tensor, c_coef: np.ndarray) -> torch.Tensor:
+    """(m*q, hr, hc) -> (m, 2hr, 2hc) for a (4, q) ``c_coef``: the level
+    kernel's combine, each quadrant's sum in fp32 rounded once as it is
+    written in place; quadrant i of out[b] = sum_k c_coef[i, k] * products[b*q + k]."""
+    c_coef = np.asarray(c_coef)
+    q = c_coef.shape[1]
+    mq, hr, hc = products.shape
+    prods = products.reshape(mq // q, q, hr, hc)
+    out = products.new_empty((mq // q, 2 * hr, 2 * hc))
+    for k, row in enumerate(c_coef):
+        _quadrant(out, k).copy_(_fp32_sum([prods[:, j] for j in range(q)], row))
+    return out
 
 
 def strassen1_matmul_ref(

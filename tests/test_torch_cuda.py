@@ -67,6 +67,105 @@ def test_cuda_signed_sum_kernels_are_bit_exact(cuda, scheme_name, dtype):
         assert torch.equal(tst.combine_cuda(p, s.c_coef), tref.combine_ref(p, s.c_coef))
 
 
+def _einsum_level(monkeypatch, x, coef, divide):
+    """A level as core/strassen.py forms it on the CPU, run on the card:
+    split_quadrants, one einsum with TF32 off, and for a combine
+    merge_quadrants."""
+    from repro_torch.core import strassen as core_strassen
+
+    with monkeypatch.context() as m:
+        m.setattr(core_strassen, "on_cuda", lambda *t: False)
+        if divide:
+            return core_strassen.divide_level(x, coef)
+        return core_strassen.combine_level(x, coef)
+
+
+def _level_close(got, want, terms, dtype):
+    """bf16: within one ulp of the einsum route's (expected bit for bit: up to
+    four bf16 terms sum exactly in fp32, and both round once). fp32: within 4
+    ulps of the terms' absolute sum, since the einsum may add the same terms
+    in another order and each reordered add may round differently."""
+    d = (got.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        return bool((d <= 2**-7 * want.float().abs()).all())
+    return bool((d <= 4 * 2**-23 * terms).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme_name", SCHEMES)
+def test_cuda_strassen_level_kernels_match_the_einsum_route(cuda, scheme_name, dtype,
+                                                             monkeypatch):
+    """The level kernels against their plain versions (bit for bit: the same
+    fp32 sums in the same order, rounded once) and against split + einsum
+    (+ merge) (see _level_close). hc 64 and 24 take 16-byte chunks in both
+    dtypes, hc 4 in fp32 only, hc 6 in neither; m is 1 and 7; one input is
+    transposed (not contiguous). Each call launches its kernel once."""
+    s = get_scheme(scheme_name)
+    for m, r, c in [(1, 64, 128), (7, 40, 48), (7, 18, 8), (1, 10, 12)]:
+        x, xt = _on(cuda, (m, r, c), dtype), _on(cuda, (m, c, r), dtype).transpose(1, 2)
+        p = _on(cuda, (m * s.rank, r // 2, c // 2), dtype)
+        cases = [(tst.divide_level_cuda, tref.divide_level_ref, x, s.a_coef, True),
+                 (tst.divide_level_cuda, tref.divide_level_ref, xt, s.b_coef, True),
+                 (tst.combine_level_cuda, tref.combine_level_ref, p, s.c_coef, False)]
+        for fn, plain, inp, coef, divide in cases:
+            n = fn.launches
+            got = fn(inp, coef)
+            assert fn.launches == n + 1
+            assert torch.equal(got, plain(inp, coef)), (fn.__name__, m, r, c)
+            terms = _einsum_level(monkeypatch, inp.float().abs(), np.abs(coef), divide)
+            want = _einsum_level(monkeypatch, inp, coef, divide)
+            assert _level_close(got, want, terms, dtype), (
+                fn.__name__, m, r, c)
+
+
+@pytest.mark.cuda
+def test_cuda_kind_strassen_runs_the_level_kernels_alone(cuda, monkeypatch):
+    """Kind strassen at depth 2 on a 1024^2 multiply: one level launch per
+    operand and level, no quadrant copy, einsum or GEMV under backend.matmul
+    (the leaf's bmm aside); its fp32 product and gradients through
+    backend.matmul match the einsum route's (the same code with the levels
+    taken as on the CPU) within 1e-5 normwise (the sums add in another order)."""
+    from repro_torch.core import strassen as core_strassen
+    from repro_torch.core.backend import MatmulBackend, matmul
+
+    be = MatmulBackend(kind="strassen", depth=2, min_dim=256)
+    a, b = _on(cuda, (1024, 1024), torch.float32), _on(cuda, (1024, 1024), torch.float32)
+    n_div, n_comb = tst.divide_level_cuda.launches, tst.combine_level_cuda.launches
+    matmul(a, b, be)
+    torch.cuda.synchronize()
+    assert tst.divide_level_cuda.launches - n_div == 4
+    assert tst.combine_level_cuda.launches - n_comb == 2
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        matmul(a, b, be)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not {"aten::copy_", "aten::einsum", "aten::clone"} & set(names), sorted(set(names))
+    assert sum("strassen_level_kernel" in k for k in kernels) == 6, kernels
+    others = [k for k in kernels if "strassen_level_kernel" not in k]
+    assert others and not [k for k in others if "gemv" in k.lower() or "gemmSN" in k
+                           or "elementwise" in k.lower()], others
+
+    def run(x, y):
+        xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+        out = matmul(xg, yg, be)
+        out.backward(g)
+        return out.detach(), xg.grad, yg.grad
+
+    g = _on(cuda, (1024, 1024), torch.float32)
+    n_div, n_comb = tst.divide_level_cuda.launches, tst.combine_level_cuda.launches
+    got = run(a, b)
+    # forward 4 + 2; backward: each combine's gradient is a divide launch, each divide's a combine
+    assert tst.divide_level_cuda.launches - n_div == 4 + 2
+    assert tst.combine_level_cuda.launches - n_comb == 2 + 4
+    monkeypatch.setattr(core_strassen, "on_cuda", lambda *t: False)
+    want = run(a, b)
+    for x, y in zip(got, want):
+        assert ((x - y).norm() / y.norm()).item() <= 1e-5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 8e-3)])
 @pytest.mark.parametrize("scheme_name", SCHEMES)

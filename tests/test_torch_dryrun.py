@@ -46,7 +46,9 @@ from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda  
 from repro_torch.kernels.slstm.slstm import slstm_seq_bwd_cuda, slstm_seq_cuda  # noqa: E402
 from repro_torch.kernels.strassen.strassen import (  # noqa: E402
     combine_cuda,
+    combine_level_cuda,
     divide_cuda,
+    divide_level_cuda,
     strassen1_matmul_cuda,
 )
 from repro_torch.launch import dryrun, perf, roofline, summarize  # noqa: E402
@@ -258,6 +260,14 @@ def _case(name):
         p = fake(3, 7, 16, 4)
         return (lambda: combine_cuda(p, S.c_coef), combine_cuda,
                 cost.signed_sum(S.c_coef, 3, 64, f32), [((3, 4, 16, 4), f32)])
+    if name == "divide_level":
+        x = fake(2, 16, 8, dtype=b16)
+        return (lambda: divide_level_cuda(x, W.a_coef), divide_level_cuda,
+                cost.signed_sum(W.a_coef, 2, 32, b16), [((14, 8, 4), b16)])
+    if name == "combine_level":
+        p = fake(21, 16, 4)
+        return (lambda: combine_level_cuda(p, S.c_coef), combine_level_cuda,
+                cost.signed_sum(S.c_coef, 3, 64, f32), [((3, 32, 8), f32)])
     if name == "strassen1":
         aq, bq = fake(2, 4, 16, 8), fake(2, 4, 8, 32)
         return (lambda: strassen1_matmul_cuda(aq, bq, out_dtype=b16), strassen1_matmul_cuda,
@@ -297,7 +307,8 @@ def _case(name):
 
 
 KERNEL_CASES = ["matmul", "batched_matmul", "divide", "combine", "strassen1", "rmsnorm", "flash",
-                "flash_lse", "slstm", "slstm_save", "rmsnorm_bwd", "flash_bwd", "slstm_bwd"]
+                "flash_lse", "slstm", "slstm_save", "rmsnorm_bwd", "flash_bwd", "slstm_bwd",
+                "divide_level", "combine_level"]
 
 
 @pytest.mark.parametrize("name", KERNEL_CASES)

@@ -237,6 +237,115 @@ def test_plain_divide_matches_the_einsum():
     assert torch.equal(tst.divide_cuda(x, s.a_coef), got)
 
 
+def _split_einsum_merge(x, coef, divide):
+    """A level as core/strassen.py forms it on the CPU: split_quadrants, one
+    einsum, and for a combine merge_quadrants."""
+    from repro_torch.core.strassen import combine_level, divide_level
+
+    return divide_level(x, coef) if divide else combine_level(x, coef)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("scheme_name", SCHEMES)
+def test_level_plain_versions_match_split_einsum_merge(scheme_name, dtype):
+    """The level kernel's plain versions, which read and write the quadrants
+    in place, against split + einsum (+ merge): bit for bit on integer
+    values, whose sums are exact in any order; on normal values within 1e-6
+    relative (fp32: the einsum may add in another order) or bit for bit (bf16:
+    up to four bf16 terms sum exactly in fp32 and are rounded once by both).
+    hc of 5 and 12, m of 1 and 7, and a transposed (non-contiguous) input."""
+    s = get_scheme(scheme_name)
+    td = DTYPES[dtype][1]
+    for m, r, c in [(1, 16, 24), (7, 10, 10), (3, 8, 12)]:
+        for values in ("int", "normal"):
+            def draw(shape):
+                if values == "int":
+                    return torch.from_numpy(RNG.integers(-8, 8, shape).astype(np.float32)).to(td)
+                return _pair(shape, dtype)[1]
+
+            x = draw((m, r, c))
+            p = draw((m * s.rank, r // 2, c // 2))
+            xt = draw((m, c, r)).transpose(1, 2)
+            pairs = [(tref.divide_level_ref(x, s.a_coef), _split_einsum_merge(x, s.a_coef, True)),
+                     (tref.divide_level_ref(xt, s.b_coef), _split_einsum_merge(xt, s.b_coef, True)),
+                     (tref.combine_level_ref(p, s.c_coef), _split_einsum_merge(p, s.c_coef, False))]
+            for got, want in pairs:
+                assert got.shape == want.shape and got.dtype == want.dtype
+                if values == "int" or dtype == "bfloat16":
+                    assert torch.equal(got, want)
+                else:
+                    _close(got, want, 1e-6)
+
+
+def test_level_wrappers_on_cpu_are_the_plain_versions_and_launch_nothing():
+    s = get_scheme("winograd")
+    _, x = _pair((2, 8, 12))
+    _, p = _pair((14, 4, 6))
+    before = (tst.divide_level_cuda.launches, tst.combine_level_cuda.launches)
+    assert torch.equal(tst.divide_level_cuda(x, s.a_coef), tref.divide_level_ref(x, s.a_coef))
+    assert torch.equal(tst.combine_level_cuda(p, s.c_coef), tref.combine_level_ref(p, s.c_coef))
+    assert (tst.divide_level_cuda.launches, tst.combine_level_cuda.launches) == before
+
+
+def test_level_wrappers_reject_bad_input():
+    s = get_scheme("strassen")
+    with pytest.raises(ValueError):
+        tst.divide_level_cuda(torch.zeros(1, 4, 8, 8), s.a_coef)
+    with pytest.raises(ValueError):
+        tst.divide_level_cuda(torch.zeros(1, 7, 8), s.a_coef)
+    with pytest.raises(ValueError):
+        tst.divide_level_cuda(torch.zeros(1, 8, 8), s.c_coef)
+    with pytest.raises(ValueError):
+        tst.combine_level_cuda(torch.zeros(6, 4, 4), s.c_coef)
+    with pytest.raises(ValueError):
+        tst.combine_level_cuda(torch.zeros(7, 4, 4), s.a_coef)
+    with pytest.raises(TypeError):
+        tst.divide_level_cuda(torch.zeros(1, 8, 8).double(), s.a_coef)
+
+
+@pytest.mark.parametrize("scheme_name", SCHEMES)
+def test_level_functions_backward_is_the_einsum_routes(scheme_name):
+    """DivideLevel and CombineLevel (the CUDA levels under autograd; on a CPU
+    tensor their wrappers compute the plain versions) give the gradients
+    that autograd takes through split + einsum (+ merge): each backward is
+    the other level with the transposed table. Integer values: exact."""
+    from repro_torch.core.strassen import CombineLevel, DivideLevel
+
+    s = get_scheme(scheme_name)
+    ints = lambda *shape: torch.from_numpy(RNG.integers(-8, 8, shape).astype(np.float32))  # noqa: E731
+    x, p = ints(3, 8, 12), ints(3 * s.rank, 4, 6)
+    gd, gc = ints(3 * s.rank, 4, 6), ints(3, 8, 12)
+    for fn, plain, inp, coef, g in [(DivideLevel, True, x, s.a_coef, gd),
+                                    (CombineLevel, False, p, s.c_coef, gc)]:
+        a, b = inp.clone().requires_grad_(), inp.clone().requires_grad_()
+        out = fn.apply(a, coef)
+        want = _split_einsum_merge(b, coef, plain)
+        assert torch.equal(out.detach(), want.detach())
+        out.backward(g)
+        want.backward(g)
+        assert torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.parametrize("level", ["divide", "combine"])
+def test_level_functions_refuse_a_second_derivative(level):
+    """Each level's backward runs a kernel that autograd cannot see through,
+    so a second derivative (here of the gradient with respect to the
+    incoming gradient, which the einsum route gives) raises rather than
+    coming out silently wrong."""
+    from repro_torch.core.strassen import CombineLevel, DivideLevel
+
+    s = get_scheme("strassen")
+    fn, coef, shape = ((DivideLevel, s.a_coef, (2, 8, 12)) if level == "divide"
+                       else (CombineLevel, s.c_coef, (14, 4, 6)))
+    x = torch.randn(shape, requires_grad=True)
+    out = fn.apply(x, coef)
+    v = torch.randn(out.shape, requires_grad=True)
+    (g,) = torch.autograd.grad(out, x, v, create_graph=True)
+    assert g.requires_grad
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        g.sum().backward()
+
+
 # ------------------------------------------------- pipelines vs Pallas
 @pytest.mark.parametrize("depth", [1, 2])
 @pytest.mark.parametrize("pipeline", ["strassen_matmul_stages", "strassen_matmul_fused"])
