@@ -1,7 +1,17 @@
 """olmoe-1b-7b [moe]: 16L d2048 16H (kv=16) expert_ff=1024 v50304, 64e top-8.
 
 64 routed experts, top-8, no shared experts. [arXiv:2409.02060]
+
+``CONFIG`` and ``SMOKE_CONFIG`` are the JAX package's (its parity tests
+use them). ``TRAIN_CONFIG`` is the model as published and trained
+(allenai/OLMoE-1B-7B-0924 ``config.json``): RMSNorm over the whole q and k
+projections, the top-8 gates not renormalised (``norm_topk_prob`` false),
+dropless routing, RMSNorm eps 1e-5. ``share(cfg, rank, ranks)`` is one
+chip's share of ``ranks``-way expert parallelism. ``TRAIN_SMOKE_CONFIG`` is
+its CPU-test size: 16 experts, top-4.
 """
+import dataclasses
+
 from repro_torch.models.config import ModelConfig
 
 CONFIG = ModelConfig(
@@ -43,3 +53,16 @@ SMOKE_CONFIG = ModelConfig(
     dtype="float32",
     remat=False,
 )
+
+TRAIN_CONFIG = dataclasses.replace(
+    CONFIG, norm_eps=1e-5, qk_norm=True, norm_topk_prob=False, moe_dropless=True)
+
+TRAIN_SMOKE_CONFIG = dataclasses.replace(
+    SMOKE_CONFIG, name="olmoe-train-smoke", n_experts=16, top_k=4, norm_eps=1e-5, qk_norm=True,
+    norm_topk_prob=False, moe_dropless=True)
+
+
+def share(cfg: ModelConfig, rank: int, ranks: int) -> ModelConfig:
+    """EP rank ``rank``'s layer of ``ranks``: experts [rank * E / ranks, ...)."""
+    held = cfg.n_experts // ranks
+    return dataclasses.replace(cfg, experts_held=held, expert_first=rank * held)

@@ -16,7 +16,9 @@ through uint8 views of its storage (:func:`as_bits`), and the prefill's
 flash attention reads the fp8-rounded K/V upcast to q's dtype, which is
 exact, as the JAX ``chunked_attention`` upcasts them to fp32.
 Cross-attention (the encoder-decoder family, whisper) runs flash attention
-without a mask against K/V computed once from the encoder's output.
+without a mask against K/V computed once from the encoder's output. With
+``cfg.qk_norm`` (olmoe) the q and k projections each pass an RMSNorm over
+their whole width before RoPE: the RMSNorm kernel, forward and backward.
 
 Under a sharding context (:mod:`repro_torch.models.sharding`) q, k and v are
 constrained as the JAX package constrains them, and the attention core (the
@@ -38,7 +40,7 @@ from repro_torch.core.mesh import P, Sharded, fetch, gather, shard, spec_axes
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Linear, init_linear, linear
+from repro_torch.models.layers import Linear, Norm, init_linear, linear, rmsnorm
 from repro_torch.models.rope import apply_mrope, apply_rope
 
 __all__ = [
@@ -57,20 +59,28 @@ _NEG_INF = -1e30
 
 
 class Attention(nn.Module):
-    """Projections ``wq``, ``wk``, ``wv`` (d, n*hd) and ``wo`` (n*hd, d), stored flat."""
+    """Projections ``wq``, ``wk``, ``wv`` (d, n*hd) and ``wo`` (n*hd, d), stored flat;
+    with ``cfg.qk_norm`` also ``q_norm`` (h*hd) and ``k_norm`` (hkv*hd), RMSNorms
+    over the whole q and k projections."""
 
-    def __init__(self, wq: Linear, wk: Linear, wv: Linear, wo: Linear):
+    def __init__(self, wq: Linear, wk: Linear, wv: Linear, wo: Linear,
+                 q_norm: Optional[Norm] = None, k_norm: Optional[Norm] = None):
         super().__init__()
         self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+        if q_norm is not None:
+            self.q_norm, self.k_norm = q_norm, k_norm
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Attention:
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    norms = ((Norm("rmsnorm", h * hd, dtype, gen.device), Norm("rmsnorm", hkv * hd, dtype, gen.device))
+             if cfg.qk_norm else ())
     return Attention(
         init_linear(gen, d, (h * hd,), dtype, bias=cfg.qkv_bias),
         init_linear(gen, d, (hkv * hd,), dtype, bias=cfg.qkv_bias),
         init_linear(gen, d, (hkv * hd,), dtype, bias=cfg.qkv_bias),
         init_linear(gen, h * hd, (d,), dtype, scale=(h * hd) ** -0.5),
+        *norms,
     )
 
 
@@ -123,8 +133,11 @@ def _project_qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig, positions
     backend = cfg.matmul_backend
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(params.wq, x, backend, w_logical=("fsdp", "heads"), site="attn.wq").reshape(b, s, h, hd)
-    k = linear(params.wk, x, backend, w_logical=("fsdp", "heads"), site="attn.wk").reshape(b, s, hkv, hd)
+    q = linear(params.wq, x, backend, w_logical=("fsdp", "heads"), site="attn.wq")
+    k = linear(params.wk, x, backend, w_logical=("fsdp", "heads"), site="attn.wk")
+    if cfg.qk_norm:
+        q, k = rmsnorm(params.q_norm, q, cfg.norm_eps), rmsnorm(params.k_norm, k, cfg.norm_eps)
+    q, k = q.reshape(b, s, h, hd), k.reshape(b, s, hkv, hd)
     v = linear(params.wv, x, backend, w_logical=("fsdp", "heads"), site="attn.wv").reshape(b, s, hkv, hd)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)  # (B, H, S, hd)
     if cfg.mrope:

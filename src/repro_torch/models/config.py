@@ -4,6 +4,10 @@
 A single frozen dataclass describes every family (dense / moe / ssm /
 audio / vlm / hybrid); the block_pattern drives which layer kinds are
 instantiated. Frozen and hashable, so a config can key a cache.
+
+The fields after the JAX package's (``qk_norm``, ``norm_topk_prob``,
+``moe_dropless``, ``experts_held``, ``expert_first``) are the port's own;
+their defaults are the JAX package's behaviour.
 """
 from __future__ import annotations
 
@@ -92,6 +96,19 @@ class ModelConfig:
     attn_q_chunk: int = 512
     attn_k_chunk: int = 1024
 
+    # The port's own fields; the defaults keep the JAX package's behaviour.
+    # RMSNorm over the whole q and k projections before RoPE (olmoe).
+    qk_norm: bool = False
+    # False: the top-k gates are the router's probabilities as they are.
+    norm_topk_prob: bool = True
+    # Every top-k assignment to a held expert is computed (no capacity).
+    moe_dropless: bool = False
+    # One chip's share of expert parallelism: this layer holds experts
+    # [expert_first, expert_first + experts_held) of the router's n_experts
+    # (0 = all) and computes only their part of the result. Dropless only.
+    experts_held: int = 0
+    expert_first: int = 0
+
     def __post_init__(self):
         if self.matmul_autotune and self.matmul_backend.kind != "auto":
             object.__setattr__(
@@ -108,6 +125,13 @@ class ModelConfig:
                 object.__setattr__(self, "mlstm_v_dim", self.d_model)
         if not self.rnn_width:
             object.__setattr__(self, "rnn_width", self.d_model)
+        if self.is_moe:
+            first, held = self.expert_first, self.held_experts
+            if held < 1 or first < 0 or first + held > self.n_experts:
+                raise ValueError(f"experts [{first}, {first + held}) are not among the "
+                                 f"router's {self.n_experts}")
+            if held < self.n_experts and not self.moe_dropless:
+                raise ValueError("a share of the experts needs moe_dropless")
 
     @property
     def is_encdec(self) -> bool:
@@ -116,6 +140,11 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def held_experts(self) -> int:
+        """How many experts this layer holds: ``experts_held``, or all."""
+        return self.experts_held or self.n_experts
 
     def block_kind(self, layer_idx: int) -> str:
         return self.block_pattern[layer_idx % len(self.block_pattern)]
@@ -142,6 +171,8 @@ class ModelConfig:
                 total += d * self.n_heads * hd  # q
                 total += 2 * d * self.n_kv_heads * hd  # k, v
                 total += self.n_heads * hd * d  # o
+                if self.qk_norm:
+                    total += (self.n_heads + self.n_kv_heads) * hd
                 total += self._ffn_params()
             elif kind == "mlstm":
                 qk, vd = self.mlstm_qk_dim, self.mlstm_v_dim
@@ -165,7 +196,7 @@ class ModelConfig:
     def _ffn_params(self) -> int:
         d = self.d_model
         if self.is_moe:
-            e = self.n_experts + self.n_shared_experts
+            e = self.held_experts + self.n_shared_experts
             return e * 3 * d * self.d_expert + d * self.n_experts
         if self.d_ff == 0:
             return 0
@@ -178,7 +209,8 @@ class ModelConfig:
             return self.param_count()
         d = self.d_model
         total = self.param_count()
-        # subtract inactive experts
-        inactive = self.n_experts - self.top_k
+        # subtract inactive experts (of a share, a token's expected picks here)
+        held = self.held_experts
+        inactive = held - self.top_k * held // self.n_experts
         total -= self.n_layers * inactive * 3 * d * self.d_expert
         return total

@@ -145,9 +145,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *, device
 
 
 def _apply_layer(lparams: Layer, x, cfg: ModelConfig, kind: str, *, positions, cache_entry,
-                 cache_pos, causal: bool):
-    """One block: pre-norm mixer + residual (+ pre-norm FFN + residual).
-    Returns (x, new cache entry, the MoE router's aux loss or None)."""
+                 cache_pos, causal: bool, index: Optional[int] = None):
+    """One block (the ``index``-th): pre-norm mixer + residual (+ pre-norm FFN +
+    residual). Returns (x, new cache entry, the MoE router's aux loss or None)."""
     h = _norm(cfg, lparams.ln1, x)
     if kind == "mlstm":
         mix, new_cache = mlstm_block(lparams.mixer, h, cfg, state=cache_entry)
@@ -168,7 +168,7 @@ def _apply_layer(lparams: Layer, x, cfg: ModelConfig, kind: str, *, positions, c
     if lparams.ffn is not None:
         h2 = _norm(cfg, lparams.ln2, x)
         if cfg.is_moe:
-            f, aux = moe_block(lparams.ffn, h2, cfg)
+            f, aux = moe_block(lparams.ffn, h2, cfg, layer=index)
         else:
             f = mlp_block(lparams.ffn, h2, cfg)
         x = x + f
@@ -180,7 +180,7 @@ def _run_layers(params: Transformer, x, cfg: ModelConfig, idx: range, positions,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in idx:
         x, _, a = _apply_layer(params.layers[i], x, cfg, cfg.block_kind(i), positions=positions,
-                               cache_entry=None, cache_pos=None, causal=causal)
+                               cache_entry=None, cache_pos=None, causal=causal, index=i)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -252,7 +252,7 @@ def forward(
                 lparams, x, cfg, cfg.block_kind(i),
                 positions=positions,
                 cache_entry=cache["layers"][i] if cache is not None else None,
-                cache_pos=cache_pos, causal=causal,
+                cache_pos=cache_pos, causal=causal, index=i,
             )
             if aux is not None:
                 aux_total = aux_total + aux

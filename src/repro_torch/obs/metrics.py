@@ -1,6 +1,7 @@
 """Process-local counters, gauges, and fixed-bucket histograms.
 
-A copy of :mod:`repro.obs.metrics`; nothing in it depends on the framework.
+A copy of :mod:`repro.obs.metrics`, with the names of the MoE layer's
+counters added; nothing in it depends on the framework.
 
 The registry is deliberately small: named instruments created on first
 use, a ``snapshot()`` that returns plain dicts (JSON-able, embeddable
@@ -42,6 +43,17 @@ TIME_BUCKETS_S: Tuple[float, ...] = tuple(
 
 # Power-of-4 byte buckets: 1 KiB .. 16 GiB.
 BYTES_BUCKETS: Tuple[float, ...] = tuple(float(1 << s) for s in range(10, 35, 2))
+
+# Counters of the MoE layer's routed load (``models/moe.py``'s dropless
+# route), counted only with the tracer on: the tokens routed (a layer's
+# tokens at each pass), the top-k assignments to experts this layer holds
+# (the rows its expert products compute) and to experts held elsewhere,
+# and each held expert's assignments under MOE_EXPERT_LOAD + its index in
+# the router.
+MOE_TOKENS_ROUTED = "moe.tokens_routed"
+MOE_ASSIGNMENTS_HELD = "moe.assignments_held"
+MOE_ASSIGNMENTS_ELSEWHERE = "moe.assignments_elsewhere"
+MOE_EXPERT_LOAD = "moe.expert_load."
 
 
 class Counter:

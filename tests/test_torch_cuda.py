@@ -920,6 +920,56 @@ def test_cuda_train_step_matches_the_cpu_port(cuda, arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,loss_tol,leaf_tol", [("float32", 1e-5, 1e-4),
+                                                     ("bfloat16", 2.0**-7, 2.0**-4)])
+def test_cuda_olmoe_dropless_train_step_matches_the_cpu_port(cuda, dtype, loss_tol, leaf_tol):
+    """One train step (accumulate 2) of OLMoE's published training variant
+    at a smoke size, as EP rank 1 of 4 (QK-norm on the RMSNorm kernels, the
+    top-4 gates unnormalised, dropless grouped expert products), on the card
+    against the same step of the CPU port. The routers' weights are scaled
+    by 8, so that no top-k pick lies within bf16 noise of the next: a
+    flipped pick moves a token's output by a whole expert's term. fp32: the
+    loss and grad norm to 1e-5 relative, each first moment (the clipped
+    gradient) normwise to 1e-4, as the other train steps here. bf16 rounds
+    each activation to 2^-8 of itself, on the two devices in other orders:
+    the loss and grad norm to 2^-7; a held expert's gradient sums about 16
+    rows here, whose bf16 terms cancel, and its first moment read up to
+    3.4e-2 normwise on the H100, so 2^-4."""
+    import dataclasses
+
+    from repro_torch.configs import olmoe_1b_7b as O
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.train_step import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(O.share(O.TRAIN_SMOKE_CONFIG, 1, 4), dtype=dtype)
+    opt = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=50)
+    cpu = init_train_state(cfg, opt, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in cpu.params.layers:
+            layer.ffn.router.w.mul_(8.0)
+    dev = _state_on(cpu, cuda)
+    batch = SyntheticLM(cfg, DataConfig(batch=4, seq_len=32, seed=3), device="cpu")(0)
+    step = make_train_step(cfg, opt, accum_steps=2)
+    trn.rmsnorm_bwd_cuda.launches = 0
+    dev, dm = step(dev, {k: t.to(cuda) for k, t in batch.items()})
+    cpu, cm = step(cpu, batch)
+    # per micro-batch: ln1, q_norm, k_norm and ln2 of each layer, and the final norm
+    assert trn.rmsnorm_bwd_cuda.launches == 2 * (4 * cfg.n_layers + 1)
+    for key in ("loss", "grad_norm"):
+        gap = abs(dm[key].item() - cm[key].item()) / abs(cm[key].item())
+        print(f"olmoe {dtype} step {key}: {gap!r}")
+        assert gap <= loss_tol, key
+    worst = 0.0
+    for name in cpu.opt.m:
+        a, b = dev.opt.m[name].cpu().double(), cpu.opt.m[name].double()
+        gap = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+        worst = max(worst, gap)
+        assert gap <= leaf_tol, (name, gap)
+    print(f"olmoe {dtype} step worst first moment: {worst!r}")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 8e-3)])
 @pytest.mark.parametrize("kind", ["naive", "strassen", "strassen_fused"])
 @pytest.mark.parametrize("w_logical", [("fsdp", "heads"), ("d_ff", "fsdp")])
